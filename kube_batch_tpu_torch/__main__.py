@@ -1,0 +1,115 @@
+"""Run scheduling cycles on a simulated world.
+
+    python -m kube_batch_tpu_torch --workload 5 --cycles 2 [--device cpu]
+
+Builds BASELINE config N (models/workloads.py) in the simulator, runs
+`--cycles` cycles of the default conf with a simulator tick between them,
+and prints one JSON line per cycle: pods bound, auction rounds per pass
+and the cycle's wall time split into pack / solve / dispatch.
+
+`--profile DIR` traces the cycles with torch.profiler, after one
+untraced warm-up cycle on a twin world: DIR receives the Chrome trace
+and the per-operator table, and one more JSON line gives the device
+time per kernel (top 15), the summed device time, the traced wall time,
+the traced cycles' own wall time (sum of their `run_once` calls) and
+the share of that cycle wall the device was busy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m kube_batch_tpu_torch")
+    ap.add_argument("--workload", type=int, default=1, choices=range(1, 6))
+    ap.add_argument("--cycles", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", metavar="DIR", default=None)
+    args = ap.parse_args(argv)
+
+    from kube_batch_tpu_torch.models.workloads import build_config
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    kw = {} if args.workload == 1 else {"seed": args.seed}
+    cache, sim = build_config(args.workload, **kw)
+    sched = Scheduler(cache, device=args.device)
+    if args.profile:
+        return _profiled(sched, sim, args)
+    _cycles(sched, sim, args.cycles)
+    return 0
+
+
+def _cycles(sched, sim, cycles: int) -> float:
+    """Run and report `cycles` cycles; returns their summed wall ms."""
+    import time
+
+    total_ms = 0.0
+    for cycle in range(cycles):
+        t0 = time.perf_counter()
+        ssn = sched.run_once()
+        total_ms += (time.perf_counter() - t0) * 1e3
+        line = {"cycle": cycle, "device": str(sched.device),
+                "bound": 0 if ssn is None else len(ssn.bound)}
+        if ssn is not None:
+            line.update(sched.last_stats)
+            line.update({k: round(v, 3) for k, v in sched.last_timings.items()})
+        print(json.dumps(line), flush=True)
+        sim.tick()
+    return total_ms
+
+
+def _profiled(sched, sim, args) -> int:
+    """Trace one warm cycle: a first cycle on a twin world (same config
+    and seed) pays the one-time costs — kernel builds and loads, Triton
+    compilation, library initialisation — outside the trace."""
+    import os
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kube_batch_tpu_torch.models.workloads import build_config
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    kw = {} if args.workload == 1 else {"seed": args.seed}
+    Scheduler(build_config(args.workload, **kw)[0], device=sched.device).run_once()
+    os.makedirs(args.profile, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if sched.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        cycle_ms = _cycles(sched, sim, args.cycles)
+        if sched.device.type == "cuda":
+            torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    events = prof.key_averages()
+    with open(os.path.join(args.profile, "ops.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+    # device-side events only (kernels, copies, memsets): an operator's
+    # CPU-side event repeats the time of the kernels it launched
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in events
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda k: -k[1],
+    )
+    device_ms = sum(k[1] for k in kernels)
+    print(json.dumps({
+        "profile": args.profile, "traced_wall_ms": round(wall_ms, 3),
+        "cycle_wall_ms": round(cycle_ms, 3), "device_ms": round(device_ms, 3),
+        "device_busy_share": round(device_ms / cycle_ms, 4) if cycle_ms else None,
+        "top": [{"name": n[:80], "device_ms": round(ms, 3), "calls": c}
+                for n, ms, c in kernels[:15]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,321 @@
+"""TensorPolicy: the configuration-time half of the session framework.
+
+Reference counterpart: framework/session_plugins.go — the extension
+point registries (AddJobOrderFn/AddPredicateFn/AddNodeOrderFn/...) and
+their tiered evaluators; the port of kube_batch_tpu/framework/policy.py.
+
+Every registered fn is a plain function over `(SnapshotTensors,
+AllocState)`.  Tier semantics are preserved exactly: order fns stack
+into lexicographic keys (first decisive tier wins — rank_from_keys), and
+AND/OR masks combine as in the reference.
+
+Node-order fns carry a `kind`: "least_requested" and "balanced" are
+evaluated inside the propose kernel (K2); every other fn is an additive
+[T, N] term the kernel adds after them (`score_spec`).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
+from kube_batch_tpu_torch.api.types import TaskStatus
+from kube_batch_tpu_torch.kernels.propose import ScoreSpec
+from kube_batch_tpu_torch.ops.assignment import (
+    AllocState,
+    rank_from_keys,
+    segment_prefix,
+)
+
+BIG_VTIME = 1e30
+
+#: node-order kinds the propose kernel computes itself
+KERNEL_SCORE_KINDS = ("least_requested", "balanced")
+
+
+def virtual_start_times(
+    seg: torch.Tensor,        # i32[T] segment id per task (queue or job)
+    base_rank: torch.Tensor,  # i32[T] within-segment service order
+    req: torch.Tensor,        # f32[T, R]
+    valid: torch.Tensor,      # bool[T] tasks contending for placement now
+    alloc_seg: torch.Tensor,  # f32[S, R] resources the segment already holds
+    denom_seg: torch.Tensor,  # f32[S, R] fair-share denominator
+    num_segs: int,
+) -> torch.Tensor:
+    """f32[T]: weighted-fair-queueing virtual start times — max over
+    resource dims of (alloc_seg + within-segment prefix of earlier
+    tasks) / denom (≙ kube_batch_tpu framework/policy.py ·
+    virtual_start_times).  The within-segment prefix is float64 (the
+    api/snapshot.py precision rule) and rounds once, with the segment's
+    allocation, to float32."""
+    r = torch.where(valid[:, None], req, 0.0)
+    segk = torch.where(valid, torch.clamp(seg, 0, num_segs - 1), num_segs)
+    perm, before, _ = segment_prefix(segk, base_rank, r)
+    s = torch.clamp(segk[perm], 0, num_segs - 1).long()
+    start = (alloc_seg[s].double() + before).float()
+    denom = denom_seg[s]
+    ratio = torch.where(
+        denom > 0.0, start / torch.clamp(denom, min=1e-9),
+        torch.where(start > 0.0, BIG_VTIME, 0.0),
+    )
+    out = torch.zeros(seg.shape[0], dtype=torch.float32, device=seg.device)
+    out[perm] = ratio.max(dim=-1).values
+    return out
+
+
+def task_queue_of(snap: SnapshotTensors) -> torch.Tensor:
+    """i32[T]: each task's queue index via its job (padding → 0, masked)."""
+    job = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
+    return torch.clamp(snap.job_queue[job], 0, snap.num_queues - 1)
+
+
+class TensorPolicy:
+    """Aggregated plugin policy for one SchedulerConf."""
+
+    def __init__(self, num_tiers: int) -> None:
+        self.num_tiers = num_tiers
+        self.queue_order: list[list[Callable]] = [[] for _ in range(num_tiers)]
+        self.namespace_order: list[list[Callable]] = [[] for _ in range(num_tiers)]
+        self.job_order: list[list[Callable]] = [[] for _ in range(num_tiers)]
+        self.task_order: list[list[Callable]] = [[] for _ in range(num_tiers)]
+        self.predicates: list[Callable] = []
+        # State-dependent predicates (snap, state, immediate) ->
+        # bool[T, N] | None (None = no constraint for this snapshot),
+        # re-evaluated every auction round.
+        self.dynamic_predicates: list[Callable] = []
+        self.global_serialize: list[Callable] = []
+        self.domain_serialize: list[Callable] = []
+        # Per-node anti-affinity serialization set, snapshot-static:
+        # (snap, state) -> bool[T] | None.
+        self.node_serialize: list[Callable] = []
+        self.node_scores: list[tuple[float, Callable, str | None]] = []
+        self.job_valid: list[Callable] = []
+        self.job_ready: list[Callable] = []
+        self.overused: list[Callable] = []
+        self.queue_vtime: list[list[Callable]] = [[] for _ in range(num_tiers)]
+        self.ns_vtime: list[list[Callable]] = [[] for _ in range(num_tiers)]
+        self.job_vtime: list[list[Callable]] = [[] for _ in range(num_tiers)]
+        self.cycle_setup: list[tuple[str, Callable]] = []
+        self.score_quantum = 0.0
+        self.max_rounds: int | None = None
+        # (cpu, memory) dims of the balanced-allocation score
+        self.balanced_dims: tuple[int, int] = (0, 1)
+
+    # -- registration (≙ session_plugins.go Add*Fn) ---------------------
+    def add_queue_order_fn(self, tier: int, fn) -> None:
+        self.queue_order[tier].append(fn)
+
+    def add_namespace_order_fn(self, tier: int, fn) -> None:
+        self.namespace_order[tier].append(fn)
+
+    def add_namespace_vtime_fn(self, tier: int, fn) -> None:
+        self.ns_vtime[tier].append(fn)
+
+    def add_job_order_fn(self, tier: int, fn) -> None:
+        self.job_order[tier].append(fn)
+
+    def add_task_order_fn(self, tier: int, fn) -> None:
+        self.task_order[tier].append(fn)
+
+    def add_predicate_fn(self, fn) -> None:
+        self.predicates.append(fn)
+
+    def add_dynamic_predicate_fn(self, fn) -> None:
+        self.dynamic_predicates.append(fn)
+
+    def add_global_serialize_fn(self, fn) -> None:
+        self.global_serialize.append(fn)
+
+    def add_domain_serialize_fn(self, fn) -> None:
+        self.domain_serialize.append(fn)
+
+    def add_node_serialize_fn(self, fn) -> None:
+        self.node_serialize.append(fn)
+
+    def add_node_order_fn(
+        self, weight: float, fn, state_dependent: bool = True,
+        kind: str | None = None,
+    ) -> None:
+        """`kind` names a term the propose kernel computes itself
+        (KERNEL_SCORE_KINDS); any other fn returns its unweighted
+        f32[T, N] term, or None when it is exactly zero."""
+        self.node_scores.append((weight, fn, kind))
+        if state_dependent and self.score_quantum == 0.0:
+            self.score_quantum = 0.5
+
+    def add_job_valid_fn(self, fn) -> None:
+        self.job_valid.append(fn)
+
+    def add_job_ready_fn(self, fn) -> None:
+        self.job_ready.append(fn)
+
+    def add_overused_fn(self, fn) -> None:
+        self.overused.append(fn)
+
+    def add_queue_vtime_fn(self, tier: int, fn) -> None:
+        self.queue_vtime[tier].append(fn)
+
+    def add_job_vtime_fn(self, tier: int, fn) -> None:
+        self.job_vtime[tier].append(fn)
+
+    def add_cycle_setup_fn(self, name: str, fn) -> None:
+        """Register a snapshot-only value computed once per solve and
+        carried in AllocState.aux[name]."""
+        self.cycle_setup.append((name, fn))
+
+    def setup_state(self, snap: SnapshotTensors, state: AllocState) -> AllocState:
+        for name, fn in self.cycle_setup:
+            state.aux[name] = fn(snap)
+        return state
+
+    # -- evaluators -----------------------------------------------------
+    def predicate_mask(self, snap: SnapshotTensors) -> torch.Tensor:
+        """bool[T, N]: AND of all plugin predicates."""
+        if len(self.predicates) == 1:
+            return self.predicates[0](snap)
+        m = torch.ones((snap.num_tasks, snap.num_nodes), dtype=torch.bool,
+                       device=snap.device)
+        for fn in self.predicates:
+            m = m & fn(snap)
+        return m
+
+    def dynamic_predicate_fn(self, snap, state, immediate: bool = False):
+        """bool[T, N] AND of the state-dependent predicates, or None when
+        none constrains this snapshot (the auction then skips them)."""
+        m = None
+        for fn in self.dynamic_predicates:
+            part = fn(snap, state, immediate)
+            if part is not None:
+                m = part if m is None else m & part
+        return m
+
+    @staticmethod
+    def _or_of(fns_list):
+        if not fns_list:
+            return None
+        fns = list(fns_list)
+
+        def mask(snap, state):
+            m = None
+            for fn in fns:
+                part = fn(snap, state)
+                if part is not None:
+                    m = part if m is None else m | part
+            return m
+
+        return mask
+
+    @property
+    def global_serialize_fn(self):
+        return self._or_of(self.global_serialize)
+
+    @property
+    def domain_serialize_fn(self):
+        return self._or_of(self.domain_serialize)
+
+    def serialize_mask(self, snap, state):
+        """bool[T] per-node anti-affinity serialization set, or None."""
+        return self._or_of(self.node_serialize)(snap, state) \
+            if self.node_serialize else None
+
+    def score_spec(self) -> ScoreSpec:
+        """The weighted node-order sum (≙ util.PrioritizeNodes) as the
+        propose kernel evaluates it: the kernel's own terms first, then
+        the additive terms in registration order.  Raises when the
+        registration order cannot be expressed that way."""
+        w_lr = w_bal = None
+        extras = []
+        for i, (w, fn, kind) in enumerate(self.node_scores):
+            if kind in KERNEL_SCORE_KINDS:
+                # Addition is commutative: the kernel's two terms may come
+                # in either order, but only ahead of every additive term.
+                if i >= 2 or extras:
+                    raise NotImplementedError(
+                        f"node-order term {kind!r} registered after an "
+                        "additive term: the propose kernel sums its own "
+                        "terms first"
+                    )
+                if kind == "least_requested":
+                    w_lr = w
+                else:
+                    w_bal = w
+            else:
+                extras.append(_weighted(w, fn))
+        d0, d1 = self.balanced_dims
+        return ScoreSpec(
+            w_lr=w_lr, w_bal=w_bal, d0=d0, d1=d1, extra_fns=tuple(extras)
+        )
+
+    def rank_fn(self, snap: SnapshotTensors, state: AllocState) -> torch.Tensor:
+        """i32[T]: global scheduling-order ranks from the tiered
+        queue > job > task lexicographic ordering, with the vtime keys
+        slotted in at their own tier (≙ kube_batch_tpu
+        framework/policy.py · rank_fn)."""
+        tq = task_queue_of(snap).long()
+        tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
+        tns = torch.clamp(snap.task_ns, 0, snap.ns_weight.shape[0] - 1).long()
+        vtime_levels = [self.job_vtime, self.ns_vtime, self.queue_vtime]
+        valid = None
+        if any(any(map(len, level)) for level in vtime_levels):
+            pending = (state.task_state == int(TaskStatus.PENDING)) & snap.task_mask
+            valid = pending & self.eligible_fn(snap, state)
+
+        keys: list[torch.Tensor] = [snap.task_order.float()]
+        for tier_fns in reversed(self.task_order):
+            for fn in reversed(tier_fns):
+                keys.append(fn(snap, state))
+
+        def level(static_fns, vtime_fns, gather):
+            for t in range(len(static_fns) - 1, -1, -1):
+                for fn in reversed(static_fns[t]):
+                    keys.append(gather(fn(snap, state)))
+                for fn in reversed(vtime_fns[t]):
+                    base = rank_from_keys(keys, snap.num_tasks)
+                    keys.append(fn(snap, state, base, valid))
+
+        level(self.job_order, self.job_vtime, lambda k: k[tj])
+        level(self.namespace_order, self.ns_vtime, lambda k: k[tns])
+        level(self.queue_order, self.queue_vtime, lambda k: k[tq])
+        return rank_from_keys(keys, snap.num_tasks)
+
+    def job_valid_mask(self, snap, state) -> torch.Tensor:
+        m = snap.job_mask
+        for fn in self.job_valid:
+            m = m & fn(snap, state)
+        return m
+
+    def job_ready_mask(self, snap, state) -> torch.Tensor:
+        m = snap.job_mask
+        for fn in self.job_ready:
+            m = m & fn(snap, state)
+        return m
+
+    def overused_mask(self, snap, state) -> torch.Tensor:
+        m = torch.zeros(snap.num_queues, dtype=torch.bool, device=snap.device)
+        for fn in self.overused:
+            m = m | fn(snap, state)
+        return m
+
+    def eligible_fn(self, snap, state) -> torch.Tensor:
+        """bool[T]: may this pending task be placed right now — its job
+        valid (gang), its queue not overused (proportion)."""
+        jv = self.job_valid_mask(snap, state)
+        over = self.overused_mask(snap, state)
+        tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
+        tq = task_queue_of(snap).long()
+        return jv[tj] & ~over[tq] & (snap.task_job >= 0)
+
+
+def _weighted(w: float, fn):
+    """(snap, state) -> w·fn(snap, state) in float32, or None when the
+    term is exactly zero for this snapshot."""
+
+    def term(snap, state):
+        raw = fn(snap, state)
+        if raw is None:
+            return None
+        return torch.tensor(w, dtype=torch.float32, device=raw.device) * raw
+
+    return term

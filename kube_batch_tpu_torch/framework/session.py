@@ -1,0 +1,157 @@
+"""Session: one scheduling cycle's runtime state and commit funnel.
+
+Reference counterpart: framework/framework.go (OpenSession/CloseSession)
+and framework/session.go; the port of kube_batch_tpu/framework/session.py
+on the simulator path.  A Session owns one packed snapshot on the
+scheduler's device and the cycle's final state; cluster effects happen
+only in `close_session`, which dispatches binds for every job passing the
+JobReady gate (gang all-or-nothing: an unready job's tentative placements
+are dropped with zero cluster effect).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from kube_batch_tpu_torch.api.snapshot import from_numpy
+from kube_batch_tpu_torch.api.types import READY_STATUSES, TaskStatus
+from kube_batch_tpu_torch.cache.cache import SchedulerCache
+from kube_batch_tpu_torch.cache.packer import pack_snapshot_loop
+from kube_batch_tpu_torch.framework.conf import SchedulerConf
+from kube_batch_tpu_torch.framework.plugin import Plugin, get_plugin_builder
+from kube_batch_tpu_torch.framework.policy import TensorPolicy
+from kube_batch_tpu_torch.ops.assignment import AllocState, init_state
+
+
+def build_policy(conf: SchedulerConf) -> tuple[TensorPolicy, list[Plugin]]:
+    """Instantiate plugins from conf and let them register their tensor
+    fns — once per configuration."""
+    from kube_batch_tpu_torch.framework.plugin import ensure_registered
+
+    ensure_registered()
+    policy = TensorPolicy(num_tiers=len(conf.tiers))
+    args = conf.args_dict
+    unknown = set(args) - {"allocate.max_rounds"}
+    if unknown:
+        raise ValueError(
+            f"unknown scheduler.conf arguments: {sorted(unknown)} "
+            "(supported: allocate.max_rounds)"
+        )
+    if "allocate.max_rounds" in args:
+        mr = args["allocate.max_rounds"]
+        if isinstance(mr, bool) or not isinstance(mr, int) or mr < 1:
+            raise ValueError(
+                f"allocate.max_rounds must be an integer >= 1, got {mr!r}"
+            )
+        policy.max_rounds = mr
+    plugins: list[Plugin] = []
+    for tier_idx, tier in enumerate(conf.tiers):
+        for pconf in tier.plugins:
+            plugin = get_plugin_builder(pconf.name)(pconf.args_dict)
+            plugin.set_enabled(dict(pconf.enabled))
+            plugin.register(policy, tier_idx)
+            plugins.append(plugin)
+    return policy, plugins
+
+
+class Session:
+    """One cycle: snapshot in, bind decisions out."""
+
+    def __init__(
+        self,
+        cache: SchedulerCache,
+        policy: TensorPolicy,
+        plugins: Sequence[Plugin],
+        device: torch.device,
+    ) -> None:
+        self.cache = cache
+        self.policy = policy
+        self.plugins = list(plugins)
+        # Shared snapshot + pack as ONE critical section: the packer
+        # reads live Pod fields, so it finishes under the cache lock.
+        with cache.lock():
+            host = cache.snapshot(shared=True)
+            self.host_fields, self.meta = pack_snapshot_loop(host)
+        self.snap = from_numpy(self.host_fields, device)
+        self.initial_task_state = self.host_fields["task_state"]
+        self.state: AllocState = init_state(self.snap)
+        self.bound: list[tuple[str, str]] = []     # (pod name, node)
+        # Host copies of the cycle's results (set by `finish`).
+        self.host_task_state: np.ndarray | None = None
+        self.host_task_node: np.ndarray | None = None
+        self.job_ready: np.ndarray | None = None
+        self.diag: dict | None = None
+
+    def finish(self, state: AllocState, job_ready: torch.Tensor, diag) -> None:
+        """Install the solve's results; one device-to-host copy each of
+        task_state, task_node and the gang gate."""
+        self.state = state
+        self.host_task_state = state.task_state.cpu().numpy()
+        self.host_task_node = state.task_node.cpu().numpy()
+        self.job_ready = job_ready.cpu().numpy()
+        self.diag = diag
+
+    def dispatch_binds(self) -> list[tuple[str, str]]:
+        """Bind every newly allocated task of every JobReady job (gang
+        commit; ≙ session.go · Allocate's deferred dispatch).  Pipelined
+        placements wait for their resources and are not bound."""
+        task_job = self.host_fields["task_job"]
+        newly = np.nonzero(
+            (self.host_task_state == int(TaskStatus.ALLOCATED))
+            & (self.initial_task_state == int(TaskStatus.PENDING))
+        )[0]
+        for t in newly:
+            if t >= self.meta.num_real_tasks:
+                continue
+            j = task_job[t]
+            if j < 0 or not self.job_ready[j]:
+                continue  # gang gate: unready job's placements are dropped
+            pod = self.meta.task_pods[t]
+            node_name = self.meta.node_names[self.host_task_node[t]]
+            if self.cache.bind(pod.uid, node_name):
+                self.bound.append((pod.name, node_name))
+        return self.bound
+
+    def snapshot_ready_counts(self) -> np.ndarray:
+        """i32[J]: ready members per job as of the packed snapshot."""
+        ready = np.isin(self.initial_task_state, [int(s) for s in READY_STATUSES])
+        task_job = self.host_fields["task_job"]
+        J = self.snap.num_jobs
+        valid = ready & (task_job >= 0)
+        return np.bincount(task_job[valid], minlength=J)[:J]
+
+    def unready_jobs(self) -> list[str]:
+        """Names of jobs that failed the gang gate this cycle."""
+        return [
+            name for j, name in enumerate(self.meta.job_names)
+            if not self.job_ready[j]
+        ]
+
+
+def open_session(cache, policy, plugins, device) -> Session:
+    """≙ framework.go · OpenSession: snapshot + pack + plugin open hooks."""
+    ssn = Session(cache, policy, plugins, device)
+    for plugin in ssn.plugins:
+        plugin.on_session_open(ssn)
+    return ssn
+
+
+def close_session(ssn: Session, diagnose: bool = True) -> None:
+    """≙ framework.go · CloseSession: dispatch gang-gated binds, emit
+    why-unschedulable events, run plugin close hooks, write back job
+    status."""
+    from kube_batch_tpu_torch.framework.fit_errors import diagnose_pending
+
+    ssn.dispatch_binds()
+    if diagnose:
+        for pod_name, namespace, message in diagnose_pending(ssn):
+            ssn.cache.record_event(
+                "Pod" if pod_name else "Scheduler",
+                pod_name, "FailedScheduling", message, namespace=namespace,
+            )
+    for plugin in ssn.plugins:
+        plugin.on_session_close(ssn)
+    ssn.cache.refresh_job_statuses()

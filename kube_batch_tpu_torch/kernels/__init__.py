@@ -1,0 +1,41 @@
+"""Hand-written Hopper kernels of the main path, one wrapper each.
+
+| kernel | wrapper | route | replaces (kube_batch_tpu/) |
+| --- | --- | --- | --- |
+| K1 | predicate_mask.predicate_mask | CUDA C++ | plugins/predicates.py · register.predicate |
+| K2 | propose.propose_best, propose.propose_pick | CUDA C++ | ops/assignment.py · allocate_rounds (propose half), _round_robin_proposals |
+| K3 | resolve.resolve, resolve.apply | CUDA C++ | ops/assignment.py · _resolve_conflicts, _segment_prefix, apply step |
+| K4 | failure_counts.failure_counts | Triton | framework/fit_errors.py · failure_counts |
+
+Every wrapper runs its plain PyTorch version for CPU tensors, launches
+its kernel for CUDA tensors (or raises), and counts its launches in a
+plain int attribute `launches`.
+"""
+
+from kube_batch_tpu_torch.kernels import (  # noqa: F401
+    failure_counts,
+    predicate_mask,
+    propose,
+    resolve,
+)
+
+
+def wrappers() -> dict:
+    """name → wrapper function (each carries a `launches` counter)."""
+    return {
+        "predicate_mask": predicate_mask.predicate_mask,
+        "propose_best": propose.propose_best,
+        "propose_pick": propose.propose_pick,
+        "resolve": resolve.resolve,
+        "apply": resolve.apply,
+        "failure_counts": failure_counts.failure_counts,
+    }
+
+
+def reset_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in wrappers().items()}

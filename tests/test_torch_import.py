@@ -1,0 +1,103 @@
+"""The port stands alone: no JAX, no reference package, card by default.
+
+* every module of `kube_batch_tpu_torch` imports in a fresh interpreter
+  with `jax`, `flax` and `kube_batch_tpu` blocked in `sys.modules` (this
+  test process has imported jax already, hence the subprocess);
+* no file of the package, nor chip_smoke.py, names them in an import;
+* the entry points raise without a CUDA device unless the caller passes
+  device="cpu".
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "kube_batch_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "kube_batch_tpu"}
+
+_IMPORT_ALL = """
+import sys
+for name in ("jax", "jaxlib", "flax", "kube_batch_tpu"):
+    sys.modules[name] = None
+import importlib, pkgutil
+import kube_batch_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    kube_batch_tpu_torch.__path__, "kube_batch_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "jax" not in {k for k, v in sys.modules.items() if v is not None}
+print(len(names))
+"""
+
+
+def test_package_imports_with_jax_and_reference_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_file_imports_jax_or_reference(path):
+    assert not (_imported_roots(path) & FORBIDDEN)
+
+
+def test_scheduler_without_device_needs_cuda(monkeypatch):
+    from kube_batch_tpu_torch.models.workloads import build_config
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cache, _ = build_config(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scheduler(cache)
+    sched = Scheduler(cache, device="cpu")
+    assert sched.device.type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_cli_without_device_needs_cuda(monkeypatch):
+    from kube_batch_tpu_torch.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--workload", "1", "--cycles", "1"])
+    assert main(["--workload", "1", "--cycles", "1", "--device", "cpu"]) == 0
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    """Without nvcc the CUDA kernels refuse to build (no silent fallback)."""
+    from kube_batch_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.library("resolve")
