@@ -27,12 +27,27 @@ and `triton`.  Phases (any failure exits non-zero):
    just before and read just after; asserts that every kernel launched,
    that no node is over-committed, that gangs bind all-or-nothing and
    that every bind lands on a node the predicate mask allows;
-4. kernels — each kernel against its plain PyTorch version on the card,
-   on the inputs the main path gave it in cycle 2: the predicate mask and
-   failure tallies of that cycle, and the auction round whose resolve
-   rejected the most proposals.  Outputs exactly equal; kernel / plain /
-   library times (median of CUDA-event timed runs after a warm-up) and
-   the least time the card could take.
+4. the preempt path — full-size config 4 (500 nodes, 5,000 pods, 4
+   priority classes, 2 queues) under examples/scheduler.conf (allocate,
+   backfill, preempt, reclaim) for 3 cycles through `Scheduler.run_once`.
+   Cycle 1 fills the empty cluster and evicts nothing; after the tick a
+   wave arrives (high-priority prod gangs, batch gangs, and the gangs of
+   a new heavier queue that oversubscribe memory), so cycle 2's preempt
+   and reclaim evict; cycle 3 places wave pods on the freed nodes.  Launch
+   counters are set to 0 before cycle 1 and read after cycle 3; asserts
+   evictions by both actions in cycle 2, wave binds in cycle 3, the
+   capacity, gang and predicate invariants, and identical decisions
+   (binds, evictions with their reasons, task_state, task_node,
+   job_ready, failure tallies) against the same run on the CPU, which a
+   worker process runs meanwhile;
+5. kernels — each kernel against its plain PyTorch version on the card:
+   K1–K4 on the inputs the main path gave them in cycle 2 (the predicate
+   mask and failure tallies of that cycle, and the auction round whose
+   resolve rejected the most proposals), K7 on every call of the main
+   path, K5–K7 on every input the preempt path gave them in cycles 2 and
+   3 (segment sums sampled), timed on cycle 2's.  Outputs
+   exactly equal; kernel / plain / library times (median of CUDA-event
+   timed runs after a warm-up) and the least time the card could take.
 
 The last two lines are the `kernels` JSON object and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -50,9 +65,12 @@ import time
 import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# The port must never reach the reference package or JAX.
-for _blocked in ("jax", "jaxlib", "flax", "kube_batch_tpu"):
-    sys.modules[_blocked] = None
+if __name__ in ("__main__", "__mp_main__"):
+    # Run as the smoke test (or its worker), the port must never reach the
+    # reference package or JAX.  Imported as a module, by a script that
+    # runs both packages, it leaves them alone.
+    for _blocked in ("jax", "jaxlib", "flax", "kube_batch_tpu"):
+        sys.modules[_blocked] = None
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -72,9 +90,37 @@ KERNELS = {
               "kube_batch_tpu/ops/assignment.py:421"),
     "failure_counts": ("triton", "kube_batch_tpu_torch/kernels/failure_counts.py",
                        "kube_batch_tpu/framework/fit_errors.py:32"),
+    "victim_prefix": ("cuda", "kube_batch_tpu_torch/kernels/csrc/victim_prefix.cu",
+                      "kube_batch_tpu/ops/preemption.py:80"),
+    "preempt_open": ("cuda", "kube_batch_tpu_torch/kernels/csrc/preempt_scan.cu",
+                     "kube_batch_tpu/ops/preemption.py:164"),
+    "preempt_continue": ("cuda", "kube_batch_tpu_torch/kernels/csrc/preempt_scan.cu",
+                         "kube_batch_tpu/ops/preemption.py:249"),
+    "segment_sum": ("cuda", "kube_batch_tpu_torch/kernels/csrc/segment_sum.cu",
+                    "kube_batch_tpu/api/snapshot.py:203"),
+    "waterfill": ("cuda", "kube_batch_tpu_torch/kernels/csrc/segment_sum.cu",
+                  "kube_batch_tpu/ops/waterfill.py:24"),
 }
+PREEMPT_KERNELS = ("victim_prefix", "preempt_open", "preempt_continue",
+                   "segment_sum", "waterfill")
+EVICTING_ONLY = ("victim_prefix", "preempt_open", "preempt_continue")
 
 MAIN_WAVE_PODS = 15000   # second wave of the main path (T stays 65536)
+# The preempt path's wave after cycle 1 (rehearsed on the CPU, PERF.md;
+# scripts/check_torch_preempt_config4.py submits the same wave):
+# (name prefix, queue, priority, gangs of 4 pods, cpu milli, memory GiB).
+PREEMPT_WAVE = (
+    ("urgent", "prod", 10000, 40, 4000, 8),
+    ("bwave", "batch", 100, 10, 2000, 4),
+    # a new queue "research" (weight RESEARCH_WEIGHT): its memory demand
+    # passes capacity, so the water-fill puts prod and batch above their
+    # deserved share and reclaim evicts from both
+    ("research", "research", 0, 125, 4000, 48),
+)
+RESEARCH_WEIGHT = 4.0
+WAVE_PREFIXES = tuple(w[0] for w in PREEMPT_WAVE)
+# the recorder keeps every 25th segment_sum call of the preempt path
+PREEMPT_SEGMENT_SUM_EVERY = 25
 
 
 def fail(msg: str) -> None:
@@ -272,12 +318,14 @@ def _feature_world():
     return cache, sim
 
 
-# world: (builder, pods of the second wave)
+# world: (world factory, pods of the second wave, examples/scheduler.conf or the
+# default conf)
 PARITY_WORLDS = {
-    "config3": (lambda: _config(3), 300),
-    "config4": (lambda: _config(4), 0),
-    "config5_mid": (lambda: _config(5, n_nodes=500, target_pods=5000), 1500),
-    "features": (_feature_world, 60),
+    "config3": (lambda: _config(3), 300, False),
+    "config4": (lambda: _config(4), 0, False),
+    "config5_mid": (lambda: _config(5, n_nodes=500, target_pods=5000), 1500, False),
+    "features": (_feature_world, 60, False),
+    "features_preempt": (_feature_world, 60, True),
 }
 
 
@@ -285,6 +333,49 @@ def _config(n: int, **kw):
     from kube_batch_tpu_torch.models.workloads import build_config
 
     return build_config(n, seed=0, **kw)
+
+
+def scheduler_conf():
+    """examples/scheduler.conf: allocate, backfill, preempt, reclaim."""
+    from kube_batch_tpu_torch.framework.conf import parse_conf
+
+    with open(os.path.join(ROOT, "examples", "scheduler.conf")) as f:
+        return parse_conf(f.read())
+
+
+def preempt_world():
+    """Full-size config 4, with the uid counter restarted so a run in
+    any process builds the identical cluster."""
+    import itertools
+
+    import kube_batch_tpu_torch.cache.cluster as cluster
+
+    cluster._uid_counter = itertools.count()
+    return _config(4)
+
+
+def preempt_wave(sim, cluster=None, workloads=None) -> int:
+    """Submit PREEMPT_WAVE, the wave after the preempt path's first
+    cycle, built from `cluster` and `workloads` (a package's cache.cluster
+    and models.workloads modules; the port's by default); returns its
+    pods."""
+    if cluster is None:
+        import kube_batch_tpu_torch.cache.cluster as cluster
+        import kube_batch_tpu_torch.models.workloads as workloads
+
+    sim.add_queue(cluster.Queue(name="research", weight=RESEARCH_WEIGHT))
+    sent = 0
+    for prefix, queue, prio, gangs, cpu, mem in PREEMPT_WAVE:
+        for j in range(gangs):
+            sim.submit(
+                cluster.PodGroup(name=f"{prefix}{j}", queue=queue, min_member=4,
+                                 priority=prio),
+                [workloads._pod(f"{prefix}{j}-{i}", cpu=cpu, mem=mem * workloads.GI,
+                                priority=prio)
+                 for i in range(4)],
+            )
+            sent += 4
+    return sent
 
 
 # ---------------------------------------------------------------------------
@@ -300,18 +391,32 @@ _MUTATED = {
     "resolve": (3,),             # avail
     "apply": (4, 5, 8, 9),       # node_future, node_idle, task_state, task_node
     "failure_counts": (2,),      # node_idle
+    "victim_prefix": (),
+    "preempt_open": (),
+    "preempt_continue": (),
+    "segment_sum": (),
+    "waterfill": (),
 }
 
 
 class Recorder:
     """While active, every kernel wrapper call of the scheduler goes
     through unchanged (it launches and counts as before) and its inputs
-    are kept: `calls[name]` lists (cycle, round, args).  A cycle starts
-    at its predicate-mask call and a round at its propose_best call."""
+    are kept: `calls[name]` lists (cycle, round, args) — of segment_sum,
+    which the preemption loop calls many times per step, every
+    `segment_sum_every`-th call.  A cycle starts at its predicate-mask
+    call and a round at its propose_best call."""
 
-    def __init__(self) -> None:
+    def __init__(self, segment_sum_every: int = 1) -> None:
         import kube_batch_tpu_torch.plugins.predicates as plug
-        from kube_batch_tpu_torch.kernels import failure_counts, propose, resolve
+        from kube_batch_tpu_torch.kernels import (
+            failure_counts,
+            preempt_scan,
+            propose,
+            resolve,
+            segment_sum,
+            victim_prefix,
+        )
 
         self.sites = [
             (plug, "predicate_mask", "predicate_mask"),
@@ -320,22 +425,32 @@ class Recorder:
             (resolve, "resolve", "resolve"),
             (resolve, "apply", "apply"),
             (failure_counts, "failure_counts", "failure_counts"),
+            (victim_prefix, "victim_prefix", "victim_prefix"),
+            (preempt_scan, "preempt_open", "preempt_open"),
+            (preempt_scan, "preempt_continue", "preempt_continue"),
+            (segment_sum, "segment_sum", "segment_sum"),
+            (segment_sum, "waterfill", "waterfill"),
         ]
         self.calls = {name: [] for name in _MUTATED}
+        self.seen = {name: 0 for name in _MUTATED}
         self.cycle = self.round = -1
+        self.segment_sum_every = segment_sum_every
         self._saved = []
 
     def _wrap(self, name, fn):
         mutated = _MUTATED[name]
+        every = self.segment_sum_every if name == "segment_sum" else 1
 
         def wrapper(*args):
             if name == "predicate_mask":
                 self.cycle += 1
             elif name == "propose_best":
                 self.round += 1
-            kept = tuple(a.clone() if i in mutated else a
-                         for i, a in enumerate(args))
-            self.calls[name].append((self.cycle, self.round, kept))
+            self.seen[name] += 1
+            if self.seen[name] % every == 0:
+                kept = tuple(a.clone() if i in mutated else a
+                             for i, a in enumerate(args))
+                self.calls[name].append((self.cycle, self.round, kept))
             return fn(*args)
 
         return wrapper
@@ -370,11 +485,41 @@ def _fresh_apply_args(args):
 def check_call(name: str, args):
     """Run kernel and plain version on `args`; require equal outputs.
     Returns (max_abs_err, {what: count of non-trivial outputs})."""
+    import torch
+
     from kube_batch_tpu_torch.kernels import failure_counts as k4
     from kube_batch_tpu_torch.kernels import predicate_mask as k1
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
     from kube_batch_tpu_torch.kernels import propose as k2
     from kube_batch_tpu_torch.kernels import resolve as k3
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+    from kube_batch_tpu_torch.kernels import victim_prefix as k5
 
+    if name == "victim_prefix":
+        k, out = k5.victim_prefix(*args)
+        err = require_equal(name, list(zip((k, out), k5.victim_prefix_plain(*args))))
+        return err, {"nodes_some_victims": int(((k > 0) & (k < k5.BIG_K)).sum()),
+                     "nodes_no_prefix": int((k == k5.BIG_K).sum()),
+                     "node_found": int(out[1])}
+    if name == "preempt_open":
+        out = k6.preempt_open(*args)
+        err = require_equal(name, [(out, k6.preempt_open_plain(*args))])
+        return err, {"direct_fit_true": int(out[3]),
+                     "direct_fit_false": 1 - int(out[3])}
+    if name == "preempt_continue":
+        out = k6.preempt_continue(*args)
+        err = require_equal(name, [(out, k6.preempt_continue_plain(*args))])
+        return err, {"victim_found": int(out[1]), "no_victim_left": 1 - int(out[1])}
+    if name == "segment_sum":
+        values, seg, num = args
+        out = k7.segment_sum(*args)
+        err = require_equal(name, [(out, k7.segment_sum_plain(*args))])
+        return err, {"nonempty_segments": int(torch.unique(seg[seg < num]).numel())}
+    if name == "waterfill":
+        out = k7.waterfill(*args)
+        err = require_equal(name, [(out, k7.waterfill_plain(*args))])
+        return err, {"queues": int(args[3].sum()),
+                     "queues_below_request": int((out < args[1]).any(dim=1).sum())}
     if name == "predicate_mask":
         snap = args[0]
         out = k1.predicate_mask(*args)
@@ -419,33 +564,86 @@ def check_call(name: str, args):
     raise KeyError(name)
 
 
-def check_all(rec: Recorder) -> dict:
-    """Hold every recorded call against the plain version; sum the
-    non-trivial-output counts per kernel."""
+def check_all(rec: Recorder, names=None) -> dict:
+    """Hold every recorded call of `names` (default: every kernel) against
+    the plain version; per kernel, the calls checked and made, the sums of
+    the non-trivial-output counts and the largest error."""
     totals = {}
-    for name, calls in rec.calls.items():
-        acc = {"calls": len(calls)}
-        for _cycle, _round, args in calls:
-            _, counts = check_call(name, args)
+    for name in names or rec.calls:
+        acc = {"calls": len(rec.calls[name]), "calls_made": rec.seen[name]}
+        err = 0.0
+        for _cycle, _round, args in rec.calls[name]:
+            e, counts = check_call(name, args)
+            err = max(err, e)
             for k, v in counts.items():
                 acc[k] = acc.get(k, 0) + v
+        acc["max_abs_err"] = err
         totals[name] = acc
     return totals
+
+
+def segment_sum_timing(args):
+    """(ms, plain_ms, library_ms, bound) of K7's segment_sum on `args`;
+    the library call is one float64 `index_add_` of the same rows."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+
+    values, seg, num = args
+    C = values[0].numel()
+    idx, vals64 = seg.long(), values.double()
+    acc64 = torch.zeros((num + 1,) + tuple(values.shape[1:]), dtype=torch.float64,
+                        device=values.device)
+    return (time_ms(lambda: k7.segment_sum(*args)),
+            time_ms(lambda: k7.segment_sum_plain(*args)),
+            time_ms(lambda: acc64.index_add_(0, idx, vals64)),
+            bound(seg.numel() * seg.element_size() + values.numel() * 4 + num * C * 4,
+                  values.numel(), F64_OPS_PER_S))
+
+
+def widest_float_sum(calls):
+    return max((a for a in calls if a[0].is_floating_point()),
+               key=lambda a: a[0].numel())
 
 
 # ---------------------------------------------------------------------------
 # phase 2
 # ---------------------------------------------------------------------------
 
+def _cycle_record(ssn, sched) -> dict:
+    return {
+        "binds": list(ssn.bound),
+        "evicted": list(ssn.evicted),
+        "task_state": ssn.host_task_state.copy(),
+        "task_node": ssn.host_task_node.copy(),
+        "job_ready": ssn.job_ready.copy(),
+        "diag": {k: v.cpu().numpy() for k, v in ssn.diag.items()},
+        "rounds": dict(sched.last_stats),
+    }
+
+
+def _brief(stats: dict) -> dict:
+    """A cycle's stats with each preemption loop cut to its step count."""
+    out = {}
+    for k, v in stats.items():
+        if k.endswith("_steps"):
+            out[k] = [loop["steps"] for loop in v]
+        else:
+            out[k] = v
+    return out
+
+
 def _run(world: str, device: str, record: bool):
     from kube_batch_tpu_torch.scheduler import Scheduler
 
-    build, wave = PARITY_WORLDS[world]
+    build, wave, preempt = PARITY_WORLDS[world]
     cache, sim = build()
     binder = RefuseFirstBinds(sim)
     cache.binder = binder
-    sched = Scheduler(cache, device=device)
-    rec = Recorder() if record else None
+    sched = Scheduler(cache, conf=scheduler_conf() if preempt else None,
+                      device=device)
+    rec = (Recorder(PREEMPT_SEGMENT_SUM_EVERY if preempt else 1)
+           if record else None)
     cycles = []
     for cycle in range(2):
         if rec is not None:
@@ -455,14 +653,7 @@ def _run(world: str, device: str, record: bool):
             ssn = sched.run_once()
         if ssn is None:
             fail(f"{world}: cycle {cycle} found nothing to solve")
-        cycles.append({
-            "binds": list(ssn.bound),
-            "task_state": ssn.host_task_state.copy(),
-            "task_node": ssn.host_task_node.copy(),
-            "job_ready": ssn.job_ready.copy(),
-            "diag": {k: v.cpu().numpy() for k, v in ssn.diag.items()},
-            "rounds": dict(sched.last_stats),
-        })
+        cycles.append(_cycle_record(ssn, sched))
         sim.tick()
         if cycle == 0 and wave:
             arrivals(cache, sim, wave)
@@ -472,7 +663,7 @@ def _run(world: str, device: str, record: bool):
 def _same(a, b) -> bool:
     import numpy as np
 
-    if a["binds"] != b["binds"]:
+    if a["binds"] != b["binds"] or a["evicted"] != b["evicted"]:
         return False
     for key in ("task_state", "task_node", "job_ready"):
         if not np.array_equal(a[key], b[key]):
@@ -501,7 +692,8 @@ def phase_parity():
         log(json.dumps({
             "phase": "parity", "world": world, "cycles": 2,
             "bound_per_cycle": [len(c["binds"]) for c in gpu],
-            "rounds_per_cycle": [c["rounds"] for c in gpu],
+            "evicted_per_cycle": [len(c["evicted"]) for c in gpu],
+            "rounds_per_cycle": [_brief(c["rounds"]) for c in gpu],
             "binds_refused_once": refused,
             "cuda_s": round(t1 - t0, 3), "cpu_s": round(t2 - t1, 3),
             "identical": True,
@@ -590,7 +782,7 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     counts = kernels.counts()
     log(json.dumps({"phase": "main-path-launches", **counts}))
     for name, n in counts.items():
-        if n <= 0:
+        if n <= 0 and name not in EVICTING_ONLY:
             fail(f"kernel {name} was not launched on the main path")
     if sessions[1].snap.num_tasks != sessions[0].snap.num_tasks:
         fail("the second wave changed the padded task count")
@@ -614,7 +806,226 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
 
 
 # ---------------------------------------------------------------------------
-# phase 4
+# phase 4: the preempt path
+# ---------------------------------------------------------------------------
+
+def preempt_cycles(device: str, record: bool):
+    """The preempt path: config 4 under examples/scheduler.conf for 3
+    cycles, the wave arriving after cycle 1.  Returns (per-cycle records,
+    the Recorder of cycles 2 and 3 or None, the cache, the sessions)."""
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    cache, sim = preempt_world()
+    sched = Scheduler(cache, conf=scheduler_conf(), device=device)
+    rec = Recorder(PREEMPT_SEGMENT_SUM_EVERY) if record else None
+    cycles, sessions = [], []
+    for cycle in range(3):
+        t0 = time.perf_counter()
+        if rec is not None and cycle >= 1:
+            with rec:
+                ssn = sched.run_once()
+        else:
+            ssn = sched.run_once()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if ssn is None:
+            fail(f"preempt path: cycle {cycle} found nothing to solve")
+        c = _cycle_record(ssn, sched)
+        c["wall_ms"] = wall_ms
+        c["timings"] = dict(sched.last_timings)
+        cycles.append(c)
+        sessions.append(ssn)
+        sim.tick()
+        if cycle == 0:
+            c["wave_pods"] = preempt_wave(sim)
+    return cycles, rec, cache, sessions
+
+
+def preempt_cycles_cpu(root: str):
+    """The preempt path on the CPU, in a worker process (spawned, so it
+    starts from a fresh import and never touches the card)."""
+    import torch
+
+    sys.path.insert(0, root)
+    torch.set_num_threads(3)
+    t0 = time.perf_counter()
+    try:
+        cycles = preempt_cycles("cpu", record=False)[0]
+    except SystemExit:  # fail() exits; a pool worker must return instead
+        raise RuntimeError("the preempt path's CPU run failed") from None
+    return cycles, time.perf_counter() - t0
+
+
+def _loop_line(stats: dict) -> list:
+    out = []
+    for key in ("preempt_steps", "reclaim_steps"):
+        for i, loop in enumerate(stats.get(key, [])):
+            out.append({
+                "loop": f"{key[:-6]}{'' if key == 'reclaim_steps' else i + 1}",
+                "steps": loop["steps"], "ms": round(loop["ms"], 3),
+                "ms_per_step": round(loop["ms"] / max(loop["steps"], 1), 4),
+                **{k: loop[k] for k in ("opened", "evicted", "finalized",
+                                        "rolled_back", "no_node")},
+            })
+    return out
+
+
+def phase_preempt_path(cpu_result):
+    from kube_batch_tpu_torch import kernels
+    from kube_batch_tpu_torch.kernels.predicate_mask import (
+        PredicateFlags,
+        predicate_mask_plain,
+    )
+
+    kernels.reset_counts()
+    cycles, rec, cache, sessions = preempt_cycles("cuda", record=True)
+    counts = kernels.counts()
+    log(json.dumps({"phase": "preempt-path-launches", **counts}))
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the preempt path")
+    for c, cyc in enumerate(cycles):
+        evicted = cyc["rounds"].get("evicted", {})
+        log(json.dumps({
+            "phase": "preempt-path", "cycle": c + 1,
+            "tasks": sessions[c].meta.num_real_tasks, "bound": len(cyc["binds"]),
+            "evicted": evicted, "wall_ms": round(cyc["wall_ms"], 3),
+            **{k: round(v, 3) for k, v in cyc["timings"].items()},
+            "allocate_rounds": cyc["rounds"].get("allocate_rounds"),
+            "loops": _loop_line(cyc["rounds"]),
+            **({"wave_pods": cyc["wave_pods"]} if "wave_pods" in cyc else {}),
+        }))
+    first = cycles[0]["rounds"].get("evicted", {})
+    log(json.dumps({"phase": "preempt-path-cycle1", "evicted": first,
+                    "nothing_evicted": not cycles[0]["evicted"]}))
+    if cycles[0]["evicted"]:
+        fail("preempt path: cycle 1 evicted pods from the empty cluster")
+    second = cycles[1]["rounds"].get("evicted", {})
+    if second.get("preempt", 0) <= 0 or second.get("reclaim", 0) <= 0:
+        fail(f"preempt path: cycle 2 evictions {second}: preempt and reclaim "
+             "must both evict")
+    wave_binds = [b for b in cycles[2]["binds"]
+                  if b[0].startswith(WAVE_PREFIXES)]
+    if not wave_binds:
+        fail("preempt path: cycle 3 bound no pod of the wave")
+    snap_checks = []
+    for ssn in sessions:
+        pred = predicate_mask_plain(ssn.snap, PredicateFlags()).cpu().numpy()
+        snap_checks.append((pred, {p.name: i for i, p in enumerate(ssn.meta.task_pods)},
+                            {n: i for i, n in enumerate(ssn.meta.node_names)}, ssn.bound))
+    _check_invariants(cache, snap_checks)
+    cpu_cycles, cpu_s = cpu_result.get(timeout=900)
+    for c, (g, h) in enumerate(zip(cycles, cpu_cycles)):
+        if not _same(g, h):
+            fail(f"preempt path: cycle {c + 1} decisions, evictions or failure "
+                 "tallies differ between cuda and cpu")
+    log(json.dumps({"phase": "preempt-path-invariants", "capacity": True,
+                    "gang": True, "predicate": True, "wave_binds_cycle3": len(wave_binds),
+                    "identical_to_cpu": True, "cpu_worker_s": round(cpu_s, 3)}))
+    return counts, rec, cycles
+
+
+def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
+    """K5, K6 and K7 against their plain versions on every recorded input
+    of cycles 2 and 3 (cycle 2 of this world rolls no plan back, cycle 3
+    does: a continuing step that finds no victim left); each timed on one
+    of cycle 2's inputs."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+    from kube_batch_tpu_torch.kernels import victim_prefix as k5
+
+    checks = check_all(rec, PREEMPT_KERNELS)
+    rolled_back = sum(loop["rolled_back"] for c in cycles[1:]
+                      for key in ("preempt_steps", "reclaim_steps")
+                      for loop in c["rounds"][key])
+    checks["preempt_continue"]["steps_rolled_back"] = rolled_back
+    log(json.dumps({"phase": "preempt-kernels", "equal_to_plain": True, **checks}))
+    for name, key in (("victim_prefix", "nodes_some_victims"),
+                      ("victim_prefix", "nodes_no_prefix"),
+                      ("preempt_open", "direct_fit_true"),
+                      ("preempt_open", "direct_fit_false"),
+                      ("preempt_continue", "victim_found"),
+                      ("preempt_continue", "no_victim_left"),
+                      ("preempt_continue", "steps_rolled_back"),
+                      ("segment_sum", "nonempty_segments")):
+        if checks[name].get(key, 0) <= 0:
+            fail(f"preempt path: {name} never met a case with {key} > 0")
+
+    out = {}
+
+    def record(name, ms, plain_ms, b, library_ms=None):
+        out[name] = dict(max_abs_err=checks[name]["max_abs_err"], ms=ms,
+                         plain_ms=plain_ms, bound=b, library_ms=library_ms)
+        log(json.dumps({"phase": "kernel", "name": name, "ms": round(ms, 4),
+                        "plain_ms": round(plain_ms, 4),
+                        "library_ms": None if library_ms is None else round(library_ms, 4),
+                        "bound_ms": round(b[0], 5), "bound_by": b[1]}))
+
+    first = min(c for c, _r, _a in rec.calls["predicate_mask"])   # cycle 2
+
+    def cycle2(name):
+        return [a for c, _r, a in rec.calls[name] if c == first]
+
+    # K5: the opening step with the most candidate victims
+    args = max(cycle2("victim_prefix"),
+               key=lambda a: int((a[1] < a[3].shape[0]).sum()))
+    perm, s_node, req, future, preq, eps, ok = args
+    N, R = future.shape
+    k, _out = k5.victim_prefix(*args)
+    seg_len = torch.bincount(s_node[s_node < N], minlength=N)[:N]
+    walked = int(torch.where(k == 0, 0, torch.minimum(k.long(), seg_len)).sum())
+    record("victim_prefix", time_ms(lambda: k5.victim_prefix(*args)),
+           time_ms(lambda: k5.victim_prefix_plain(*args)),
+           bound(walked * (16 + 4 * R) + 2 * N * R * 4 + N + N * 4 + 20,
+                 walked * R * 2, F64_OPS_PER_S))
+    log(json.dumps({"phase": "kernel-note", "name": "victim_prefix",
+                    "victims": int((s_node < N).sum()), "rows_walked": walked}))
+
+    # K6: the opening step with the most eligible tasks and no direct fit
+    opens = cycle2("preempt_open")
+    no_fit = [a for a in opens if int(k6.preempt_open(*a)[3]) == 0] or opens
+    args = max(no_fit, key=lambda a: int(a[1].sum()))
+    rank, elig, _ss, _ls, _tm, _prov, req, future, node_ok, _eps = args
+    T, (N, R) = rank.shape[0], future.shape
+    E, M = int(elig.sum()), int(node_ok.sum())
+    direct = int(k6.preempt_open(*args)[3])
+    record("preempt_open", time_ms(lambda: k6.preempt_open(*args)),
+           time_ms(lambda: k6.preempt_open_plain(*args)),
+           bound(T * 15 + E * R * 4 + N * R * 4 + N + R * 4 + 16,
+                 0 if direct else E * M * 2 * R))
+    log(json.dumps({"phase": "kernel-note", "name": "preempt_open",
+                    "eligible": E, "ready_nodes": M, "direct_fit": direct}))
+    # ... and cycle 2's continuing step whose node holds the most victims
+    args = max(cycle2("preempt_continue"),
+               key=lambda a: int((a[1] & (a[2] == a[3])).sum()))
+    rank, victims, task_node, n = args
+    record("preempt_continue", time_ms(lambda: k6.preempt_continue(*args)),
+           time_ms(lambda: k6.preempt_continue_plain(*args)),
+           bound(rank.shape[0] * 9 + 8, rank.shape[0] * 2))
+    log(json.dumps({"phase": "kernel-note", "name": "preempt_continue",
+                    "candidate_victims": int(victims.sum()),
+                    "on_node": int((victims & (task_node == n)).sum())}))
+
+    # K7: the widest recorded float sum
+    args = widest_float_sum(cycle2("segment_sum"))
+    ms, plain_ms, library_ms, b = segment_sum_timing(args)
+    record("segment_sum", ms, plain_ms, b, library_ms)
+    log(json.dumps({"phase": "kernel-note", "name": "segment_sum",
+                    "rows": args[1].numel(), "columns": args[0][0].numel(),
+                    "segments": args[2]}))
+
+    # K7's water-fill
+    args = cycle2("waterfill")[-1]
+    Q, R = args[1].shape
+    record("waterfill", time_ms(lambda: k7.waterfill(*args)),
+           time_ms(lambda: k7.waterfill_plain(*args)),
+           bound(Q * 4 + 2 * Q * R * 4 + R * 4 + Q, (Q + 1) * Q * R * 8))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5
 # ---------------------------------------------------------------------------
 
 def _pick_round(rec: Recorder):
@@ -787,6 +1198,24 @@ def phase_kernels(rec: Recorder):
     pf, ins, fe = k4.failure_counts(*fargs)
     if not bool((ins > 0).any()):
         fail("main path: cycle 2's failure tallies found no insufficient node")
+
+    # K7 on every call of both main-path cycles (the allocate path's job,
+    # queue and namespace sums of drf, proportion, gang and predicates, and
+    # the water-fill), and timed on cycle 2's widest float sum
+    k7_checks = check_all(rec, ("segment_sum", "waterfill"))
+    log(json.dumps({"phase": "main-path-k7", "equal_to_plain": True, **k7_checks}))
+    if k7_checks["segment_sum"].get("nonempty_segments", 0) <= 0:
+        fail("main path: segment_sum never met a non-empty segment")
+    if k7_checks["waterfill"]["calls"] <= 0:
+        fail("main path: the water-fill was never called")
+    last = max(c for c, _r, _a in rec.calls["predicate_mask"])
+    args = widest_float_sum([a for c, _r, a in rec.calls["segment_sum"] if c == last])
+    ms, plain_ms, library_ms, b = segment_sum_timing(args)
+    log(json.dumps({"phase": "kernel-main-path", "name": "segment_sum",
+                    "rows": args[1].numel(), "columns": args[0][0].numel(),
+                    "segments": args[2], "ms": round(ms, 4),
+                    "plain_ms": round(plain_ms, 4), "library_ms": round(library_ms, 4),
+                    "bound_ms": round(b[0], 5), "bound_by": b[1]}))
     return out
 
 
@@ -802,17 +1231,32 @@ def main() -> int:
     from kube_batch_tpu_torch.device import resolve_device
 
     device = resolve_device("cuda")
-    phase_card_and_build()
-    phase_parity()
-    counts, rec = phase_main_path(device)
-    records = phase_kernels(rec)
+    # The preempt path's CPU run takes minutes: a worker process runs it
+    # while this one drives the card, and is stopped on every exit.
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        cpu_preempt = pool.apply_async(preempt_cycles_cpu, (ROOT,))
+        phase_card_and_build()
+        phase_parity()
+        counts, rec = phase_main_path(device)
+        records = phase_kernels(rec)
+        del rec
+        preempt_counts, prec, pcycles = phase_preempt_path(cpu_preempt)
+        records.update(phase_preempt_kernels(prec, pcycles))
+        pool.close()
+        pool.join()
+    finally:
+        pool.terminate()
 
     kernels_line = []
     for name, (route, source, replaces) in KERNELS.items():
         r = records[name]
+        launches = preempt_counts[name] if name in PREEMPT_KERNELS else counts[name]
         kernels_line.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

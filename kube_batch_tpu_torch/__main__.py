@@ -1,11 +1,15 @@
 """Run scheduling cycles on a simulated world.
 
     python -m kube_batch_tpu_torch --workload 5 --cycles 2 [--device cpu]
+    python -m kube_batch_tpu_torch --workload 4 --conf examples/scheduler.conf --cycles 3
 
 Builds BASELINE config N (models/workloads.py) in the simulator, runs
-`--cycles` cycles of the default conf with a simulator tick between them,
-and prints one JSON line per cycle: pods bound, auction rounds per pass
-and the cycle's wall time split into pack / solve / dispatch.
+`--cycles` cycles of the default conf (or of the scheduler.conf at
+`--conf PATH`, e.g. with the preempt and reclaim actions) with a
+simulator tick between them, and prints one JSON line per cycle: pods
+bound, pods evicted per evicting action, auction rounds per pass,
+preemption steps per loop and the cycle's wall time split into pack /
+solve / dispatch.
 
 `--profile DIR` traces the cycles with torch.profiler, after one
 untraced warm-up cycle on a twin world: DIR receives the Chrome trace
@@ -28,15 +32,22 @@ def main(argv=None) -> int:
     ap.add_argument("--cycles", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--conf", metavar="PATH", default=None,
+                    help="scheduler.conf to run instead of the default conf")
     ap.add_argument("--profile", metavar="DIR", default=None)
     args = ap.parse_args(argv)
 
+    from kube_batch_tpu_torch.framework.conf import parse_conf
     from kube_batch_tpu_torch.models.workloads import build_config
     from kube_batch_tpu_torch.scheduler import Scheduler
 
+    conf = None
+    if args.conf:
+        with open(args.conf) as f:
+            conf = parse_conf(f.read())
     kw = {} if args.workload == 1 else {"seed": args.seed}
     cache, sim = build_config(args.workload, **kw)
-    sched = Scheduler(cache, device=args.device)
+    sched = Scheduler(cache, conf=conf, device=args.device)
     if args.profile:
         return _profiled(sched, sim, args)
     _cycles(sched, sim, args.cycles)
@@ -77,7 +88,8 @@ def _profiled(sched, sim, args) -> int:
     from kube_batch_tpu_torch.scheduler import Scheduler
 
     kw = {} if args.workload == 1 else {"seed": args.seed}
-    Scheduler(build_config(args.workload, **kw)[0], device=sched.device).run_once()
+    Scheduler(build_config(args.workload, **kw)[0], conf=sched.conf,
+              device=sched.device).run_once()
     os.makedirs(args.profile, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if sched.device.type == "cuda":

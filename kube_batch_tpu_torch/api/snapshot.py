@@ -38,6 +38,7 @@ from kube_batch_tpu_torch.api.types import (
     VALID_STATUSES,
     TaskStatus,
 )
+from kube_batch_tpu_torch.kernels import segment_sum as _k7
 
 # Sentinel index for "no node / no job / no queue".
 NONE_IDX = -1
@@ -170,21 +171,9 @@ def segment_sum(
     """Sum rows of `values` into `num_segments` segments; rows whose
     `seg` equals `num_segments` are dropped (the padding sentinel).
     Floats accumulate in float64 and return float32; integers and bools
-    return int32 counts."""
-    idx = seg.long()
-    if values.is_floating_point():
-        acc = torch.zeros(
-            (num_segments + 1,) + tuple(values.shape[1:]),
-            dtype=torch.float64, device=values.device,
-        )
-        acc.index_add_(0, idx, values.double())
-        return acc[:num_segments].float()
-    acc = torch.zeros(
-        (num_segments + 1,) + tuple(values.shape[1:]),
-        dtype=torch.int64, device=values.device,
-    )
-    acc.index_add_(0, idx, values.long())
-    return acc[:num_segments].int()
+    return int32 counts.  Kernel K7 on the card, its plain version on the
+    CPU (kernels/segment_sum.py)."""
+    return _k7.segment_sum(values, seg, num_segments)
 
 
 # ---------------------------------------------------------------------------

@@ -7,13 +7,14 @@ Job/Node/Queue accounting under one lock, and exposes:
 
 * `snapshot()` — a consistent copy (≙ cache.go · Snapshot), which the
   packer turns into `SnapshotTensors`;
-* `bind()` — the only way a scheduling decision reaches the world,
-  funnelling through the `Binder` seam with failed binds re-queued
-  (≙ cache.go · Bind / processResyncTask).
+* `bind()` — a placement reaches the world through the `Binder` seam,
+  failed binds re-queued (≙ cache.go · Bind / processResyncTask);
+* `evict()` — a preemption or reclaim victim reaches the world through
+  the `Evictor` seam (≙ cache.go · Evict).
 
 This is the simulator-path subset of `kube_batch_tpu.cache.cache`: the
-incremental-pack journal, health ledger, commit pipeline, relist
-quiescence and eviction funnel are not part of this slice.
+incremental-pack journal, health ledger, commit pipeline and relist
+quiescence are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -68,11 +69,15 @@ class SchedulerCache:
         self,
         spec: ResourceSpec,
         binder,
+        evictor,
         status_updater=None,
         default_queue: str = DEFAULT_QUEUE,
     ) -> None:
+        if evictor is None:
+            raise ValueError("SchedulerCache needs an evictor")
         self.spec = spec
         self.binder = binder
+        self.evictor = evictor
         self.status_updater = status_updater
         self.default_queue = default_queue
 
@@ -326,6 +331,29 @@ class SchedulerCache:
         with self._lock:
             self.update_pod_status(pod_uid, TaskStatus.BOUND)
         self.record_event("Pod", pod.name, "Bound", f"bound -> {node_name}")
+        return True
+
+    def evict(self, pod_uid: str, reason: str) -> bool:
+        """Dispatch an eviction through the Evictor, synchronously.  The
+        pod is marked RELEASING first (its resources count as releasing
+        on its node until the backend deletes it); if the backend refuses,
+        the pod returns to its previous status and an EvictFailed event is
+        recorded, so a later cycle may choose it again."""
+        with self._lock:
+            pod = self._pods.get(pod_uid)
+            if pod is None:
+                return False  # deleted between decision and commit
+            prev_status = pod.status
+            self.update_pod_status(pod_uid, TaskStatus.RELEASING)
+        try:
+            self.evictor.evict(pod, reason)
+        except Exception as exc:  # noqa: BLE001 — roll back, retry next cycle
+            with self._lock:
+                self.update_pod_status(pod_uid, prev_status)
+            self.record_event("Pod", pod.name, "EvictFailed",
+                              f"evict-failed: {exc}")
+            return False
+        self.record_event("Pod", pod.name, "Evicted", f"evicted: {reason}")
         return True
 
     def update_job_status(self, group: PodGroup) -> None:

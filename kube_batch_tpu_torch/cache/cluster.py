@@ -17,6 +17,7 @@ Simplifications (documented contract):
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 from typing import Mapping
@@ -93,6 +94,17 @@ class Pod:
                 f"pod {self.name}: preference keys must be 'key=value' label "
                 f"strings (got {bad!r}); selector-style bare keys never match"
             )
+
+    def respawn(self) -> "Pod":
+        """A fresh Pending pod from this pod's template — what a workload
+        controller creates after its pod is deleted.  Copies every spec
+        field; only identity and runtime state are reset."""
+        new = copy.copy(self)
+        new.uid = _new_uid("pod")
+        new.creation = next(_uid_counter)
+        new.status = TaskStatus.PENDING
+        new.node = None
+        return new
 
     def __copy__(self) -> "Pod":
         """Fast shallow copy: the snapshot path copies every pod every

@@ -25,6 +25,7 @@ from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels.propose import ScoreSpec
 from kube_batch_tpu_torch.ops.assignment import (
     AllocState,
+    LexOrder,
     rank_from_keys,
     segment_prefix,
 )
@@ -85,6 +86,9 @@ class TensorPolicy:
         # bool[T, N] | None (None = no constraint for this snapshot),
         # re-evaluated every auction round.
         self.dynamic_predicates: list[Callable] = []
+        # Their single-task row forms (snap, state, p) -> bool[N] | None,
+        # evaluated once per preemption step.
+        self.dynamic_predicate_rows: list[Callable] = []
         self.global_serialize: list[Callable] = []
         self.domain_serialize: list[Callable] = []
         # Per-node anti-affinity serialization set, snapshot-static:
@@ -93,11 +97,15 @@ class TensorPolicy:
         self.node_scores: list[tuple[float, Callable, str | None]] = []
         self.job_valid: list[Callable] = []
         self.job_ready: list[Callable] = []
+        self.job_pipelined: list[Callable] = []
         self.overused: list[Callable] = []
         self.queue_vtime: list[list[Callable]] = [[] for _ in range(num_tiers)]
         self.ns_vtime: list[list[Callable]] = [[] for _ in range(num_tiers)]
         self.job_vtime: list[list[Callable]] = [[] for _ in range(num_tiers)]
         self.cycle_setup: list[tuple[str, Callable]] = []
+        # Victim vetoes (snap, state, preemptor) -> bool[T], per tier.
+        self.preemptable: list[list[Callable]] = [[] for _ in range(num_tiers)]
+        self.reclaimable: list[list[Callable]] = [[] for _ in range(num_tiers)]
         self.score_quantum = 0.0
         self.max_rounds: int | None = None
         # (cpu, memory) dims of the balanced-allocation score
@@ -122,8 +130,9 @@ class TensorPolicy:
     def add_predicate_fn(self, fn) -> None:
         self.predicates.append(fn)
 
-    def add_dynamic_predicate_fn(self, fn) -> None:
+    def add_dynamic_predicate_fn(self, fn, row_fn) -> None:
         self.dynamic_predicates.append(fn)
+        self.dynamic_predicate_rows.append(row_fn)
 
     def add_global_serialize_fn(self, fn) -> None:
         self.global_serialize.append(fn)
@@ -150,6 +159,15 @@ class TensorPolicy:
 
     def add_job_ready_fn(self, fn) -> None:
         self.job_ready.append(fn)
+
+    def add_job_pipelined_fn(self, fn) -> None:
+        self.job_pipelined.append(fn)
+
+    def add_preemptable_fn(self, tier: int, fn) -> None:
+        self.preemptable[tier].append(fn)
+
+    def add_reclaimable_fn(self, tier: int, fn) -> None:
+        self.reclaimable[tier].append(fn)
 
     def add_overused_fn(self, fn) -> None:
         self.overused.append(fn)
@@ -190,6 +208,28 @@ class TensorPolicy:
             if part is not None:
                 m = part if m is None else m & part
         return m
+
+    @property
+    def dyn_predicate_row(self):
+        """(snap, state, p) -> bool[N] | None: the dynamic predicates for
+        ONE task (the preemptor of a preemption step; `p` may be a
+        0-dim device tensor), None when none constrains this snapshot;
+        the property itself is None when no dynamic predicate is
+        registered (≙ kube_batch_tpu framework/policy.py ·
+        dyn_predicate_row)."""
+        if not self.dynamic_predicate_rows:
+            return None
+        row_fns = list(self.dynamic_predicate_rows)
+
+        def row(snap, state, p):
+            m = None
+            for row_fn in row_fns:
+                part = row_fn(snap, state, p)
+                if part is not None:
+                    m = part if m is None else m & part
+            return m
+
+        return row
 
     @staticmethod
     def _or_of(fns_list):
@@ -262,23 +302,33 @@ class TensorPolicy:
             pending = (state.task_state == int(TaskStatus.PENDING)) & snap.task_mask
             valid = pending & self.eligible_fn(snap, state)
 
-        keys: list[torch.Tensor] = [snap.task_order.float()]
+        # Keys are pushed least significant first; a vtime key takes the
+        # rank of the keys pushed before it as its base order.
+        order = LexOrder(snap.num_tasks, snap.device)
+        order.push(snap.task_order.float())
         for tier_fns in reversed(self.task_order):
             for fn in reversed(tier_fns):
-                keys.append(fn(snap, state))
+                order.push(fn(snap, state))
 
         def level(static_fns, vtime_fns, gather):
             for t in range(len(static_fns) - 1, -1, -1):
                 for fn in reversed(static_fns[t]):
-                    keys.append(gather(fn(snap, state)))
+                    order.push(gather(fn(snap, state)))
                 for fn in reversed(vtime_fns[t]):
-                    base = rank_from_keys(keys, snap.num_tasks)
-                    keys.append(fn(snap, state, base, valid))
+                    order.push(fn(snap, state, order.rank(), valid))
 
         level(self.job_order, self.job_vtime, lambda k: k[tj])
         level(self.namespace_order, self.ns_vtime, lambda k: k[tns])
         level(self.queue_order, self.queue_vtime, lambda k: k[tq])
-        return rank_from_keys(keys, snap.num_tasks)
+        return order.rank()
+
+    def job_rank(self, snap, state) -> torch.Tensor:
+        """i32[J]: job-level ranks (preempt's less-deserving-job gate)."""
+        keys: list[torch.Tensor] = [snap.job_order.float()]
+        for tier_fns in reversed(self.job_order):
+            for fn in reversed(tier_fns):
+                keys.append(fn(snap, state))
+        return rank_from_keys(keys, snap.num_jobs)
 
     def job_valid_mask(self, snap, state) -> torch.Tensor:
         m = snap.job_mask
@@ -289,6 +339,15 @@ class TensorPolicy:
     def job_ready_mask(self, snap, state) -> torch.Tensor:
         m = snap.job_mask
         for fn in self.job_ready:
+            m = m & fn(snap, state)
+        return m
+
+    def job_pipelined_mask(self, snap, state) -> torch.Tensor:
+        """bool[J] (≙ ssn.JobPipelined): would the gang gate be met once
+        pipelined placements land?  A job that waits on releasing
+        resources does not preempt."""
+        m = snap.job_mask
+        for fn in self.job_pipelined:
             m = m & fn(snap, state)
         return m
 
@@ -306,6 +365,25 @@ class TensorPolicy:
         tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
         tq = task_queue_of(snap).long()
         return jv[tj] & ~over[tq] & (snap.task_job >= 0)
+
+    def _veto_intersection(self, tiers, snap, state, preemptor) -> torch.Tensor:
+        """bool[T] victim permission: within the FIRST tier that has any
+        registered fn, intersect the plugins' answers; later tiers are
+        ignored (≙ session_plugins.go · Preemptable/Reclaimable, which
+        return at the first tier whose plugins decided)."""
+        for tier_fns in tiers:
+            if tier_fns:
+                m = torch.ones(snap.num_tasks, dtype=torch.bool, device=snap.device)
+                for fn in tier_fns:
+                    m = m & fn(snap, state, preemptor)
+                return m
+        return torch.ones(snap.num_tasks, dtype=torch.bool, device=snap.device)
+
+    def preemptable_mask(self, snap, state, preemptor) -> torch.Tensor:
+        return self._veto_intersection(self.preemptable, snap, state, preemptor)
+
+    def reclaimable_mask(self, snap, state, preemptor) -> torch.Tensor:
+        return self._veto_intersection(self.reclaimable, snap, state, preemptor)
 
 
 def _weighted(w: float, fn):

@@ -4,9 +4,10 @@ Reference counterpart: framework/framework.go (OpenSession/CloseSession)
 and framework/session.go; the port of kube_batch_tpu/framework/session.py
 on the simulator path.  A Session owns one packed snapshot on the
 scheduler's device and the cycle's final state; cluster effects happen
-only in `close_session`, which dispatches binds for every job passing the
-JobReady gate (gang all-or-nothing: an unready job's tentative placements
-are dropped with zero cluster effect).
+only through its two funnels: `commit_evictions` (preempt / reclaim
+victims, right after the solve) and `close_session`, which dispatches
+binds for every job passing the JobReady gate (gang all-or-nothing: an
+unready job's tentative placements are dropped with zero cluster effect).
 """
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ class Session:
         self.initial_task_state = self.host_fields["task_state"]
         self.state: AllocState = init_state(self.snap)
         self.bound: list[tuple[str, str]] = []     # (pod name, node)
+        self.evicted: list[tuple[str, str]] = []   # (pod name, reason)
         # Host copies of the cycle's results (set by `finish`).
         self.host_task_state: np.ndarray | None = None
         self.host_task_node: np.ndarray | None = None
@@ -93,6 +95,15 @@ class Session:
         self.host_task_node = state.task_node.cpu().numpy()
         self.job_ready = job_ready.cpu().numpy()
         self.diag = diag
+
+    def commit_evictions(self, victim_idx, reason: str) -> None:
+        """Land evictions decided by preempt / reclaim through the cache
+        (≙ Statement.Commit replaying Evict); a refused eviction is not
+        recorded."""
+        for t in victim_idx:
+            pod = self.meta.task_pods[int(t)]
+            if self.cache.evict(pod.uid, reason):
+                self.evicted.append((pod.name, reason))
 
     def dispatch_binds(self) -> list[tuple[str, str]]:
         """Bind every newly allocated task of every JobReady job (gang

@@ -6,6 +6,9 @@
 | K2 | propose.propose_best, propose.propose_pick | CUDA C++ | ops/assignment.py · allocate_rounds (propose half), _round_robin_proposals |
 | K3 | resolve.resolve, resolve.apply | CUDA C++ | ops/assignment.py · _resolve_conflicts, _segment_prefix, apply step |
 | K4 | failure_counts.failure_counts | Triton | framework/fit_errors.py · failure_counts |
+| K5 | victim_prefix.victim_prefix | CUDA C++ | ops/preemption.py · _min_victims_per_node, choose_node |
+| K6 | preempt_scan.preempt_open, preempt_scan.preempt_continue | CUDA C++ | ops/preemption.py · preemption_rounds (the step's scans) |
+| K7 | segment_sum.segment_sum, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
 
 Every wrapper runs its plain PyTorch version for CPU tensors, launches
 its kernel for CUDA tensors (or raises), and counts its launches in a
@@ -15,8 +18,11 @@ plain int attribute `launches`.
 from kube_batch_tpu_torch.kernels import (  # noqa: F401
     failure_counts,
     predicate_mask,
+    preempt_scan,
     propose,
     resolve,
+    segment_sum,
+    victim_prefix,
 )
 
 
@@ -29,6 +35,11 @@ def wrappers() -> dict:
         "resolve": resolve.resolve,
         "apply": resolve.apply,
         "failure_counts": failure_counts.failure_counts,
+        "victim_prefix": victim_prefix.victim_prefix,
+        "preempt_open": preempt_scan.preempt_open,
+        "preempt_continue": preempt_scan.preempt_continue,
+        "segment_sum": segment_sum.segment_sum,
+        "waterfill": segment_sum.waterfill,
     }
 
 

@@ -77,19 +77,34 @@ RankFn = Callable[[SnapshotTensors, AllocState], torch.Tensor]
 EligibleFn = Callable[[SnapshotTensors, AllocState], torch.Tensor]
 
 
-def rank_from_keys(keys: list[torch.Tensor], num: int) -> torch.Tensor:
-    """Tiered lexicographic keys → dense ranks (i32[num], 0 = first).
+class LexOrder:
+    """Chained stable sorts, least significant key first: after keys
+    k0..km have been pushed, `rank()` is the dense rank of lexsort over
+    them (the LAST key is the primary), full ties kept in index order.
+    Pushing one more key continues the same chain, so a caller that
+    needs the rank of a prefix of its keys (rank_fn's vtime keys) sorts
+    each key once."""
 
-    `keys` is least-significant-first (lexsort convention: the LAST key
-    is the primary).  Chained stable sorts, least significant key first,
-    give lexsort's order, with full ties kept in index order."""
-    device = keys[0].device
-    perm = torch.arange(num, device=device)
+    def __init__(self, num: int, device) -> None:
+        self.perm = torch.arange(num, device=device)
+
+    def push(self, key: torch.Tensor) -> None:
+        self.perm = self.perm[torch.argsort(key[self.perm], stable=True)]
+
+    def rank(self) -> torch.Tensor:
+        num = self.perm.shape[0]
+        rank = torch.empty(num, dtype=torch.int32, device=self.perm.device)
+        rank[self.perm] = torch.arange(num, dtype=torch.int32, device=self.perm.device)
+        return rank
+
+
+def rank_from_keys(keys: list[torch.Tensor], num: int) -> torch.Tensor:
+    """Tiered lexicographic keys (least significant first) → dense ranks
+    (i32[num], 0 = first)."""
+    order = LexOrder(num, keys[0].device)
     for k in keys:
-        perm = perm[torch.argsort(k[perm], stable=True)]
-    rank = torch.empty(num, dtype=torch.int32, device=device)
-    rank[perm] = torch.arange(num, dtype=torch.int32, device=device)
-    return rank
+        order.push(k)
+    return order.rank()
 
 
 def sort_by_segment(

@@ -5,22 +5,16 @@ redistribution of the cluster total among queues proportional to weight,
 each queue clamped at its own total request and its surplus
 redistributed; the port of kube_batch_tpu/ops/waterfill.py.  Q+1
 iterations over [Q, R] always suffice: each clamps ≥1 queue-dim or
-distributes all remaining capacity.
+distributes all remaining capacity.  The second entry point of kernel K7
+(kernels/segment_sum.py · waterfill) computes it on the card; its plain
+version, with the queue sums taken strictly left to right, on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-
-def _sum_queues(x: torch.Tensor) -> torch.Tensor:
-    """Σ over the queue axis of f32[Q, R], strictly left to right — the
-    order the reference's float32 reduction takes on the CPU, so the two
-    agree to the bit."""
-    acc = torch.zeros_like(x[0])
-    for q in range(x.shape[0]):
-        acc = acc + x[q]
-    return acc
+from kube_batch_tpu_torch.kernels import segment_sum as _k7
 
 
 def waterfill_deserved(
@@ -30,22 +24,4 @@ def waterfill_deserved(
     queue_mask: torch.Tensor,  # bool[Q]
 ) -> torch.Tensor:
     """f32[Q, R]: each queue's deserved share of the cluster."""
-    Q = weights.shape[0]
-    request = torch.where(queue_mask[:, None], request, 0.0)
-    deserved = torch.zeros_like(request)
-    remaining = total.float()
-    unsat = queue_mask[:, None] & torch.ones_like(request, dtype=torch.bool)
-    for _ in range(Q + 1):
-        w = torch.where(unsat, weights[:, None], 0.0)
-        wsum = _sum_queues(w)
-        inc = torch.where(
-            wsum > 0.0, remaining[None, :] * w / torch.clamp(wsum, min=1e-9), 0.0
-        )
-        filled = deserved + inc
-        hit = filled >= request
-        filled = torch.minimum(filled, request)
-        spent = _sum_queues(filled - deserved)
-        deserved, remaining, unsat = (
-            filled, torch.clamp(remaining - spent, min=0.0), unsat & ~hit
-        )
-    return deserved
+    return _k7.waterfill(weights, request, total, queue_mask)

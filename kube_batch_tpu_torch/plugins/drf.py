@@ -4,8 +4,9 @@ Reference counterpart: plugins/drf/drf.go — per-job share = max over
 resources of allocated_r / clusterTotal_r, lower share scheduled first;
 the port of kube_batch_tpu/plugins/drf.py.  Shares are reductions over
 the live AllocState, recomputed every auction round, so the in-cycle
-feedback the reference gets from its EventHandlers falls out.  The
-PreemptableFn comes with the preempt action (ROADMAP A6).
+feedback the reference gets from its EventHandlers falls out.
+PreemptableFn: a victim is allowed only if its job's share after the
+eviction stays at or above the preemptor job's share.
 """
 
 from __future__ import annotations
@@ -60,6 +61,19 @@ def ns_share(snap, state) -> torch.Tensor:
     return share_of(ns_allocated(snap, state) / w, snap.cluster_total)
 
 
+def preemptable(snap, state, preemptor):
+    """bool[T]: the victim's job keeps at least the preemptor job's
+    dominant share after the eviction (`after` in float32, as the
+    reference computes it)."""
+    alloc = job_allocated(snap, state)                         # f32[J, R]
+    total = snap.cluster_total
+    pj = torch.clamp(snap.task_job[preemptor], 0, snap.num_jobs - 1).long()
+    preemptor_share = share_of(alloc[pj], total)
+    tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
+    victim_share_after = share_of(alloc[tj] - snap.task_req, total)
+    return (victim_share_after >= preemptor_share) | (snap.task_job < 0)
+
+
 @register_plugin
 class DrfPlugin(Plugin):
     name = "drf"
@@ -92,3 +106,5 @@ class DrfPlugin(Plugin):
         if self.enabled_for("namespaceOrder"):
             policy.add_namespace_order_fn(tier, ns_share)
             policy.add_namespace_vtime_fn(tier, ns_vtime)
+        if self.enabled_for("preemptable"):
+            policy.add_preemptable_fn(tier, preemptable)

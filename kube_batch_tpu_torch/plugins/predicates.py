@@ -71,7 +71,9 @@ class PredicatesPlugin(Plugin):
 
         if self.args.get_bool("predicate.PodAffinityEnable", True):
             policy.add_cycle_setup_fn(AFFINITY_AUX, _affinity_terms_present)
-            policy.add_dynamic_predicate_fn(pod_affinity_predicate)
+            policy.add_dynamic_predicate_fn(
+                pod_affinity_predicate, row_fn=pod_affinity_row
+            )
             policy.add_node_serialize_fn(anti_serialize_mask)
             policy.add_global_serialize_fn(bootstrap_mask)
             policy.add_domain_serialize_fn(topo_anti_participants)
@@ -209,6 +211,45 @@ def pod_affinity_predicate(snap, state, immediate: bool = False):
             Hd_now, Ad_now = Hd, Ad
         topo_aff_ok, topo_anti_ok = _topo_feasibility(snap, Hb, Hd, Ad_now, Hd_now)
         ok = ok & topo_aff_ok & topo_anti_ok
+    return ok
+
+
+def pod_affinity_row(snap, state, p):
+    """bool[N]: pod_affinity_predicate for ONE task (the preemptor of a
+    preemption step; `p` may be a 0-dim device tensor) — O(N·K) instead
+    of the [T, N] matrix; future-oriented, since the preemptor pipelines
+    onto FutureIdle after its victims leave.  None when no task carries
+    an affinity term (≙ kube_batch_tpu plugins/predicates.py ·
+    pod_affinity_row)."""
+    if not affinity_active(snap, state):
+        return None
+    Hb, Ab = resident_podlabels(snap, state)
+    Hf = Hb.float()
+    aff = snap.task_aff[p]                                      # f32[K]
+    own = snap.task_podlabels[p]
+    term_exists = Hb.any(dim=0)
+    need = aff.sum()
+    have = Hf @ aff                                             # f32[N]
+    bootstrap = (aff * (own > 0).float() * (~term_exists).float()).sum()
+    aff_ok = have + bootstrap >= need
+    anti_hit = Hf @ snap.task_anti[p]
+    sym_hit = Ab.float() @ own
+    ok = aff_ok & (anti_hit <= 0.5) & (sym_hit <= 0.5)
+    if snap.task_aff_topo.shape[1]:
+        Hd, Ad = resident_domain_labels(snap, state)
+        label = snap.topo_term_label.long()
+        A = snap.node_key_domain[:, snap.topo_term_key.long()].long()   # [N, K2]
+        present = Hd[A, label[None, :]].float()
+        aff2 = snap.task_aff_topo[p]
+        have2 = present @ aff2                                  # f32[N]
+        exists2 = term_exists[label]
+        boot2 = (aff2 * own[label] * (~exists2).float()).sum()
+        anti2 = present @ snap.task_anti_topo[p]
+        sym2 = torch.zeros(snap.num_nodes, dtype=torch.float32, device=snap.device)
+        for tk in range(snap.node_key_domain.shape[1]):
+            Ad_n = Ad[snap.node_key_domain[:, tk].long()].float()   # [N, K]
+            sym2 = sym2 + Ad_n @ own
+        ok = ok & (have2 + boot2 >= aff2.sum()) & (anti2 <= 0.5) & (sym2 <= 0.5)
     return ok
 
 

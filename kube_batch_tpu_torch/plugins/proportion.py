@@ -3,9 +3,9 @@
 Reference counterpart: plugins/proportion/proportion.go — per-queue
 `deserved` by weighted water-filling of the cluster total, clamped by the
 queue's own request (ops/waterfill.py); QueueOrderFn by
-allocated/deserved; OverusedFn once deserved ⊑ allocated.  The port of
-kube_batch_tpu/plugins/proportion.py; the ReclaimableFn comes with the
-reclaim action (ROADMAP A6).
+allocated/deserved; OverusedFn once deserved ⊑ allocated; ReclaimableFn
+while the victim's queue stays at or above deserved after the eviction.
+The port of kube_batch_tpu/plugins/proportion.py.
 """
 
 from __future__ import annotations
@@ -62,6 +62,26 @@ def _deserved(snap, state) -> torch.Tensor:
     return cached if cached is not None else queue_deserved(snap)
 
 
+def victim_stays_above_deserved(snap, state) -> torch.Tensor:
+    """bool[T]: evicting this task leaves its queue at or above its
+    deserved share on every meaningful dimension (counting dims excluded
+    via besteffort_eps).  `after` is float32, as in the reference.  The
+    one source of the deserved floor: the ReclaimableFn below and the
+    reclaim action's inline victim gate both use it."""
+    alloc = queue_allocated(snap, state)
+    deserved = _deserved(snap, state)
+    tq = task_queue_of(snap).long()
+    after = alloc[tq] - snap.task_req
+    return torch.all(
+        (deserved[tq] <= after) | (deserved[tq] < snap.besteffort_eps[None, :]),
+        dim=1,
+    )
+
+
+def reclaimable(snap, state, preemptor):  # noqa: ARG001
+    return victim_stays_above_deserved(snap, state) | (snap.task_job < 0)
+
+
 def queue_share(snap, state) -> torch.Tensor:
     """f32[Q]: max-dimension allocated/deserved ratio (lower = hungrier)."""
     alloc = queue_allocated(snap, state)
@@ -102,3 +122,5 @@ class ProportionPlugin(Plugin):
             policy.add_queue_vtime_fn(tier, queue_vtime)
         if self.enabled_for("overused"):
             policy.add_overused_fn(overused)
+        if self.enabled_for("reclaimable"):
+            policy.add_reclaimable_fn(tier, reclaimable)

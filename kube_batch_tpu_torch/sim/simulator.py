@@ -1,11 +1,12 @@
 """In-process cluster simulator implementing the backend seam.
 
 The simulator plays the roles that sit across the API boundary from the
-reference scheduler: the API server taking binds and kubelet starting
-bound pods.  Time is discrete: a bind lands at the next `tick()`, which
-creates the same in-flight BINDING window the reference sees from
-asynchronous cluster round-trips.  (Evictions and the controllers that
-recreate evicted pods come with the preempt/reclaim slice.)
+reference scheduler: kubelet (starting bound pods), the API server
+(deleting evicted pods) and workload controllers (recreating deleted
+pods).  Time is discrete: effects of binds and evictions land at the next
+`tick()`, which creates the same in-flight windows (BINDING, RELEASING)
+the reference sees from asynchronous cluster round-trips — exercising
+FutureIdle accounting and pipelined placements.
 """
 
 from __future__ import annotations
@@ -16,19 +17,25 @@ from kube_batch_tpu_torch.cache.cluster import Node, Pod, PodGroup, Queue
 
 
 class SimulatedCluster:
-    """Implements the Binder and StatusUpdater seams against a
-    SchedulerCache (evictions come with the preempt/reclaim slice)."""
+    """Implements the Binder, Evictor and StatusUpdater seams against a
+    SchedulerCache."""
 
     def __init__(self) -> None:
         self.cache: SchedulerCache | None = None
         self.binds: list[tuple[str, str]] = []
+        self.evictions: list[tuple[str, str]] = []
         self.status_updates: list[PodGroup] = []
         self._starting: list[str] = []   # pod uids bound, not yet running
+        self._deleting: list[str] = []   # pod uids evicted, not yet recreated
 
     # -- backend seam ---------------------------------------------------
     def bind(self, pod: Pod, node_name: str) -> None:
         self.binds.append((pod.name, node_name))
         self._starting.append(pod.uid)
+
+    def evict(self, pod: Pod, reason: str) -> None:
+        self.evictions.append((pod.name, reason))
+        self._deleting.append(pod.uid)
 
     def update_pod_group(self, group: PodGroup) -> None:
         self.status_updates.append(group)
@@ -62,6 +69,12 @@ class SimulatedCluster:
             pod.group = group.name
             self.cache.add_pod(pod)
 
+    def submit_to_group(self, group_name: str, pods: list[Pod]) -> None:
+        """Additional member pods for an existing PodGroup (scale-up)."""
+        for pod in pods:
+            pod.group = group_name
+            self.cache.add_pod(pod)
+
     def add_queue(self, queue: Queue) -> None:
         self.cache.add_queue(queue)
 
@@ -79,11 +92,21 @@ class SimulatedCluster:
 
     # -- time -----------------------------------------------------------
     def tick(self) -> None:
-        """Land in-flight effects: bound pods start running."""
+        """Land in-flight effects: bound pods start running; evicted pods
+        are deleted and recreated as fresh Pending pods (controller
+        behavior), freeing their nodes."""
         starting, self._starting = self._starting, []
         for uid in starting:
             if uid in self.cache._pods:
                 self.cache.update_pod_status(uid, TaskStatus.RUNNING)
+        deleting, self._deleting = self._deleting, []
+        for uid in deleting:
+            pod = self.cache._pods.get(uid)
+            if pod is None:
+                continue
+            template = pod.respawn()
+            self.cache.delete_pod(uid)
+            self.cache.add_pod(template)
 
 
 def make_world(
@@ -94,6 +117,7 @@ def make_world(
     cache = SchedulerCache(
         spec=spec,
         binder=sim,
+        evictor=sim,
         status_updater=sim,
         default_queue=default_queue,
     )
