@@ -26,8 +26,19 @@ and `triton`.  Phases (any failure exits non-zero):
    oversubscribes the cluster.  Every kernel's launch counter is set to 0
    just before and read just after; asserts that every kernel launched,
    that no node is over-committed, that gangs bind all-or-nothing and
-   that every bind lands on a node the predicate mask allows;
-4. the preempt path — full-size config 4 (500 nodes, 5,000 pods, 4
+   that every bind lands on a node its cycle's predicate mask allows;
+4. the host cycle — full-size config 5 again, 4 cycles through
+   `Scheduler.run_once` in its default incremental pack mode, with churn
+   between the cycles: the tick, about 1 % of the running pods completing
+   or deleted (swap-compacted rows), one node's allocatable cpu raised,
+   and 300 pods arriving into existing jobs after cycles 1 and 3 (20
+   evictions instead after cycle 2).  After every pack every device field
+   must equal the packer's host array and every decoded task, job and
+   node row a fresh full pack's; a second scheduler on an identical world
+   in pack_mode="full" must bind alike every cycle; cycles 2-4 must be
+   row-patched (K9).  Per cycle: pack mode, host-patch and H2D ms, H2D
+   bytes, solve, dispatch, wall, binds, K9 launches;
+5. the preempt path — full-size config 4 (500 nodes, 5,000 pods, 4
    priority classes, 2 queues) under examples/scheduler.conf (allocate,
    backfill, preempt, reclaim) for 3 cycles through `Scheduler.run_once`.
    Cycle 1 fills the empty cluster and evicts nothing; after the tick a
@@ -40,15 +51,19 @@ and `triton`.  Phases (any failure exits non-zero):
    (binds, evictions with their reasons, task_state, task_node,
    job_ready, failure tallies) against the same run on the CPU, which a
    worker process runs meanwhile;
-5. kernels — each kernel against its plain PyTorch version on the card:
+6. kernels — each kernel against its plain PyTorch version on the card:
    K1–K4 on the inputs the main path gave them in cycle 2 (the predicate
    mask and failure tallies of that cycle, and the auction round whose
    resolve rejected the most proposals), K7 on every call of the main
    path, K5–K7 on every input the preempt path gave them in cycles 2 and
-   3 (segment sums sampled), timed on cycle 2's.  Outputs
-   exactly equal; kernel / plain / library times (median of CUDA-event
-   timed runs after a warm-up) and the least time the card could take.
+   3 (segment sums sampled), timed on cycle 2's; K8 on every 10th call
+   of the main path and every 25th of the preempt path, timed at both
+   paths' widths (T = 65,536 and 8,192); K9 on every call of the host
+   cycle, timed on the largest.  Outputs exactly equal; kernel / plain /
+   library times (median of CUDA-event timed runs after a warm-up) and
+   the least time the card could take.
 
+The line before the `kernels` line gives the script's seconds.
 The last two lines are the `kernels` JSON object and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -100,10 +115,21 @@ KERNELS = {
                     "kube_batch_tpu/api/snapshot.py:203"),
     "waterfill": ("cuda", "kube_batch_tpu_torch/kernels/csrc/segment_sum.cu",
                   "kube_batch_tpu/ops/waterfill.py:24"),
+    "lex_push": ("cuda", "kube_batch_tpu_torch/kernels/csrc/lex_rank.cu",
+                 "kube_batch_tpu/framework/policy.py:359"),
+    "sort_by_segment": ("cuda", "kube_batch_tpu_torch/kernels/csrc/lex_rank.cu",
+                        "kube_batch_tpu/ops/assignment.py:196"),
+    "vtime": ("cuda", "kube_batch_tpu_torch/kernels/csrc/lex_rank.cu",
+              "kube_batch_tpu/framework/policy.py:37"),
+    "row_patch": ("cuda", "kube_batch_tpu_torch/kernels/csrc/row_patch.cu",
+                  "kube_batch_tpu/cache/incremental.py:144"),
 }
 PREEMPT_KERNELS = ("victim_prefix", "preempt_open", "preempt_continue",
                    "segment_sum", "waterfill")
 EVICTING_ONLY = ("victim_prefix", "preempt_open", "preempt_continue")
+RANK_KERNELS = ("lex_push", "sort_by_segment", "vtime")
+# launched where a steady cycle row-patches; required on the host cycle
+HOST_CYCLE_ONLY = ("row_patch",)
 
 MAIN_WAVE_PODS = 15000   # second wave of the main path (T stays 65536)
 # The preempt path's wave after cycle 1 (rehearsed on the CPU, PERF.md;
@@ -119,8 +145,15 @@ PREEMPT_WAVE = (
 )
 RESEARCH_WEIGHT = 4.0
 WAVE_PREFIXES = tuple(w[0] for w in PREEMPT_WAVE)
-# the recorder keeps every 25th segment_sum call of the preempt path
-PREEMPT_SEGMENT_SUM_EVERY = 25
+# the recorder keeps every 25th segment_sum and K8 call of the preempt
+# path, and every 10th K8 call of the main path
+PREEMPT_EVERY = {name: 25 for name in ("segment_sum",) + RANK_KERNELS}
+MAIN_EVERY = {name: 10 for name in RANK_KERNELS}
+# the host-cycle phase: config 5 full, 4 cycles, churn between them
+HOST_CYCLES = 4
+HOST_DONE_EVERY = 100        # every 100th running pod completes or is deleted
+HOST_ARRIVAL_PODS = 300      # pods arriving into existing jobs' shapes
+HOST_EVICTED = 20            # pods evicted after the cycle without arrivals
 
 
 def fail(msg: str) -> None:
@@ -383,9 +416,10 @@ def preempt_wave(sim, cluster=None, workloads=None) -> int:
 # ---------------------------------------------------------------------------
 
 # Argument positions each wrapper's caller writes in place after (or,
-# for apply, during) the call: these are cloned when recorded.
+# for apply and row_patch, during) the call, and inputs a later pack may
+# row-patch (the snapshot, its fields): these are cloned when recorded.
 _MUTATED = {
-    "predicate_mask": (),
+    "predicate_mask": (0,),      # the snapshot
     "propose_best": (3, 7),      # avail, node_future
     "propose_pick": (3, 7),
     "resolve": (3,),             # avail
@@ -396,24 +430,46 @@ _MUTATED = {
     "preempt_continue": (),
     "segment_sum": (),
     "waterfill": (),
+    "lex_push": (0, 1),
+    "sort_by_segment": (0, 1),
+    "vtime": (0, 1, 2, 3),
+    "row_patch": (0,),           # the device buffers, written in place
 }
+
+
+def _keep(a):
+    """A copy of one recorded argument: tensors, lists of them, and
+    snapshots (every field)."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, list):
+        return [_keep(x) for x in a]
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: getattr(a, f.name).clone() for f in dataclasses.fields(a)})
+    return a
 
 
 class Recorder:
     """While active, every kernel wrapper call of the scheduler goes
     through unchanged (it launches and counts as before) and its inputs
-    are kept: `calls[name]` lists (cycle, round, args) — of segment_sum,
-    which the preemption loop calls many times per step, every
-    `segment_sum_every`-th call.  A cycle starts at its predicate-mask
-    call and a round at its propose_best call."""
+    are kept: `calls[name]` lists (cycle, round, args) — of a kernel
+    named in `every`, every `every[name]`-th call.  A cycle starts at its
+    predicate-mask call and a round at its propose_best call."""
 
-    def __init__(self, segment_sum_every: int = 1) -> None:
+    def __init__(self, every: dict | None = None) -> None:
         import kube_batch_tpu_torch.plugins.predicates as plug
         from kube_batch_tpu_torch.kernels import (
             failure_counts,
+            lex_rank,
             preempt_scan,
             propose,
             resolve,
+            row_patch,
             segment_sum,
             victim_prefix,
         )
@@ -430,16 +486,20 @@ class Recorder:
             (preempt_scan, "preempt_continue", "preempt_continue"),
             (segment_sum, "segment_sum", "segment_sum"),
             (segment_sum, "waterfill", "waterfill"),
+            (lex_rank, "lex_push", "lex_push"),
+            (lex_rank, "sort_by_segment", "sort_by_segment"),
+            (lex_rank, "vtime", "vtime"),
+            (row_patch, "row_patch", "row_patch"),
         ]
         self.calls = {name: [] for name in _MUTATED}
         self.seen = {name: 0 for name in _MUTATED}
         self.cycle = self.round = -1
-        self.segment_sum_every = segment_sum_every
+        self.every = every or {}
         self._saved = []
 
     def _wrap(self, name, fn):
         mutated = _MUTATED[name]
-        every = self.segment_sum_every if name == "segment_sum" else 1
+        every = self.every.get(name, 1)
 
         def wrapper(*args):
             if name == "predicate_mask":
@@ -448,7 +508,7 @@ class Recorder:
                 self.round += 1
             self.seen[name] += 1
             if self.seen[name] % every == 0:
-                kept = tuple(a.clone() if i in mutated else a
+                kept = tuple(_keep(a) if i in mutated else a
                              for i, a in enumerate(args))
                 self.calls[name].append((self.cycle, self.round, kept))
             return fn(*args)
@@ -488,10 +548,12 @@ def check_call(name: str, args):
     import torch
 
     from kube_batch_tpu_torch.kernels import failure_counts as k4
+    from kube_batch_tpu_torch.kernels import lex_rank as k8
     from kube_batch_tpu_torch.kernels import predicate_mask as k1
     from kube_batch_tpu_torch.kernels import preempt_scan as k6
     from kube_batch_tpu_torch.kernels import propose as k2
     from kube_batch_tpu_torch.kernels import resolve as k3
+    from kube_batch_tpu_torch.kernels import row_patch as k9
     from kube_batch_tpu_torch.kernels import segment_sum as k7
     from kube_batch_tpu_torch.kernels import victim_prefix as k5
 
@@ -554,6 +616,28 @@ def check_call(name: str, args):
         err = require_equal(name, [(a_k[i], a_p[i]) for i in (4, 5, 8, 9)])
         return err, {"accepted": int(args[2].sum()),
                      "rows_changed": int((a_k[8] != args[8]).sum())}
+    if name == "lex_push":
+        perm, rank = k8.lex_push(*args)
+        err = require_equal(name, list(zip((perm, rank), k8.lex_push_plain(*args))))
+        ks = args[1][perm]
+        return err, {"rows": int(perm.numel()),
+                     "tied_rows": int((ks[1:] == ks[:-1]).sum())}
+    if name == "sort_by_segment":
+        out = k8.sort_by_segment(*args)
+        err = require_equal(name, list(zip(out, k8.sort_by_segment_plain(*args))))
+        return err, {"segments": int(torch.unique(out[1]).numel())}
+    if name == "vtime":
+        out = k8.vtime(*args)
+        err = require_equal(name, [(out, k8.vtime_plain(*args))])
+        return err, {"valid_rows": int(args[3].sum()),
+                     "big_vtime_rows": int((out >= k8.BIG_VTIME).sum())}
+    if name == "row_patch":
+        bufs, rows, vals = args
+        a_k, a_p = [b.clone() for b in bufs], [b.cpu() for b in bufs]
+        k9.row_patch(a_k, rows, vals)
+        k9.row_patch_plain(a_p, rows, vals)
+        err = require_equal(name, [(k.cpu(), p) for k, p in zip(a_k, a_p)])
+        return err, {"fields": len(bufs), "rows": sum(len(r) for r in rows)}
     if name == "failure_counts":
         out = k4.failure_counts(*args)
         err = require_equal(name, list(zip(out, k4.failure_counts_plain(*args))))
@@ -642,8 +726,7 @@ def _run(world: str, device: str, record: bool):
     cache.binder = binder
     sched = Scheduler(cache, conf=scheduler_conf() if preempt else None,
                       device=device)
-    rec = (Recorder(PREEMPT_SEGMENT_SUM_EVERY if preempt else 1)
-           if record else None)
+    rec = Recorder(PREEMPT_EVERY if preempt else None) if record else None
     cycles = []
     for cycle in range(2):
         if rec is not None:
@@ -704,7 +787,8 @@ def phase_parity():
     for key in (("predicate_mask", "vetoed_cells"), ("propose_best", "multi_tie_rows"),
                 ("propose_pick", "picked_past_first_tie"), ("resolve", "rejected"),
                 ("apply", "rows_changed"), ("failure_counts", "rows_predicate_failed"),
-                ("failure_counts", "rows_insufficient")):
+                ("failure_counts", "rows_insufficient"), ("lex_push", "tied_rows"),
+                ("sort_by_segment", "segments"), ("vtime", "valid_rows")):
         if seen.get(key, 0) <= 0:
             fail(f"parity worlds never gave {key[0]} a case with {key[1]} > 0")
 
@@ -713,7 +797,9 @@ def phase_parity():
 # phase 3
 # ---------------------------------------------------------------------------
 
-def _check_invariants(cache, snap_checks):
+def _check_invariants(cache, gangs: bool = True):
+    """No node over-committed; with `gangs`, every gang with a placed
+    member holds at least minMember placed members."""
     import numpy as np
 
     from kube_batch_tpu_torch.api.types import READY_STATUSES, TaskStatus
@@ -723,6 +809,8 @@ def _check_invariants(cache, snap_checks):
             if np.any(info.used > info.allocatable):
                 fail(f"node {name} over-committed: used {info.used} > "
                      f"allocatable {info.allocatable}")
+        if not gangs:
+            return
         placed = {TaskStatus.BINDING, TaskStatus.BOUND, TaskStatus.RUNNING}
         for jname, job in cache._jobs.items():
             pods = job.tasks.values()
@@ -731,28 +819,36 @@ def _check_invariants(cache, snap_checks):
                 if held < job.min_available:
                     fail(f"gang {jname}: {held} members placed, "
                          f"min_member {job.min_available}")
-    for pred_np, task_idx, node_idx, binds in snap_checks:
-        for pod_name, node_name in binds:
-            t, n = task_idx[pod_name], node_idx[node_name]
-            if not pred_np[t, n]:
-                fail(f"bind {pod_name} -> {node_name} violates the predicate mask")
+
+
+def _check_binds_allowed(ssn):
+    """Every bind of the cycle lands on a node its own snapshot's
+    predicate mask allows (plain version; launches nothing).  Called
+    right after the cycle: the next pack row-patches the snapshot."""
+    from kube_batch_tpu_torch.kernels.predicate_mask import (
+        PredicateFlags,
+        predicate_mask_plain,
+    )
+
+    pred = predicate_mask_plain(ssn.snap, PredicateFlags()).cpu().numpy()
+    task_idx = {p.name: i for i, p in enumerate(ssn.meta.task_pods)}
+    node_idx = {n: i for i, n in enumerate(ssn.meta.node_names)}
+    for pod_name, node_name in ssn.bound:
+        if not pred[task_idx[pod_name], node_idx[node_name]]:
+            fail(f"bind {pod_name} -> {node_name} violates the predicate mask")
 
 
 def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     import torch
 
     from kube_batch_tpu_torch import kernels
-    from kube_batch_tpu_torch.kernels.predicate_mask import (
-        PredicateFlags,
-        predicate_mask_plain,
-    )
     from kube_batch_tpu_torch.models.workloads import config5_full
     from kube_batch_tpu_torch.scheduler import Scheduler
 
     cache, sim = config5_full(seed=0, **world_kw)
     sched = Scheduler(cache, device=device)
     cuda = device.type == "cuda"
-    rec = Recorder()
+    rec = Recorder(MAIN_EVERY)
     sessions = []
     kernels.reset_counts()
     with rec:
@@ -772,7 +868,8 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
             if cuda:
                 rec_line["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
             log(json.dumps(rec_line))
-            sessions.append(ssn)
+            _check_binds_allowed(ssn)
+            sessions.append((ssn.snap.num_tasks, len(ssn.bound)))
             sim.tick()
             if cycle == 0:
                 t0 = time.perf_counter()
@@ -782,42 +879,253 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     counts = kernels.counts()
     log(json.dumps({"phase": "main-path-launches", **counts}))
     for name, n in counts.items():
-        if n <= 0 and name not in EVICTING_ONLY:
+        if n <= 0 and name not in EVICTING_ONLY + HOST_CYCLE_ONLY:
             fail(f"kernel {name} was not launched on the main path")
-    if sessions[1].snap.num_tasks != sessions[0].snap.num_tasks:
+    if sessions[1][0] != sessions[0][0]:
         fail("the second wave changed the padded task count")
-    if not sessions[0].bound or not sessions[1].bound:
+    if not sessions[0][1] or not sessions[1][1]:
         fail("a main-path cycle bound nothing")
-    # independent predicate check (plain version; launches nothing)
-    snap_checks = []
-    for ssn in sessions:
-        pred = predicate_mask_plain(ssn.snap, PredicateFlags()).cpu().numpy()
-        snap_checks.append((
-            pred,
-            {p.name: i for i, p in enumerate(ssn.meta.task_pods)},
-            {n: i for i, n in enumerate(ssn.meta.node_names)},
-            ssn.bound,
-        ))
-        del pred
-    _check_invariants(cache, snap_checks)
+    _check_invariants(cache)
     log(json.dumps({"phase": "invariants", "capacity": True, "gang": True,
                     "predicate": True}))
     return counts, rec
 
 
 # ---------------------------------------------------------------------------
+# the host cycle: incremental packs on config 5 under churn
+# ---------------------------------------------------------------------------
+
+def host_churn(cache, sim, cycle: int, arrive: bool) -> dict:
+    """The churn after host-cycle `cycle`: the tick runs the bound pods
+    (and deletes and recreates the pods evicted before it); every
+    HOST_DONE_EVERY-th running pod (by name) completes or, every other
+    one, is deleted (a swap-compaction of its row); one node's cpu grows
+    by 1,000 milli (a node-accounting row).  With `arrive`,
+    HOST_ARRIVAL_PODS pods arrive into existing jobs (copies of each
+    job's first pod: interned vocabularies, an append of rows); without,
+    HOST_EVICTED running pods are evicted (Releasing), so the next cycle
+    still has work.  The same calls on two identical worlds make
+    identical worlds, uids included."""
+    import dataclasses
+    import itertools
+
+    import kube_batch_tpu_torch.cache.cluster as cluster
+    from kube_batch_tpu_torch.api.types import TaskStatus
+
+    cluster._uid_counter = itertools.count(10**7 * (cycle + 1))
+    sim.tick()
+    with cache.lock():
+        running = sorted((p.name, p.uid) for p in cache._pods.values()
+                         if p.status == TaskStatus.RUNNING)
+        shapes = [(name, next(iter(job.tasks.values())))
+                  for name, job in sorted(cache._jobs.items()) if job.tasks]
+        node = cache._nodes[sorted(cache._nodes)[cycle]].node
+    done = running[cycle % HOST_DONE_EVERY::HOST_DONE_EVERY]
+    for k, (_name, uid) in enumerate(done):
+        if k % 2:
+            sim.delete_pod(uid)
+        else:
+            cache.update_pod_status(uid, TaskStatus.SUCCEEDED)
+    sent = evicted = 0
+    if arrive:
+        for group, pod in shapes[cycle::7]:
+            if sent >= HOST_ARRIVAL_PODS:
+                break
+            sim.submit_to_group(group, [
+                cluster.Pod(name=f"{pod.name}-h{cycle}-{i}",
+                            **{f: getattr(pod, f) for f in _POD_SPEC})
+                for i in range(4)])
+            sent += 4
+    else:
+        for _name, uid in running[HOST_DONE_EVERY // 2::len(running) // HOST_EVICTED]:
+            evicted += cache.evict(uid, "host-cycle churn")
+    alloc = dict(node.allocatable)
+    alloc["cpu"] += 1000
+    cache.update_node(dataclasses.replace(node, allocatable=alloc))
+    return {"completed": (len(done) + 1) // 2, "deleted": len(done) // 2,
+            "arrived": sent, "evicted": evicted, "node": node.name}
+
+
+def _name_of(idx, names):
+    """Row indices → names (negative codes kept as '#code')."""
+    import numpy as np
+
+    table = np.array(list(names) + [None], dtype=object)
+    out = table[np.where(idx >= 0, idx, len(names))]
+    neg = idx < 0
+    out[neg] = [f"#{v}" for v in idx[neg]]
+    return out
+
+
+_INDEX_FIELDS = {"task_job": "job_names", "task_node": "node_names",
+                 "task_vol_node": "node_names"}
+
+
+def check_pack(packer, cache) -> dict:
+    """After an incremental pack: every device field equals the packer's
+    host array, and every task's decoded row (by uid: row order differs
+    after swap-compaction), every job's row (by name) and every node's row
+    equal those of a fresh full pack of the same cache."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.api.snapshot import FIELDS
+    from kube_batch_tpu_torch.cache.packer import pack_snapshot_full
+
+    a, snap, meta, ints = (packer._ints.arrays, packer._snap, packer._meta,
+                           packer._ints)
+    for f in FIELDS:
+        if not torch.equal(getattr(snap, f).cpu(), torch.from_numpy(a[f])):
+            fail(f"host cycle: device field {f} differs from the packer's host array")
+    with cache.lock():
+        _, fmeta, fints = pack_snapshot_full(cache.snapshot(shared=True), device=None)
+    b = fints.arrays
+    for key in ("label_vocab", "taint_vocab", "port_vocab", "podlabel_vocab",
+                "node_names", "queue_names"):
+        if getattr(meta, key) != getattr(fmeta, key):
+            fail(f"host cycle: {key} differs from a fresh full pack")
+    if sorted(meta.task_uids) != sorted(fmeta.task_uids):
+        fail("host cycle: packed task uids differ from a fresh full pack")
+    frow = {u: i for i, u in enumerate(fmeta.task_uids)}
+    idx = np.fromiter((frow[u] for u in meta.task_uids), np.int64,
+                      count=len(meta.task_uids))
+    n = len(idx)
+    moved = int((idx != np.arange(n)).sum())   # swap-compaction, appends
+    for f in FIELDS:
+        if not f.startswith("task_"):
+            continue
+        got, want = a[f][:n], b[f][idx]
+        if f in _INDEX_FIELDS:
+            names = _INDEX_FIELDS[f]
+            got, want = (_name_of(got, getattr(meta, names)),
+                         _name_of(want, getattr(fmeta, names)))
+        elif f == "task_ns":
+            got, want = _name_of(got, ints.ns_names), _name_of(want, fints.ns_names)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"host cycle: decoded {f} rows differ from a fresh full pack")
+    jrow = {j: i for i, j in enumerate(fmeta.job_names)}
+    if sorted(meta.job_names) != sorted(fmeta.job_names):
+        fail("host cycle: packed jobs differ from a fresh full pack")
+    jidx = np.fromiter((jrow[j] for j in meta.job_names), np.int64,
+                       count=len(meta.job_names))
+    for f in ("job_queue", "job_min", "job_prio", "job_order", "job_mask"):
+        if not np.array_equal(a[f][:len(jidx)], b[f][jidx]):
+            fail(f"host cycle: decoded {f} rows differ from a fresh full pack")
+    for f in FIELDS:
+        if f.startswith("node_") or f == "cluster_total":
+            if not np.array_equal(a[f], b[f]):
+                fail(f"host cycle: {f} differs from a fresh full pack")
+    return {"rows_out_of_full_order": moved}
+
+
+def phase_host_cycle(device, **world_kw):
+    """Config 5 full under the default conf, HOST_CYCLES cycles through
+    `Scheduler.run_once` in the default incremental pack mode, with churn
+    between the cycles (arrivals after cycles 1 and 3, evictions instead
+    after cycle 2), each pack checked against its host arrays and a fresh full pack;
+    a second scheduler on an identical world rebuilds every pack
+    (pack_mode="full") and must bind alike.  Returns (launch counts of
+    the incremental scheduler's cycles, the Recorder of its K9 calls)."""
+    import itertools
+
+    import kube_batch_tpu_torch.cache.cluster as cluster
+    from kube_batch_tpu_torch import kernels
+    from kube_batch_tpu_torch.models.workloads import config5_full
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    worlds = []
+    for mode in ("incremental", "full"):
+        cluster._uid_counter = itertools.count()
+        cache, sim = config5_full(seed=0, **world_kw)
+        worlds.append((cache, sim, Scheduler(cache, device=device, pack_mode=mode)))
+    (cache, sim, sched), (fcache, fsim, fsched) = worlds
+    packer, orig_pack = sched.packer, sched.packer.pack
+    checks = {"s": 0.0}
+
+    def checked_pack():
+        out = orig_pack()
+        t0 = time.perf_counter()
+        checks.update(check_pack(packer, cache))
+        checks["s"] += time.perf_counter() - t0
+        return out
+
+    packer.pack = checked_pack
+    rec = Recorder({name: 10**9 for name in _MUTATED if name != "row_patch"})
+    totals = {}
+    for cycle in range(HOST_CYCLES):
+        checks["s"] = 0.0
+        kernels.reset_counts()
+        with rec:
+            t0 = time.perf_counter()
+            ssn = sched.run_once()
+            wall_ms = (time.perf_counter() - t0 - checks["s"]) * 1e3
+        counts = kernels.counts()
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+        if ssn is None:
+            fail(f"host cycle: cycle {cycle + 1} found nothing to solve")
+        _check_binds_allowed(ssn)
+        t0 = time.perf_counter()
+        fssn = fsched.run_once()
+        full_wall_ms = (time.perf_counter() - t0) * 1e3
+        if fssn is None or sorted(fssn.bound) != sorted(ssn.bound) \
+                or sorted(fssn.evicted) != sorted(ssn.evicted):
+            fail(f"host cycle: cycle {cycle + 1} binds differ between the "
+                 "incremental and the full pack mode")
+        t = sched.last_timings
+        log(json.dumps({
+            "phase": "host-cycle", "cycle": cycle + 1,
+            "pack_mode": packer.last_mode, "tasks": ssn.meta.num_real_tasks,
+            "pack_host_ms": round(t["pack_host_ms"], 3),
+            "pack_h2d_ms": round(t["pack_h2d_ms"], 3),
+            "pack_h2d_bytes": packer.last_h2d_bytes,
+            "solve_ms": round(t["solve_ms"], 3),
+            "dispatch_ms": round(t["dispatch_ms"], 3),
+            "wall_ms": round(wall_ms, 3), "binds": len(ssn.bound),
+            "row_patch_launches": counts["row_patch"],
+            "check_s": round(checks["s"], 3),
+            "rows_out_of_full_order": checks["rows_out_of_full_order"],
+            "full_mode": {
+                "pack_host_ms": round(fsched.last_timings["pack_host_ms"], 3),
+                "pack_h2d_ms": round(fsched.last_timings["pack_h2d_ms"], 3),
+                "pack_h2d_bytes": fsched.packer.last_h2d_bytes,
+                "wall_ms": round(full_wall_ms, 3)},
+            "same_binds_as_full": True,
+        }))
+        if cycle + 1 < HOST_CYCLES:
+            arrive = cycle != 1
+            churn = host_churn(cache, sim, cycle, arrive)
+            if host_churn(fcache, fsim, cycle, arrive) != churn:
+                fail("host cycle: the two worlds churned differently")
+            log(json.dumps({"phase": "host-cycle-churn", "after_cycle": cycle + 1,
+                            **churn}))
+    packer.pack = orig_pack
+    log(json.dumps({"phase": "host-cycle-launches", **totals}))
+    for name in HOST_CYCLE_ONLY + RANK_KERNELS:
+        if totals[name] <= 0:
+            fail(f"kernel {name} was not launched on the host cycle")
+    if packer.row_patched_packs < HOST_CYCLES - 1:
+        fail(f"host cycle: {packer.row_patched_packs} row-patched packs after "
+             "cycle 1")
+    _check_invariants(cache, gangs=False)
+    return totals, rec
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the preempt path
 # ---------------------------------------------------------------------------
 
-def preempt_cycles(device: str, record: bool):
+def preempt_cycles(device: str, record: bool, check_binds: bool = False):
     """The preempt path: config 4 under examples/scheduler.conf for 3
     cycles, the wave arriving after cycle 1.  Returns (per-cycle records,
-    the Recorder of cycles 2 and 3 or None, the cache, the sessions)."""
+    the Recorder of cycles 2 and 3 or None, the cache, the sessions).
+    With `check_binds`, each cycle's binds are held against its own
+    snapshot's predicate mask before the next pack."""
     from kube_batch_tpu_torch.scheduler import Scheduler
 
     cache, sim = preempt_world()
     sched = Scheduler(cache, conf=scheduler_conf(), device=device)
-    rec = Recorder(PREEMPT_SEGMENT_SUM_EVERY) if record else None
+    rec = Recorder(PREEMPT_EVERY) if record else None
     cycles, sessions = [], []
     for cycle in range(3):
         t0 = time.perf_counter()
@@ -829,6 +1137,8 @@ def preempt_cycles(device: str, record: bool):
         wall_ms = (time.perf_counter() - t0) * 1e3
         if ssn is None:
             fail(f"preempt path: cycle {cycle} found nothing to solve")
+        if check_binds:
+            _check_binds_allowed(ssn)
         c = _cycle_record(ssn, sched)
         c["wall_ms"] = wall_ms
         c["timings"] = dict(sched.last_timings)
@@ -871,17 +1181,14 @@ def _loop_line(stats: dict) -> list:
 
 def phase_preempt_path(cpu_result):
     from kube_batch_tpu_torch import kernels
-    from kube_batch_tpu_torch.kernels.predicate_mask import (
-        PredicateFlags,
-        predicate_mask_plain,
-    )
 
     kernels.reset_counts()
-    cycles, rec, cache, sessions = preempt_cycles("cuda", record=True)
+    cycles, rec, cache, sessions = preempt_cycles("cuda", record=True,
+                                                  check_binds=True)
     counts = kernels.counts()
     log(json.dumps({"phase": "preempt-path-launches", **counts}))
     for name, n in counts.items():
-        if n <= 0:
+        if n <= 0 and name not in HOST_CYCLE_ONLY:
             fail(f"kernel {name} was not launched on the preempt path")
     for c, cyc in enumerate(cycles):
         evicted = cyc["rounds"].get("evicted", {})
@@ -907,12 +1214,7 @@ def phase_preempt_path(cpu_result):
                   if b[0].startswith(WAVE_PREFIXES)]
     if not wave_binds:
         fail("preempt path: cycle 3 bound no pod of the wave")
-    snap_checks = []
-    for ssn in sessions:
-        pred = predicate_mask_plain(ssn.snap, PredicateFlags()).cpu().numpy()
-        snap_checks.append((pred, {p.name: i for i, p in enumerate(ssn.meta.task_pods)},
-                            {n: i for i, n in enumerate(ssn.meta.node_names)}, ssn.bound))
-    _check_invariants(cache, snap_checks)
+    _check_invariants(cache)
     cpu_cycles, cpu_s = cpu_result.get(timeout=900)
     for c, (g, h) in enumerate(zip(cycles, cpu_cycles)):
         if not _same(g, h):
@@ -1219,8 +1521,130 @@ def phase_kernels(rec: Recorder):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K8 and K9: every recorded call against the plain version, then timed
+# ---------------------------------------------------------------------------
+
+def _rank_timings(rec: Recorder, label: str) -> dict:
+    """Time K8's three entry points on the widest recorded call of each
+    (rows T), beside the plain version, the library call (a stable
+    torch.argsort of the gathered key; a stable torch.sort of the int64
+    segment key; none for vtime) and the bound."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import lex_rank as k8
+
+    out = {}
+
+    def widest(name):
+        return max((a for _c, _r, a in rec.calls[name]), key=lambda a: a[0].numel())
+
+    perm, key = widest("lex_push")
+    T = perm.numel()
+    gathered = key[perm]
+    out["lex_push"] = (
+        time_ms(lambda: k8.lex_push(perm, key)),
+        time_ms(lambda: k8.lex_push_plain(perm, key)),
+        time_ms(lambda: torch.argsort(gathered, stable=True)),
+        bound(T * (key.element_size() + 8 + 8 + 4), T * 4 * 4),
+    )
+    seg, rank, S = widest("sort_by_segment")
+    T = seg.numel()
+    key64 = seg.long() * T + rank.long()
+    out["sort_by_segment"] = (
+        time_ms(lambda: k8.sort_by_segment(seg, rank, S)),
+        time_ms(lambda: k8.sort_by_segment_plain(seg, rank, S)),
+        time_ms(lambda: torch.sort(key64, stable=True)),
+        bound(T * (seg.element_size() + rank.element_size() + 16),
+              T * 4 * k8.sort_passes(T, S)),
+    )
+    args = widest("vtime")
+    perm, s_seg, req, valid, alloc, denom, S = args
+    T, R = req.shape
+    out["vtime"] = (
+        time_ms(lambda: k8.vtime(*args)),
+        time_ms(lambda: k8.vtime_plain(*args)),
+        None,
+        bound(T * (8 + 8 + 1 + 4) + int(valid.sum()) * R * 4 + 2 * alloc.numel() * 4,
+              T * R * 4, F64_OPS_PER_S),
+    )
+    for name, (ms, plain_ms, library_ms, b) in out.items():
+        log(json.dumps({"phase": f"kernel-{label}", "name": name,
+                        "rows": int(widest(name)[0].numel()), "ms": round(ms, 4),
+                        "plain_ms": round(plain_ms, 4),
+                        "library_ms": None if library_ms is None else round(library_ms, 4),
+                        "bound_ms": round(b[0], 6), "bound_by": b[1]}))
+    return out
+
+
+def phase_rank_kernels(main_rec: Recorder, preempt_rec: Recorder) -> dict:
+    """K8 on every recorded call of the main path (every 10th) and the
+    preempt path (every 25th) against its plain version; timed at both
+    paths' shapes (T = 65,536 and 8,192); the kernels line takes the main
+    path's."""
+    seen = {}
+    errs = {}
+    for label, rec in (("main-path", main_rec), ("preempt-path", preempt_rec)):
+        checks = check_all(rec, RANK_KERNELS)
+        log(json.dumps({"phase": f"{label}-k8", "equal_to_plain": True, **checks}))
+        for name, acc in checks.items():
+            errs[name] = max(errs.get(name, 0.0), acc["max_abs_err"])
+            for k, v in acc.items():
+                seen[(name, k)] = seen.get((name, k), 0) + v
+    for key in (("lex_push", "calls"), ("lex_push", "tied_rows"),
+                ("sort_by_segment", "calls"), ("vtime", "valid_rows")):
+        if seen.get(key, 0) <= 0:
+            fail(f"K8: {key[0]} never met a case with {key[1]} > 0")
+    timed = _rank_timings(main_rec, "main-path")
+    _rank_timings(preempt_rec, "preempt-path")
+    return {name: dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                       bound=b, library_ms=library_ms)
+            for name, (ms, plain_ms, library_ms, b) in timed.items()}
+
+
+def phase_row_patch(rec: Recorder) -> dict:
+    """K9 on every call of the host cycle against its plain version;
+    timed on the call with the most rows, beside its plain version on the
+    card, the library form (one index_copy_ per field, indices and values
+    already on the card) and the bound."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.kernels import row_patch as k9
+
+    checks = check_all(rec, ("row_patch",))["row_patch"]
+    log(json.dumps({"phase": "host-cycle-k9", "equal_to_plain": True, **checks}))
+    if checks["calls"] <= 0 or checks["calls"] != checks["calls_made"]:
+        fail("K9: not every row_patch call of the host cycle was checked")
+    bufs, rows, vals = max((a for _c, _r, a in rec.calls["row_patch"]),
+                           key=lambda a: sum(len(r) for r in a[1]))
+    bufs = [b.clone() for b in bufs]
+    dev = bufs[0].device
+    idx = [torch.from_numpy(r.astype(np.int64)).to(dev) for r in rows]
+    val = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in vals]
+
+    def library():
+        for b, i, v in zip(bufs, idx, val):
+            b.index_copy_(0, i, v)
+
+    payload = sum(r.nbytes + v.nbytes for r, v in zip(rows, vals))
+    b = bound(payload + sum(v.nbytes for v in vals), 0)
+    ms = time_ms(lambda: k9.row_patch(bufs, rows, vals))
+    plain_ms = time_ms(lambda: k9.row_patch_plain(bufs, rows, vals))
+    library_ms = time_ms(library)
+    log(json.dumps({"phase": "kernel", "name": "row_patch", "fields": len(bufs),
+                    "rows": sum(len(r) for r in rows), "payload_bytes": payload,
+                    "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                    "library_ms": round(library_ms, 4), "bound_ms": round(b[0], 6),
+                    "bound_by": b[1]}))
+    return {"row_patch": dict(max_abs_err=checks["max_abs_err"], ms=ms,
+                              plain_ms=plain_ms, bound=b, library_ms=library_ms)}
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1242,9 +1666,13 @@ def main() -> int:
         phase_parity()
         counts, rec = phase_main_path(device)
         records = phase_kernels(rec)
-        del rec
+        host_counts, hrec = phase_host_cycle(device)
+        records.update(phase_row_patch(hrec))
+        del hrec
         preempt_counts, prec, pcycles = phase_preempt_path(cpu_preempt)
         records.update(phase_preempt_kernels(prec, pcycles))
+        records.update(phase_rank_kernels(rec, prec))
+        del rec, prec
         pool.close()
         pool.join()
     finally:
@@ -1253,7 +1681,9 @@ def main() -> int:
     kernels_line = []
     for name, (route, source, replaces) in KERNELS.items():
         r = records[name]
-        launches = preempt_counts[name] if name in PREEMPT_KERNELS else counts[name]
+        launches = (preempt_counts[name] if name in PREEMPT_KERNELS
+                    else host_counts[name] if name in HOST_CYCLE_ONLY
+                    else counts[name])
         kernels_line.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -1261,6 +1691,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+    log(json.dumps({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,14 +2,17 @@
 
     python -m kube_batch_tpu_torch --workload 5 --cycles 2 [--device cpu]
     python -m kube_batch_tpu_torch --workload 4 --conf examples/scheduler.conf --cycles 3
+    python -m kube_batch_tpu_torch --workload 5 --cycles 3 --pack-mode full
 
 Builds BASELINE config N (models/workloads.py) in the simulator, runs
 `--cycles` cycles of the default conf (or of the scheduler.conf at
 `--conf PATH`, e.g. with the preempt and reclaim actions) with a
 simulator tick between them, and prints one JSON line per cycle: pods
 bound, pods evicted per evicting action, auction rounds per pass,
-preemption steps per loop and the cycle's wall time split into pack /
-solve / dispatch.
+preemption steps per loop, the pack mode and its H2D bytes, and the
+cycle's wall time split into pack (host patch, H2D) / solve / dispatch.
+`--pack-mode full` rebuilds the pack every cycle instead of patching the
+previous one (the default, "incremental").
 
 `--profile DIR` traces the cycles with torch.profiler, after one
 untraced warm-up cycle on a twin world: DIR receives the Chrome trace
@@ -34,6 +37,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--conf", metavar="PATH", default=None,
                     help="scheduler.conf to run instead of the default conf")
+    ap.add_argument("--pack-mode", choices=("incremental", "full"),
+                    default="incremental")
     ap.add_argument("--profile", metavar="DIR", default=None)
     args = ap.parse_args(argv)
 
@@ -47,7 +52,8 @@ def main(argv=None) -> int:
             conf = parse_conf(f.read())
     kw = {} if args.workload == 1 else {"seed": args.seed}
     cache, sim = build_config(args.workload, **kw)
-    sched = Scheduler(cache, conf=conf, device=args.device)
+    sched = Scheduler(cache, conf=conf, device=args.device,
+                      pack_mode=args.pack_mode)
     if args.profile:
         return _profiled(sched, sim, args)
     _cycles(sched, sim, args.cycles)
@@ -89,7 +95,7 @@ def _profiled(sched, sim, args) -> int:
 
     kw = {} if args.workload == 1 else {"seed": args.seed}
     Scheduler(build_config(args.workload, **kw)[0], conf=sched.conf,
-              device=sched.device).run_once()
+              device=sched.device, pack_mode=sched.pack_mode).run_once()
     os.makedirs(args.profile, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if sched.device.type == "cuda":

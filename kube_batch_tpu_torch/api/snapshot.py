@@ -150,15 +150,21 @@ def from_numpy(
     """Move packed numpy fields (this package's `pack_snapshot_loop`
     output, or the reference package's `pack_snapshot_host` leaves) onto
     `device` as a SnapshotTensors.  Keys outside the dataclass are
-    ignored; dtypes are kept (f32 / i32 / bool)."""
-    out = {}
-    for name in FIELDS:
-        arr = np.ascontiguousarray(np.asarray(fields[name]))
-        dtype = _TORCH_DTYPES.get(arr.dtype)
-        if dtype is None:
-            raise TypeError(f"field {name}: unsupported dtype {arr.dtype}")
-        out[name] = torch.from_numpy(arr).to(device=device, dtype=dtype)
-    return SnapshotTensors(**out)
+    ignored; dtypes are kept (f32 / i32 / bool).  Every field is a COPY,
+    on the CPU too: the incremental packer patches its host arrays in
+    place, and a snapshot that shared their memory would follow them."""
+    return SnapshotTensors(
+        **{name: to_device(fields[name], device, name) for name in FIELDS}
+    )
+
+
+def to_device(arr, device: torch.device | str, name: str = "") -> torch.Tensor:
+    """A copy of one packed numpy field on `device`, dtype kept."""
+    arr = np.ascontiguousarray(np.asarray(arr))
+    dtype = _TORCH_DTYPES.get(arr.dtype)
+    if dtype is None:
+        raise TypeError(f"field {name}: unsupported dtype {arr.dtype}")
+    return torch.from_numpy(arr).to(device=device, dtype=dtype, copy=True)
 
 
 # ---------------------------------------------------------------------------

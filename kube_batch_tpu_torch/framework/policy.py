@@ -22,15 +22,14 @@ import torch
 
 from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
 from kube_batch_tpu_torch.api.types import TaskStatus
+from kube_batch_tpu_torch.kernels import lex_rank
 from kube_batch_tpu_torch.kernels.propose import ScoreSpec
 from kube_batch_tpu_torch.ops.assignment import (
     AllocState,
     LexOrder,
     rank_from_keys,
-    segment_prefix,
+    sort_by_segment,
 )
-
-BIG_VTIME = 1e30
 
 #: node-order kinds the propose kernel computes itself
 KERNEL_SCORE_KINDS = ("least_requested", "balanced")
@@ -50,20 +49,12 @@ def virtual_start_times(
     tasks) / denom (≙ kube_batch_tpu framework/policy.py ·
     virtual_start_times).  The within-segment prefix is float64 (the
     api/snapshot.py precision rule) and rounds once, with the segment's
-    allocation, to float32."""
-    r = torch.where(valid[:, None], req, 0.0)
+    allocation, to float32.  Kernel K8: its (segment, rank) radix sort,
+    then its vtime tail (`kernels/lex_rank.py`)."""
     segk = torch.where(valid, torch.clamp(seg, 0, num_segs - 1), num_segs)
-    perm, before, _ = segment_prefix(segk, base_rank, r)
-    s = torch.clamp(segk[perm], 0, num_segs - 1).long()
-    start = (alloc_seg[s].double() + before).float()
-    denom = denom_seg[s]
-    ratio = torch.where(
-        denom > 0.0, start / torch.clamp(denom, min=1e-9),
-        torch.where(start > 0.0, BIG_VTIME, 0.0),
-    )
-    out = torch.zeros(seg.shape[0], dtype=torch.float32, device=seg.device)
-    out[perm] = ratio.max(dim=-1).values
-    return out
+    perm, s_seg = sort_by_segment(segk, base_rank, num_segs)
+    return lex_rank.vtime(perm, s_seg, req, valid, alloc_seg, denom_seg,
+                          num_segs)
 
 
 def task_queue_of(snap: SnapshotTensors) -> torch.Tensor:

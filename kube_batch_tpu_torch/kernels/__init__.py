@@ -9,6 +9,8 @@
 | K5 | victim_prefix.victim_prefix | CUDA C++ | ops/preemption.py · _min_victims_per_node, choose_node |
 | K6 | preempt_scan.preempt_open, preempt_scan.preempt_continue | CUDA C++ | ops/preemption.py · preemption_rounds (the step's scans) |
 | K7 | segment_sum.segment_sum, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
+| K8 | lex_rank.lex_push, lex_rank.sort_by_segment, lex_rank.vtime | CUDA C++ | framework/policy.py · rank_fn, virtual_start_times; ops/assignment.py · rank_from_keys |
+| K9 | row_patch.row_patch | CUDA C++ | cache/incremental.py · _row_patch |
 
 Every wrapper runs its plain PyTorch version for CPU tensors, launches
 its kernel for CUDA tensors (or raises), and counts its launches in a
@@ -17,10 +19,12 @@ plain int attribute `launches`.
 
 from kube_batch_tpu_torch.kernels import (  # noqa: F401
     failure_counts,
+    lex_rank,
     predicate_mask,
     preempt_scan,
     propose,
     resolve,
+    row_patch,
     segment_sum,
     victim_prefix,
 )
@@ -40,6 +44,10 @@ def wrappers() -> dict:
         "preempt_continue": preempt_scan.preempt_continue,
         "segment_sum": segment_sum.segment_sum,
         "waterfill": segment_sum.waterfill,
+        "lex_push": lex_rank.lex_push,
+        "sort_by_segment": lex_rank.sort_by_segment,
+        "vtime": lex_rank.vtime,
+        "row_patch": row_patch.row_patch,
     }
 
 

@@ -40,7 +40,7 @@ import torch
 
 from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
 from kube_batch_tpu_torch.api.types import TaskStatus
-from kube_batch_tpu_torch.kernels import propose, resolve
+from kube_batch_tpu_torch.kernels import lex_rank, propose, resolve
 
 NEG_INF = -1e30
 INT32_MAX = 2**31 - 1
@@ -83,19 +83,18 @@ class LexOrder:
     them (the LAST key is the primary), full ties kept in index order.
     Pushing one more key continues the same chain, so a caller that
     needs the rank of a prefix of its keys (rank_fn's vtime keys) sorts
-    each key once."""
+    each key once.  Each push is one stable radix sort, kernel K8
+    (`kernels/lex_rank.py · lex_push`), which also yields the rank."""
 
     def __init__(self, num: int, device) -> None:
         self.perm = torch.arange(num, device=device)
+        self._rank = torch.arange(num, dtype=torch.int32, device=device)
 
     def push(self, key: torch.Tensor) -> None:
-        self.perm = self.perm[torch.argsort(key[self.perm], stable=True)]
+        self.perm, self._rank = lex_rank.lex_push(self.perm, key)
 
     def rank(self) -> torch.Tensor:
-        num = self.perm.shape[0]
-        rank = torch.empty(num, dtype=torch.int32, device=self.perm.device)
-        rank[self.perm] = torch.arange(num, dtype=torch.int32, device=self.perm.device)
-        return rank
+        return self._rank
 
 
 def rank_from_keys(keys: list[torch.Tensor], num: int) -> torch.Tensor:
@@ -108,29 +107,13 @@ def rank_from_keys(keys: list[torch.Tensor], num: int) -> torch.Tensor:
 
 
 def sort_by_segment(
-    seg: torch.Tensor, rank: torch.Tensor
+    seg: torch.Tensor, rank: torch.Tensor, num_segments: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable sort by (seg, rank) with rank in [0, T): one int64 key
-    seg·T + rank, so the order equals lexsort((rank, seg)).  Returns
-    (perm, sorted segment ids)."""
-    T = seg.shape[0]
-    key = seg.long() * T + rank.long()
-    skey, perm = torch.sort(key, stable=True)
-    return perm, torch.div(skey, T, rounding_mode="floor")
-
-
-def segment_prefix(
-    seg: torch.Tensor, rank: torch.Tensor, req: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sort by (seg, rank); return (perm, before, is_start) in sorted
-    order: before[i] is the float64 running request total of earlier-
-    ranked rows of the same segment (exclusive of row i), is_start marks
-    segment boundaries.  float64 makes the prefix exact for integer
-    requests below 2**53 (api/snapshot.py precision rule); the prefix is
-    K3's own (`resolve.segment_exclusive_prefix`)."""
-    perm, s_seg = sort_by_segment(seg, rank)
-    before, is_start = resolve.segment_exclusive_prefix(s_seg, req[perm])
-    return perm, before, is_start
+    """Stable sort by (seg, rank) with seg in [0, num_segments] and rank in
+    [0, T): the order of lexsort((rank, seg)), as one radix sort of the
+    int64 key seg·T + rank (kernel K8).  Returns (perm, sorted segment
+    ids)."""
+    return lex_rank.sort_by_segment(seg, rank, num_segments)
 
 
 def tie_ordinal(
@@ -167,9 +150,11 @@ def resolve_conflicts(
     best-ranked rejected-but-feasible task, so the hungry task gets
     first pick next round (≙ the reference placing strictly in rank
     order).  See kube_batch_tpu/ops/assignment.py · _resolve_conflicts."""
-    N = avail.shape[0]
+    T, N = rank.shape[0], avail.shape[0]
     node_key = torch.where(active, prop_node, N)          # inactive sort last
-    perm, s_node = sort_by_segment(node_key, rank)
+    # K3's own (node, rank) sort: one stable torch.sort of node·T + rank
+    s_key, perm = torch.sort(node_key.long() * T + rank.long(), stable=True)
+    s_node = torch.div(s_key, T, rounding_mode="floor")
     accept = resolve.resolve(
         perm, s_node, task_req, avail, eps, one_per_node, serialize_mask
     )

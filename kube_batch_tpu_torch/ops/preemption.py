@@ -85,7 +85,7 @@ def min_victims_per_node(
     T = victims.shape[0]
     N = future.shape[0]
     vnode = torch.where(victims, snap.task_node, N)
-    perm, s_node = sort_by_segment(vnode, T - 1 - rank)
+    perm, s_node = sort_by_segment(vnode, T - 1 - rank, N)
     return _k5.victim_prefix(perm, s_node, snap.task_req, future,
                              preemptor_req, eps, ok)
 

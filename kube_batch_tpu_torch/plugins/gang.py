@@ -78,7 +78,7 @@ class GangPlugin(Plugin):
         """Unschedulable events + PodGroup conditions for unready gangs
         (≙ gang.go · OnSessionClose), counted on the packed snapshot."""
         ready_counts = ssn.snapshot_ready_counts()
-        job_min = ssn.host_fields["job_min"]
+        job_min = ssn.host_field("job_min")
         name_to_idx = {n: i for i, n in enumerate(ssn.meta.job_names)}
         for name in ssn.unready_jobs():
             j = name_to_idx.get(name)

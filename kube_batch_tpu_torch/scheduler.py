@@ -1,11 +1,14 @@
 """Scheduler: the cycle loop (≙ pkg/scheduler/scheduler.go · Scheduler).
 
 The port of kube_batch_tpu/scheduler.py · Scheduler.run_once, reduced to
-the simulator path: snapshot → pack → cycle solve on the device → each
+the simulator path: incremental pack → cycle solve on the device → each
 evicting action's victims committed under its own reason → gang-gated
-binds → PodGroup status.  The commit pipeline, incremental pack, compile
-bank, guardrails, health ledger and mesh are later slices (ROADMAP
-A7–A10).
+binds → PodGroup status.  The pack is event-driven by default: the
+scheduler's IncrementalPacker patches only the rows whose pods, jobs or
+nodes changed since the last cycle (cache/incremental.py) and
+`pack_mode="full"` rebuilds every cycle instead; decisions are the same
+either way.  The commit pipeline, compile bank, guardrails, health
+ledger and mesh are later slices (ROADMAP A7–A10).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 from kube_batch_tpu_torch.actions.fused import make_cycle_solver
 from kube_batch_tpu_torch.actions.preempt import commit_victim_indices
-from kube_batch_tpu_torch.api.types import TaskStatus
+from kube_batch_tpu_torch.cache.cache import CacheResyncing
+from kube_batch_tpu_torch.cache.incremental import IncrementalPacker
 from kube_batch_tpu_torch.device import resolve_device
 from kube_batch_tpu_torch.framework.conf import SchedulerConf, default_conf
 from kube_batch_tpu_torch.framework.plugin import get_action
@@ -28,19 +32,34 @@ from kube_batch_tpu_torch.framework.session import (
     open_session,
 )
 
+PACK_MODES = ("incremental", "full")
+
 
 class Scheduler:
     """Runs scheduling cycles of one conf against one cache on `device`
-    ("cuda" by default; raises when no CUDA device is present)."""
+    ("cuda" by default; raises when no CUDA device is present).
+    `pack_mode` "incremental" (default) patches the previous cycle's
+    pack, "full" rebuilds it every cycle (the escape hatch)."""
 
     def __init__(self, cache, conf: SchedulerConf | None = None,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 pack_mode: str = "incremental") -> None:
+        if pack_mode not in PACK_MODES:
+            raise ValueError(
+                f"pack_mode must be one of {PACK_MODES}, got {pack_mode!r}"
+            )
         self.device = resolve_device(device)
         self.cache = cache
         self.conf = conf if conf is not None else default_conf()
         self.policy, self.plugins = build_policy(self.conf)
         self.cycle = make_cycle_solver(self.policy, self.conf.actions)
-        self._ran = False
+        self.packer = IncrementalPacker(cache, device=self.device)
+        self.packer.force_full = pack_mode == "full"
+        self.pack_mode = pack_mode
+        # The idle skip is armed once a cycle has solved; the journal
+        # version last refreshed while idle.
+        self._idle_armed = False
+        self._idle_refreshed_version = 0
         self._evict_reasons = {
             name: getattr(get_action(name), "evict_reason", name)
             for name in self.conf.actions
@@ -50,24 +69,40 @@ class Scheduler:
         self.last_timings: dict[str, float] = {}
         self.last_stats: dict = {}
 
-    def _idle(self) -> bool:
-        """Nothing to schedule: a cycle already ran and no pod is Pending
-        and no failed bind awaits a retry (≙ runOnce on an idle cluster)."""
-        if not self._ran:
+    def _skip_idle(self) -> bool:
+        """True when the cycle can be skipped outright: a cycle already
+        solved, no pod is Pending or Releasing and no failed bind awaits a
+        retry (≙ runOnce on an idle cluster).  Status transitions that did
+        land since the last pack (Bound → Running) still get their
+        PodGroup statuses refreshed — once per journal version; the
+        journal itself is left intact for the next real pack."""
+        if not self._idle_armed or self.cache.is_resyncing():
             return False
+        if self.cache.has_pending_work():
+            return False
+        d = self.packer._dirty
         with self.cache.lock():
-            return not self.cache._resync and not any(
-                p.status == TaskStatus.PENDING for p in self.cache._pods.values()
-            )
+            if d.version == self._idle_refreshed_version:
+                groups = None
+            else:
+                groups = set(d.groups)
+                self._idle_refreshed_version = d.version
+        if groups:
+            self.cache.refresh_job_statuses(groups)
+        return True
 
     def run_once(self) -> Session | None:
-        """One cycle; returns its Session, or None for a skipped idle
-        cycle."""
+        """One cycle; returns its Session, or None for a skipped idle or
+        quiesced cycle."""
         self.cache.drain_resync()  # failed binds are Pending again
-        if self._idle():
+        if self._skip_idle():
             return None
         t0 = time.perf_counter()
-        ssn = open_session(self.cache, self.policy, self.plugins, self.device)
+        try:
+            ssn = open_session(self.cache, self.policy, self.plugins,
+                               self.packer)
+        except CacheResyncing:
+            return None  # quiesced mirror: the journal keeps every mark
         t1 = time.perf_counter()
         stats: dict = {}
         state, evict, job_ready, diag = self.cycle(ssn.snap, ssn.state, stats)
@@ -84,10 +119,16 @@ class Scheduler:
             stats["evicted"] = evicted
         close_session(ssn)
         t3 = time.perf_counter()
-        self._ran = True
+        self._idle_armed = True
+        # The pack drained the journal; idle-refresh marks restart.
+        self._idle_refreshed_version = 0
+        stats["pack_mode"] = self.packer.last_mode
+        stats["pack_h2d_bytes"] = self.packer.last_h2d_bytes
         self.last_stats = stats
         self.last_timings = {
             "pack_ms": (t1 - t0) * 1e3,
+            "pack_host_ms": self.packer.last_host_ms,
+            "pack_h2d_ms": self.packer.last_h2d_ms,
             "solve_ms": (t2 - t1) * 1e3,
             "dispatch_ms": (t3 - t2) * 1e3,
         }

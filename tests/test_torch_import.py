@@ -101,3 +101,60 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.setattr(build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.library("resolve")
+
+
+def test_incremental_packer_without_device_needs_cuda(monkeypatch):
+    from kube_batch_tpu_torch.cache.incremental import IncrementalPacker
+    from kube_batch_tpu_torch.models.workloads import build_config
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cache, _ = build_config(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IncrementalPacker(cache)
+    sched = Scheduler(cache, device="cpu")
+    assert sched.pack_mode == "incremental" and not sched.packer.force_full
+    assert sched.packer.device.type == "cpu"
+    with pytest.raises(ValueError, match="pack_mode"):
+        Scheduler(cache, device="cpu", pack_mode="loop")
+
+
+def test_rank_and_row_patch_wrappers_refuse_other_devices():
+    """K8 and K9 run their plain versions only for CPU tensors; a tensor
+    on any other device than the CPU or a CUDA card is refused."""
+    import numpy as np
+
+    from kube_batch_tpu_torch.kernels import lex_rank as k8
+    from kube_batch_tpu_torch.kernels import row_patch as k9
+
+    meta = torch.device("meta")
+    idx = torch.zeros(4, dtype=torch.int64, device=meta)
+    key = torch.zeros(4, device=meta)
+    with pytest.raises(RuntimeError):
+        k8.lex_push(idx, key)
+    with pytest.raises(RuntimeError):
+        k8.sort_by_segment(idx.int(), idx.int(), 2)
+    with pytest.raises(RuntimeError):
+        k8.vtime(idx, idx, torch.zeros((4, 4), device=meta), key.bool(),
+                 torch.zeros((2, 4), device=meta), torch.zeros((2, 4), device=meta), 2)
+    with pytest.raises(RuntimeError):
+        k9.row_patch([key], [np.zeros(2, np.int32)], [np.zeros(2, np.float32)])
+
+
+@pytest.mark.parametrize("module", [
+    "kube_batch_tpu_torch.cache.incremental",
+    "kube_batch_tpu_torch.kernels.lex_rank",
+    "kube_batch_tpu_torch.kernels.row_patch",
+])
+def test_host_cycle_modules_import_alone(module):
+    """The modules this slice adds import with JAX and the reference
+    package blocked, without nvcc, triton or a card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    code = ('import sys\n'
+            'for n in ("jax", "jaxlib", "flax", "kube_batch_tpu", "triton"):\n'
+            '    sys.modules[n] = None\n'
+            f'import {module}\n')
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
