@@ -8,7 +8,7 @@ and `triton`.  Phases (any failure exits non-zero):
 
 1. card and build — the card's name and power limit, torch/CUDA
    versions, and the build of every CUDA kernel from this checkout's
-   sources (one nvcc per source, all at once), timed;
+   sources (one nvcc per source, all at once: K1–K3 and K5–K12), timed;
 2. slice parity — config 3, config 4 (oversubscribed), a mid-size
    config 5 (500 nodes, 5,000 pods) and a feature world that turns on
    every kernel option of the default conf (affinity terms, preferences,
@@ -51,7 +51,28 @@ and `triton`.  Phases (any failure exits non-zero):
    (binds, evictions with their reasons, task_state, task_node,
    job_ready, failure tallies) against the same run on the CPU, which a
    worker process runs meanwhile;
-6. kernels — each kernel against its plain PyTorch version on the card:
+6. the affinity path — config 5 with inter-pod affinity terms at full
+   size (models/workloads.py · config5_affinity_world: 5,000 nodes in 125
+   racks of 40 and 3 zones, 47,524 pods labelled by team and role;
+   parameter servers with anti-affinity `role=ps`, MPI workers with the
+   required `rack:team` term, TF workers with soft rack / zone
+   preferences), 2 cycles through `Scheduler.run_once` with 15,000 pods
+   arriving after cycle 1.  K10 and K11 counters are set to 0 before and
+   read after, and both must have launched; capacity, gang and predicate
+   invariants, no node with two `role=ps` residents, and every resident
+   MPI worker backed by a team-mate in its rack (resident when the cycle
+   began, or placed in it with no required term) or by its team's one
+   bootstrap rack, open only while the team had no resident (a sanity
+   check: `_check_affinity` says what it cannot see).  Per cycle: pack,
+   solve, dispatch and wall ms, rounds, binds, K10 / K11 launches;
+7. the joint path — the preempt path's world and wave with
+   `joint_solve=True` on the card, JOINT_CYCLES cycles: every cycle must
+   report `last_stats["cycle"] == "joint"`, cycle 2 must evict, K12 must
+   launch, the usual invariants hold; binds and evictions are compared
+   as sets with phase 5's sequential card run and each difference is
+   printed beside the gated admission tier's placements, with per-tier
+   steps and ms per step beside the sequential loops';
+8. kernels — each kernel against its plain PyTorch version on the card:
    K1–K4 on the inputs the main path gave them in cycle 2 (the predicate
    mask and failure tallies of that cycle, and the auction round whose
    resolve rejected the most proposals), K7 on every call of the main
@@ -59,9 +80,19 @@ and `triton`.  Phases (any failure exits non-zero):
    3 (segment sums sampled), timed on cycle 2's; K8 on every 10th call
    of the main path and every 25th of the preempt path, timed at both
    paths' widths (T = 65,536 and 8,192); K9 on every call of the host
-   cycle, timed on the largest.  Outputs exactly equal; kernel / plain /
-   library times (median of CUDA-event timed runs after a warm-up) and
-   the least time the card could take.
+   cycle, timed on the largest; K11 and K10 on every 8th / 4th call of
+   the affinity path and K10's row form on every call of the
+   config5_affinity_mid card run under examples/scheduler.conf, K12 on
+   every 10th call of the joint path, each timed on cycle 2's inputs.
+   Outputs exactly equal; kernel / plain / library times (median of
+   CUDA-event timed runs after a warm-up) and the least time the card
+   could take.
+
+The parity worlds (phase 2) also include config5_affinity_mid (500
+nodes, 5,000 pods, a 1,500-pod wave) under both confs, and
+features_preempt and config5_affinity_mid under examples/scheduler.conf
+with the joint solve; every K10, K11 and K12 call of their card runs is
+held against its plain version.
 
 The line before the `kernels` line gives the script's seconds.
 The last two lines are the `kernels` JSON object and
@@ -123,6 +154,14 @@ KERNELS = {
               "kube_batch_tpu/framework/policy.py:37"),
     "row_patch": ("cuda", "kube_batch_tpu_torch/kernels/csrc/row_patch.cu",
                   "kube_batch_tpu/cache/incremental.py:144"),
+    "resident_tables": ("cuda", "kube_batch_tpu_torch/kernels/csrc/resident_tables.cu",
+                        "kube_batch_tpu/plugins/predicates.py:136"),
+    "affinity_mask": ("cuda", "kube_batch_tpu_torch/kernels/csrc/affinity_mask.cu",
+                      "kube_batch_tpu/plugins/predicates.py:299"),
+    "affinity_row": ("cuda", "kube_batch_tpu_torch/kernels/csrc/affinity_mask.cu",
+                     "kube_batch_tpu/plugins/predicates.py:330"),
+    "tier_control": ("cuda", "kube_batch_tpu_torch/kernels/csrc/joint_tier.cu",
+                     "kube_batch_tpu/ops/joint.py:200"),
 }
 PREEMPT_KERNELS = ("victim_prefix", "preempt_open", "preempt_continue",
                    "segment_sum", "waterfill")
@@ -130,6 +169,13 @@ EVICTING_ONLY = ("victim_prefix", "preempt_open", "preempt_continue")
 RANK_KERNELS = ("lex_push", "sort_by_segment", "vtime")
 # launched where a steady cycle row-patches; required on the host cycle
 HOST_CYCLE_ONLY = ("row_patch",)
+# launched only on worlds with inter-pod affinity terms (the affinity
+# path; the row form where such a world preempts) and by the joint solve
+AFFINITY_KERNELS = ("resident_tables", "affinity_mask")
+AFFINITY_ROW = ("affinity_row",)
+JOINT_ONLY = ("tier_control",)
+NOT_ON_MAIN_PATH = (EVICTING_ONLY + HOST_CYCLE_ONLY + AFFINITY_KERNELS
+                    + AFFINITY_ROW + JOINT_ONLY)
 
 MAIN_WAVE_PODS = 15000   # second wave of the main path (T stays 65536)
 # The preempt path's wave after cycle 1 (rehearsed on the CPU, PERF.md;
@@ -154,6 +200,13 @@ HOST_CYCLES = 4
 HOST_DONE_EVERY = 100        # every 100th running pod completes or is deleted
 HOST_ARRIVAL_PODS = 300      # pods arriving into existing jobs' shapes
 HOST_EVICTED = 20            # pods evicted after the cycle without arrivals
+# the affinity path records every 8th K11 and every 4th K10 call and no
+# other kernel's; the joint path every 10th K12 call
+AFFINITY_EVERY = {"resident_tables": 8, "affinity_mask": 4}
+JOINT_EVERY = {"tier_control": 10}
+JOINT_CYCLES = 3
+# the parity world whose card run gives K10's row form its launches
+ROW_WORLD = "config5_affinity_mid_preempt"
 
 
 def fail(msg: str) -> None:
@@ -351,14 +404,37 @@ def _feature_world():
     return cache, sim
 
 
+def config5_affinity(n_nodes: int = 5000, target_pods: int = 50000, seed: int = 0):
+    """The affinity path's world at full size (padded T = 65,536, N = 8,192):
+    models/workloads.py · config5_affinity_world, with the uid counter
+    restarted so a run in any process builds the identical cluster."""
+    import itertools
+
+    import kube_batch_tpu_torch.cache.cluster as cluster
+    from kube_batch_tpu_torch.models.workloads import config5_affinity as build
+
+    cluster._uid_counter = itertools.count()
+    return build(n_nodes=n_nodes, target_pods=target_pods, seed=seed)
+
+
+def config5_affinity_mid():
+    """The same world at 500 nodes and 5,000 pods (13 racks)."""
+    return config5_affinity(n_nodes=500, target_pods=5000)
+
+
 # world: (world factory, pods of the second wave, examples/scheduler.conf or the
-# default conf)
+# default conf, the joint solve or the actions in sequence)
 PARITY_WORLDS = {
-    "config3": (lambda: _config(3), 300, False),
-    "config4": (lambda: _config(4), 0, False),
-    "config5_mid": (lambda: _config(5, n_nodes=500, target_pods=5000), 1500, False),
-    "features": (_feature_world, 60, False),
-    "features_preempt": (_feature_world, 60, True),
+    "config3": (lambda: _config(3), 300, False, False),
+    "config4": (lambda: _config(4), 0, False, False),
+    "config5_mid": (lambda: _config(5, n_nodes=500, target_pods=5000), 1500, False,
+                    False),
+    "features": (_feature_world, 60, False, False),
+    "features_preempt": (_feature_world, 60, True, False),
+    "config5_affinity_mid": (config5_affinity_mid, 1500, False, False),
+    "config5_affinity_mid_preempt": (config5_affinity_mid, 1500, True, False),
+    "features_preempt_joint": (_feature_world, 60, True, True),
+    "config5_affinity_mid_preempt_joint": (config5_affinity_mid, 1500, True, True),
 }
 
 
@@ -434,6 +510,19 @@ _MUTATED = {
     "sort_by_segment": (0, 1),
     "vtime": (0, 1, 2, 3),
     "row_patch": (0,),           # the device buffers, written in place
+    "resident_tables": (3, 4),   # task_node, task_state
+    "affinity_mask": (),
+    "affinity_row": (),
+    "tier_control": (5, 11, 12, 13, 15, 16, 17),   # written in place
+}
+# Arguments that are snapshot fields, constant within a cycle but
+# row-patched by the next pack: cloned once per cycle and shared by the
+# calls of that cycle.
+_SNAPSHOT_ARGS = {
+    "resident_tables": (0, 1, 2, 5, 6, 7, 8),
+    "affinity_mask": tuple(range(8)),
+    "affinity_row": tuple(range(8)),
+    "tier_control": (6, 7, 10, 14),
 }
 
 
@@ -459,7 +548,9 @@ class Recorder:
     through unchanged (it launches and counts as before) and its inputs
     are kept: `calls[name]` lists (cycle, round, args) — of a kernel
     named in `every`, every `every[name]`-th call.  A cycle starts at its
-    predicate-mask call and a round at its propose_best call."""
+    predicate-mask call and a round at its propose_best call.  Arguments
+    a caller writes in place are cloned per call, snapshot fields once
+    per cycle (the next pack row-patches them)."""
 
     def __init__(self, every: dict | None = None) -> None:
         import kube_batch_tpu_torch.plugins.predicates as plug
@@ -491,14 +582,33 @@ class Recorder:
             (lex_rank, "vtime", "vtime"),
             (row_patch, "row_patch", "row_patch"),
         ]
+        from kube_batch_tpu_torch.kernels import affinity, joint_tier, resident
+
+        self.sites += [
+            (resident, "resident_tables", "resident_tables"),
+            (affinity, "affinity_mask", "affinity_mask"),
+            (affinity, "affinity_row", "affinity_row"),
+            (joint_tier, "tier_control", "tier_control"),
+        ]
         self.calls = {name: [] for name in _MUTATED}
         self.seen = {name: 0 for name in _MUTATED}
         self.cycle = self.round = -1
         self.every = every or {}
         self._saved = []
+        self._memo = {}
+
+    def _cycle_clone(self, a):
+        """One clone per cycle of a snapshot field (None stays None)."""
+        if a is None:
+            return None
+        key = (self.cycle, a.data_ptr(), tuple(a.shape), a.dtype)
+        if key not in self._memo:
+            self._memo[key] = a.clone()
+        return self._memo[key]
 
     def _wrap(self, name, fn):
         mutated = _MUTATED[name]
+        shared = _SNAPSHOT_ARGS.get(name, ())
         every = self.every.get(name, 1)
 
         def wrapper(*args):
@@ -508,7 +618,8 @@ class Recorder:
                 self.round += 1
             self.seen[name] += 1
             if self.seen[name] % every == 0:
-                kept = tuple(_keep(a) if i in mutated else a
+                kept = tuple(_keep(a) if i in mutated
+                             else self._cycle_clone(a) if i in shared else a
                              for i, a in enumerate(args))
                 self.calls[name].append((self.cycle, self.round, kept))
             return fn(*args)
@@ -638,6 +749,35 @@ def check_call(name: str, args):
         k9.row_patch_plain(a_p, rows, vals)
         err = require_equal(name, [(k.cpu(), p) for k, p in zip(a_k, a_p)])
         return err, {"fields": len(bufs), "rows": sum(len(r) for r in rows)}
+    if name == "resident_tables":
+        from kube_batch_tpu_torch.kernels import resident as k11
+
+        out = k11.resident_tables(*args)
+        want = k11.resident_tables_plain(*args)
+        err = require_equal(name, [(a, b) for a, b in zip(out, want) if a is not None])
+        if (out[2] is None) != (want[2] is None):
+            fail(f"{name}: domain tables differ in presence from the plain version")
+        return err, {"present_cells": int(out[0].sum()),
+                     "releasing_calls": int(bool(args[11])),
+                     "domain_cells": 0 if out[2] is None else int(out[2].sum())}
+    if name in ("affinity_mask", "affinity_row"):
+        from kube_batch_tpu_torch.kernels import affinity as k10
+
+        out = getattr(k10, name)(*args)
+        err = require_equal(name, [(out, getattr(k10, f"{name}_plain")(*args))])
+        return err, {"vetoed_cells": int((~out).sum())}
+    if name == "tier_control":
+        from kube_batch_tpu_torch.kernels import joint_tier as k12
+
+        inplace = _MUTATED[name]
+        a_k = [a.clone() if i in inplace else a for i, a in enumerate(args)]
+        a_p = [a.clone() if i in inplace else a for i, a in enumerate(args)]
+        fk = k12.tier_control(*a_k)
+        fp = k12.tier_control_plain(*a_p)
+        err = require_equal(name, [(fk.cpu(), fp)] + [(a_k[i], a_p[i]) for i in inplace])
+        done, plan_open = int(fk[0]), int(args[4][1])
+        return err, {"done": done, "not_done": 1 - done,
+                     "discarded_plans": int(done and plan_open)}
     if name == "failure_counts":
         out = k4.failure_counts(*args)
         err = require_equal(name, list(zip(out, k4.failure_counts_plain(*args))))
@@ -720,12 +860,14 @@ def _brief(stats: dict) -> dict:
 def _run(world: str, device: str, record: bool):
     from kube_batch_tpu_torch.scheduler import Scheduler
 
-    build, wave, preempt = PARITY_WORLDS[world]
+    build, wave, preempt, joint = PARITY_WORLDS[world]
     cache, sim = build()
     binder = RefuseFirstBinds(sim)
     cache.binder = binder
     sched = Scheduler(cache, conf=scheduler_conf() if preempt else None,
-                      device=device)
+                      device=device, joint_solve=joint)
+    if sched.cycle_kind != ("joint" if joint else "sequential"):
+        fail(f"{world}: the scheduler runs the {sched.cycle_kind} cycle")
     rec = Recorder(PREEMPT_EVERY if preempt else None) if record else None
     cycles = []
     for cycle in range(2):
@@ -756,13 +898,38 @@ def _same(a, b) -> bool:
     )
 
 
-def phase_parity():
+def parity_cpu(root: str, world: str):
+    """A parity world's CPU run, in a worker process (spawned: a fresh
+    import that never touches the card); returns (cycles, seconds)."""
+    import torch
+
+    sys.path.insert(0, root)
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    try:
+        cycles = _run(world, "cpu", record=False)[0]
+    except SystemExit:  # fail() exits; a pool worker must return instead
+        raise RuntimeError(f"the CPU run of parity world {world} failed") from None
+    return cycles, time.perf_counter() - t0
+
+
+def phase_parity(cpu_runs):
+    """Every parity world on the card, held against its CPU run
+    (`cpu_runs[world]`, an async result of `parity_cpu`); returns the
+    launch counts and the Recorder of ROW_WORLD's card run (the run that
+    gives K10's row form its launches)."""
+    from kube_batch_tpu_torch import kernels
+
     seen = {}
+    row_counts = row_rec = None
     for world in PARITY_WORLDS:
         t0 = time.perf_counter()
+        kernels.reset_counts()
         gpu, refused, rec = _run(world, "cuda", record=True)
+        if world == ROW_WORLD:
+            row_counts, row_rec = kernels.counts(), rec
         t1 = time.perf_counter()
-        cpu, _, _ = _run(world, "cpu", record=False)
+        cpu, cpu_s = cpu_runs[world].get(timeout=1200)
         t2 = time.perf_counter()
         for c, (g, h) in enumerate(zip(gpu, cpu)):
             if not _same(g, h):
@@ -778,8 +945,9 @@ def phase_parity():
             "evicted_per_cycle": [len(c["evicted"]) for c in gpu],
             "rounds_per_cycle": [_brief(c["rounds"]) for c in gpu],
             "binds_refused_once": refused,
-            "cuda_s": round(t1 - t0, 3), "cpu_s": round(t2 - t1, 3),
-            "identical": True,
+            "cuda_s": round(t1 - t0, 3), "cpu_worker_s": round(cpu_s, 3),
+            "waited_for_cpu_s": round(t2 - t1, 3),
+            "cycle_kind": gpu[-1]["rounds"].get("cycle"), "identical": True,
         }))
         log(json.dumps({"phase": "parity-kernels", "world": world,
                         "equal_to_plain": True, **checks}))
@@ -788,9 +956,19 @@ def phase_parity():
                 ("propose_pick", "picked_past_first_tie"), ("resolve", "rejected"),
                 ("apply", "rows_changed"), ("failure_counts", "rows_predicate_failed"),
                 ("failure_counts", "rows_insufficient"), ("lex_push", "tied_rows"),
-                ("sort_by_segment", "segments"), ("vtime", "valid_rows")):
+                ("sort_by_segment", "segments"), ("vtime", "valid_rows"),
+                ("resident_tables", "present_cells"),
+                ("resident_tables", "releasing_calls"),
+                ("resident_tables", "domain_cells"),
+                ("affinity_mask", "vetoed_cells"), ("affinity_row", "vetoed_cells"),
+                ("tier_control", "done"), ("tier_control", "not_done")):
         if seen.get(key, 0) <= 0:
             fail(f"parity worlds never gave {key[0]} a case with {key[1]} > 0")
+    log(json.dumps({"phase": "parity-row-world", "world": ROW_WORLD,
+                    "affinity_row_launches": row_counts["affinity_row"]}))
+    if row_counts["affinity_row"] <= 0:
+        fail(f"{ROW_WORLD}: kernel affinity_row was not launched")
+    return row_counts, row_rec
 
 
 # ---------------------------------------------------------------------------
@@ -863,7 +1041,7 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
             rec_line = {"phase": "main-path", "cycle": cycle,
                         "tasks": ssn.meta.num_real_tasks,
                         "bound": len(ssn.bound), "wall_ms": round(wall_ms, 3)}
-            rec_line.update(sched.last_stats)
+            rec_line.update({k: v for k, v in sched.last_stats.items() if k != "cycle"})
             rec_line.update({k: round(v, 3) for k, v in sched.last_timings.items()})
             if cuda:
                 rec_line["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
@@ -879,7 +1057,7 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     counts = kernels.counts()
     log(json.dumps({"phase": "main-path-launches", **counts}))
     for name, n in counts.items():
-        if n <= 0 and name not in EVICTING_ONLY + HOST_CYCLE_ONLY:
+        if n <= 0 and name not in NOT_ON_MAIN_PATH:
             fail(f"kernel {name} was not launched on the main path")
     if sessions[1][0] != sessions[0][0]:
         fail("the second wave changed the padded task count")
@@ -1188,7 +1366,8 @@ def phase_preempt_path(cpu_result):
     counts = kernels.counts()
     log(json.dumps({"phase": "preempt-path-launches", **counts}))
     for name, n in counts.items():
-        if n <= 0 and name not in HOST_CYCLE_ONLY:
+        if n <= 0 and name not in (HOST_CYCLE_ONLY + AFFINITY_KERNELS + AFFINITY_ROW
+                                   + JOINT_ONLY):
             fail(f"kernel {name} was not launched on the preempt path")
     for c, cyc in enumerate(cycles):
         evicted = cyc["rounds"].get("evicted", {})
@@ -1641,6 +1820,329 @@ def phase_row_patch(rec: Recorder) -> dict:
                               plain_ms=plain_ms, bound=b, library_ms=library_ms)}
 
 
+# ---------------------------------------------------------------------------
+# the affinity path: config 5 with inter-pod affinity terms at full size
+# ---------------------------------------------------------------------------
+
+def _check_affinity(ssn, cache) -> dict:
+    """The affinity invariants of one cycle (residents: allocated,
+    binding, bound, running or pipelined pods).  No node holds two
+    `role=ps` residents at the cycle's end.  Every MPI worker resident
+    at the end has its rack affinity backed by one of:
+
+    * a team-mate (any pod of its team) resident in its rack when the
+      cycle began;
+    * a team-mate placed in its rack in this cycle that carries no
+      required term (a parameter server, TF worker or launcher);
+    * its team's bootstrap waiver: the team had no resident anywhere when
+      the cycle began, and then at most one rack of the team holds only
+      MPI workers placed in this cycle (the waiver admits one claimant;
+      its gang-mates may join it in later rounds).
+
+    The final state does not say in which round a pod was placed, so the
+    second case cannot tell a team-mate of an earlier round from one of
+    the same round: this is a sanity check, and the decisions themselves
+    are held by the card-vs-CPU parity worlds and the CPU tests against
+    the JAX package."""
+    from collections import Counter, defaultdict
+
+    from kube_batch_tpu_torch.api.types import ALLOCATED_STATUSES, TaskStatus
+
+    resident = {int(s) for s in ALLOCATED_STATUSES} | {int(TaskStatus.PIPELINED)}
+    with cache.lock():
+        rack = {name: info.node.labels.get("rack") for name, info in cache._nodes.items()}
+    names, pods = ssn.meta.node_names, ssn.meta.task_pods
+
+    def residents(state, node):
+        for t, pod in enumerate(pods):
+            if int(state[t]) in resident and node[t] >= 0:
+                yield pod, names[node[t]]
+
+    start_racks, start_teams = set(), set()
+    for pod, where in residents(ssn.initial_task_state, ssn.host_field("task_node")):
+        team = pod.labels.get("team")
+        if team is not None:
+            start_racks.add((team, rack[where]))
+            start_teams.add(team)
+    ps, new_roles, mpi = Counter(), defaultdict(set), []
+    for pod, where in residents(ssn.host_task_state, ssn.host_task_node):
+        role, team = pod.labels.get("role"), pod.labels.get("team")
+        if role == "ps":
+            ps[where] += 1
+        if team is not None and (team, rack[where]) not in start_racks:
+            new_roles[(team, rack[where])].add(role)
+        if role == "mpi":
+            mpi.append((pod.name, team, rack[where]))
+    crowded = [n for n, k in ps.items() if k > 1]
+    if crowded:
+        fail(f"affinity path: nodes {crowded[:5]} hold two role=ps residents")
+    bootstrap = Counter(team for (team, _r), roles in new_roles.items()
+                        if roles == {"mpi"})
+    unbacked = sorted(team for team, k in bootstrap.items()
+                      if team in start_teams or k > 1)
+    if unbacked:
+        fail("affinity path: MPI workers of teams " + ", ".join(unbacked)
+             + " placed in racks without a team-mate and not under the bootstrap waiver")
+    return {"ps_residents": sum(ps.values()), "mpi_residents": len(mpi),
+            "mpi_bootstrap_racks": sum(bootstrap.values()),
+            "racks_with_team_pods": len(start_racks) + len(new_roles)}
+
+
+def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
+    """Config 5 with affinity terms (models/workloads.py ·
+    config5_affinity_world) at full size under the default conf, 2 cycles
+    through `Scheduler.run_once` with a second wave after cycle 1; K10 and
+    K11 launch counters are set to 0 before and read after.  Returns (the
+    counts, the Recorder of the K10 / K11 calls)."""
+    from kube_batch_tpu_torch import kernels
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    cache, sim = config5_affinity(**world_kw)
+    sched = Scheduler(cache, device=device)
+    rec = Recorder({**{name: 10**9 for name in _MUTATED}, **AFFINITY_EVERY})
+    kernels.reset_counts()
+    before = kernels.counts()
+    sessions = []
+    with rec:
+        for cycle in range(2):
+            t0 = time.perf_counter()
+            ssn = sched.run_once()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if ssn is None:
+                fail(f"affinity path: cycle {cycle + 1} found nothing to solve")
+            now = kernels.counts()
+            t = sched.last_timings
+            line = {"phase": "affinity-path", "cycle": cycle + 1,
+                    "tasks": ssn.meta.num_real_tasks, "padded_tasks": ssn.snap.num_tasks,
+                    "nodes": ssn.snap.num_nodes, "bound": len(ssn.bound),
+                    "wall_ms": round(wall_ms, 3),
+                    **{k: round(v, 3) for k, v in t.items()},
+                    **{k: v for k, v in sched.last_stats.items() if k.endswith("rounds")},
+                    **{f"{k}_launches": now[k] - before[k] for k in AFFINITY_KERNELS}}
+            before = now
+            _check_binds_allowed(ssn)
+            line.update(_check_affinity(ssn, cache))
+            log(json.dumps(line))
+            sessions.append((ssn.snap.num_tasks, len(ssn.bound)))
+            sim.tick()
+            if cycle == 0:
+                log(json.dumps({"phase": "affinity-path-arrivals",
+                                "pods": arrivals(cache, sim, wave)}))
+    counts = kernels.counts()
+    log(json.dumps({"phase": "affinity-path-launches", **counts}))
+    for name in AFFINITY_KERNELS:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the affinity path")
+    if not sessions[0][1] or not sessions[1][1]:
+        fail("an affinity-path cycle bound nothing")
+    _check_invariants(cache)
+    log(json.dumps({"phase": "affinity-path-invariants", "capacity": True,
+                    "gang": True, "predicate": True, "one_ps_per_node": True,
+                    "mpi_team_mate_in_rack": True}))
+    return counts, rec
+
+
+# ---------------------------------------------------------------------------
+# the joint path: config 4 + wave under examples/scheduler.conf, joint solve
+# ---------------------------------------------------------------------------
+
+def _tier_line(stats: dict) -> list:
+    return [{**{k: v for k, v in t.items() if k != "ms"}, "ms": round(t["ms"], 3),
+             "ms_per_step": round(t["ms"] / max(t["steps"], 1), 4)}
+            for t in stats.get("joint_tiers", [])]
+
+
+def phase_joint_path(device, seq_cycles, n_cycles: int = JOINT_CYCLES):
+    """The preempt path's world and wave with `joint_solve=True` on the
+    card: every cycle must run the joint solve, cycle 2 must evict, the
+    capacity, gang and predicate invariants hold; binds and evictions
+    are compared as sets with the sequential card run (`seq_cycles`, the
+    preempt path's), and each difference is printed beside the gated
+    admission tier's placements.  Returns (launch counts, the Recorder
+    of the K12 calls, the cycles)."""
+    from kube_batch_tpu_torch import kernels
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    cache, sim = preempt_world()
+    sched = Scheduler(cache, conf=scheduler_conf(), device=device, joint_solve=True)
+    rec = Recorder({**{name: 10**9 for name in _MUTATED}, **JOINT_EVERY})
+    kernels.reset_counts()
+    cycles = []
+    for cycle in range(n_cycles):
+        t0 = time.perf_counter()
+        with rec:
+            ssn = sched.run_once()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if ssn is None:
+            fail(f"joint path: cycle {cycle + 1} found nothing to solve")
+        if sched.last_stats.get("cycle") != "joint":
+            fail(f"joint path: cycle {cycle + 1} ran {sched.last_stats.get('cycle')}")
+        _check_binds_allowed(ssn)
+        c = _cycle_record(ssn, sched)
+        cycles.append(c)
+        seq = seq_cycles[cycle]
+        binds, seq_binds = set(c["binds"]), set(seq["binds"])
+        ev, seq_ev = set(c["evicted"]), set(seq["evicted"])
+        tiers = _tier_line(c["rounds"])
+        admission = sum(t.get("placed", 0) for t in tiers if t["tier"] == "admission")
+        diff = {"binds_only_joint": len(binds - seq_binds),
+                "binds_only_sequential": len(seq_binds - binds),
+                "evicted_only_joint": len(ev - seq_ev),
+                "evicted_only_sequential": len(seq_ev - ev)}
+        earlier = sum(t.get("placed", 0) for prev in cycles[:-1]
+                      for t in _tier_line(prev["rounds"]) if t["tier"] == "admission")
+        cause = ("identical" if not any(diff.values())
+                 else "gated admission tier" if admission + earlier > 0
+                 else "not the admission tier")
+        t = sched.last_timings
+        log(json.dumps({
+            "phase": "joint-path", "cycle": cycle + 1, "cycle_kind": "joint",
+            "tasks": ssn.meta.num_real_tasks, "bound": len(c["binds"]),
+            "evicted": c["rounds"].get("evicted", {}), "wall_ms": round(wall_ms, 3),
+            **{k: round(v, 3) for k, v in t.items()},
+            "tiers": tiers, "sequential_loops": _loop_line(seq["rounds"]),
+            "sequential_solve_ms": round(seq["timings"]["solve_ms"], 3),
+            "vs_sequential": diff, "admission_placed": admission,
+            "difference_cause": cause,
+            "binds_only_joint_sample": sorted(binds - seq_binds)[:5],
+            "binds_only_sequential_sample": sorted(seq_binds - binds)[:5],
+        }))
+        sim.tick()
+        if cycle == 0:
+            preempt_wave(sim)
+    counts = kernels.counts()
+    log(json.dumps({"phase": "joint-path-launches", **counts}))
+    if counts["tier_control"] <= 0:
+        fail("kernel tier_control was not launched on the joint path")
+    if cycles[0]["evicted"]:
+        fail("joint path: cycle 1 evicted pods from the empty cluster")
+    if not cycles[1]["evicted"]:
+        fail("joint path: cycle 2 evicted nothing")
+    _check_invariants(cache)
+    log(json.dumps({"phase": "joint-path-invariants", "capacity": True, "gang": True,
+                    "predicate": True}))
+    return counts, rec, cycles
+
+
+def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder) -> dict:
+    """K10 and K11 on every recorded call of the affinity path (every
+    4th / 8th), K10's row form on every call of ROW_WORLD's card run, K12
+    on every 10th call of the joint path, each against its plain version;
+    timed on cycle 2's inputs of their paths."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import joint_tier as k12
+    from kube_batch_tpu_torch.kernels import resident as k11
+
+    checks = {}
+    for label, rec, names in (("affinity-path", arec, AFFINITY_KERNELS),
+                              ("row-world", row_rec, AFFINITY_ROW),
+                              ("joint-path", jrec, JOINT_ONLY)):
+        got = check_all(rec, names)
+        log(json.dumps({"phase": f"{label}-kernels", "equal_to_plain": True, **got}))
+        checks.update(got)
+        for name in names:
+            if got[name]["calls"] <= 0:
+                fail(f"{label}: no {name} call was recorded")
+    out = {}
+
+    def record(name, ms, plain_ms, b, library_ms=None, **note):
+        out[name] = dict(max_abs_err=checks[name]["max_abs_err"], ms=ms,
+                         plain_ms=plain_ms, bound=b, library_ms=library_ms)
+        log(json.dumps({"phase": "kernel", "name": name, "ms": round(ms, 4),
+                        "plain_ms": round(plain_ms, 4),
+                        "library_ms": None if library_ms is None else round(library_ms, 4),
+                        "bound_ms": round(b[0], 6), "bound_by": b[1], **note}))
+
+    def second_cycle(rec, name):
+        last = max(c for c, _r, _a in rec.calls[name])
+        return [a for c, _r, a in rec.calls[name] if c == last]
+
+    # K11: cycle 2's first future-oriented call
+    args = next(a for a in second_cycle(arec, "resident_tables") if not a[11])
+    podlabels, anti, anti_topo, task_node, task_state, task_mask, nkd = args[:7]
+    (T, K), K2, N, D = podlabels.shape, anti_topo.shape[1], args[9], args[10]
+    held = int(k11.resident_mask(task_state, task_node, task_mask, False).sum())
+    record("resident_tables", time_ms(lambda: k11.resident_tables(*args)),
+           time_ms(lambda: k11.resident_tables_plain(*args)),
+           bound(T * 9 + held * (2 * K + K2) * 4 + nkd.numel() * 4 + 2 * K2 * 4
+                 + 2 * N * K + 2 * D * K, 0),
+           residents=held, tasks=T, nodes=N, domains=D)
+
+    # K10's mask: cycle 2's first call (an Idle-pass round)
+    args = second_cycle(arec, "affinity_mask")[0]
+    fields, tables = args[:8], args[8:]
+    T, N = fields[0].shape[0], tables[0].shape[0]
+    KW, K2W = (K + 31) // 32, (K2 + 31) // 32
+    in_bytes = sum(x.numel() * x.element_size() for x in fields) + sum(
+        x.numel() for x in tables if x is not None)
+    record("affinity_mask", time_ms(lambda: k10.affinity_mask(*args)),
+           time_ms(lambda: k10.affinity_mask_plain(*args), warmup=1, runs=3),
+           bound(in_bytes + T * N, T * N * (5 * KW + 4 * K2W)),
+           # the plain version's float matrix products are the one-call
+           # PyTorch form of this function
+           time_ms(lambda: k10.affinity_mask_plain(*args), warmup=1, runs=3),
+           cells=T * N, live_words=[KW, K2W])
+
+    # K10's row form: a call of ROW_WORLD's cycle 2
+    args = second_cycle(row_rec, "affinity_row")[0]
+    nkd, tables = args[7], args[8:12]
+    K, K2, N = args[0].shape[1], args[3].shape[1], tables[0].shape[0]
+    KW, K2W = (K + 31) // 32, (K2 + 31) // 32
+    row_bytes = ((3 * K + 2 * K2) * 4 + 2 * K2 * 4 + nkd.numel() * 4
+                 + sum(x.numel() for x in tables if x is not None) + N)
+    record("affinity_row", time_ms(lambda: k10.affinity_row(*args)),
+           time_ms(lambda: k10.affinity_row_plain(*args)),
+           bound(row_bytes, N * (5 * KW + 4 * K2W)), nodes=N)
+
+    # K12: cycle 2's calls of the joint path, an evict-tier step that does
+    # not end its tier (the common case; nothing is written in place)
+    calls = second_cycle(jrec, "tier_control")
+
+    def fresh(a):
+        return [x.clone() if i in _MUTATED["tier_control"] else x for i, x in enumerate(a)]
+
+    def ends(a):
+        return bool(k12.tier_control_plain(*fresh(a))[0])
+
+    args = next((a for a in sorted(calls, key=lambda a: a[0] != k12.EVICT)
+                 if not ends(a)), calls[0])
+    done, args = ends(args), fresh(args)
+    record("tier_control", time_ms(lambda: k12.tier_control(*args)),
+           time_ms(lambda: k12.tier_control_plain(*args)),
+           bound(_tier_control_bytes(args, done), 0),
+           kind="evict" if args[0] == k12.EVICT else "auction",
+           tasks=args[5].shape[0], done=done)
+    torch.cuda.synchronize()
+    return out
+
+
+def _tier_control_bytes(args, done: bool) -> int:
+    """The bytes one K12 launch on `args` must move, each read or write
+    once: the masks its tier's work test reads (task_state, task_mask,
+    elig; an evict tier's task_job, tried and starving; a gated auction
+    tier's codes), the carry, the phase and the flags; and, only when the
+    tier ends, the advance (prov read, tried / prov / excl cleared, and
+    an open plan's victims restored with their request sum)."""
+    from kube_batch_tpu_torch.kernels import joint_tier as k12
+
+    kind, gated, carry, prov, node_future = args[0], args[1], args[4], args[12], args[15]
+    T, (N, R) = args[5].shape[0], node_future.shape
+    per_task = 4 + 1 + 1
+    if kind == k12.EVICT:
+        per_task += 4 + 1
+    elif gated:
+        per_task += 4
+    n = T * per_task + (args[9].shape[0] if kind == k12.EVICT else 0) + 12 + 4 + 12
+    if done:
+        n += T + 2 * T + N + 4
+        if int(carry[1]):
+            victims = int(prov.sum())
+            n += victims * (4 + 4 + 4 + 4 * R) + 2 * 4 * R
+    return n
+
+
 def main() -> int:
     import torch
 
@@ -1655,34 +2157,48 @@ def main() -> int:
     from kube_batch_tpu_torch.device import resolve_device
 
     device = resolve_device("cuda")
-    # The preempt path's CPU run takes minutes: a worker process runs it
-    # while this one drives the card, and is stopped on every exit.
+    # The CPU runs take minutes: worker processes run them while this one
+    # drives the card (one for the preempt path, two for the parity
+    # worlds), and are stopped on every exit.
     import multiprocessing
 
-    pool = multiprocessing.get_context("spawn").Pool(1)
+    ctx = multiprocessing.get_context("spawn")
+    pool, ppool = ctx.Pool(1), ctx.Pool(2)
     try:
         cpu_preempt = pool.apply_async(preempt_cycles_cpu, (ROOT,))
+        cpu_parity = {w: ppool.apply_async(parity_cpu, (ROOT, w))
+                      for w in PARITY_WORLDS}
         phase_card_and_build()
-        phase_parity()
+        row_counts, row_rec = phase_parity(cpu_parity)
+        ppool.close()
+        ppool.join()
         counts, rec = phase_main_path(device)
         records = phase_kernels(rec)
         host_counts, hrec = phase_host_cycle(device)
         records.update(phase_row_patch(hrec))
         del hrec
+        affinity_counts, arec = phase_affinity_path(device)
         preempt_counts, prec, pcycles = phase_preempt_path(cpu_preempt)
         records.update(phase_preempt_kernels(prec, pcycles))
         records.update(phase_rank_kernels(rec, prec))
         del rec, prec
+        joint_counts, jrec, _ = phase_joint_path(device, pcycles)
+        records.update(phase_affinity_kernels(arec, row_rec, jrec))
+        del arec, row_rec, jrec
         pool.close()
         pool.join()
     finally:
         pool.terminate()
+        ppool.terminate()
 
     kernels_line = []
     for name, (route, source, replaces) in KERNELS.items():
         r = records[name]
         launches = (preempt_counts[name] if name in PREEMPT_KERNELS
                     else host_counts[name] if name in HOST_CYCLE_ONLY
+                    else affinity_counts[name] if name in AFFINITY_KERNELS
+                    else row_counts[name] if name in AFFINITY_ROW
+                    else joint_counts[name] if name in JOINT_ONLY
                     else counts[name])
         kernels_line.append({
             "name": name, "route": route, "source": source,

@@ -3,6 +3,8 @@
     python -m kube_batch_tpu_torch --workload 5 --cycles 2 [--device cpu]
     python -m kube_batch_tpu_torch --workload 4 --conf examples/scheduler.conf --cycles 3
     python -m kube_batch_tpu_torch --workload 5 --cycles 3 --pack-mode full
+    python -m kube_batch_tpu_torch --workload 4 --conf examples/scheduler.conf --joint-solve on
+    python -m kube_batch_tpu_torch --workload affinity --cycles 2
 
 Builds BASELINE config N (models/workloads.py) in the simulator, runs
 `--cycles` cycles of the default conf (or of the scheduler.conf at
@@ -12,7 +14,15 @@ bound, pods evicted per evicting action, auction rounds per pass,
 preemption steps per loop, the pack mode and its H2D bytes, and the
 cycle's wall time split into pack (host patch, H2D) / solve / dispatch.
 `--pack-mode full` rebuilds the pack every cycle instead of patching the
-previous one (the default, "incremental").
+previous one (the default, "incremental").  `--joint-solve on` runs each
+cycle as the joint single solve (ops/joint.py; the line then carries
+each tier's steps and ms, and "cycle_kind": "joint"); `off` forces the
+sequential cycle; without the flag KB_TPU_JOINT_SOLVE decides.
+`--workload affinity` is config 5 with inter-pod affinity terms
+(models/workloads.py · config5_affinity_world: 5,000 nodes in racks of 40,
+parameter-server anti-affinity, MPI rack affinity, soft rack / zone
+preferences) at full size; a cut size is built from Python with
+`config5_affinity(n_nodes=..., target_pods=...)`.
 
 `--profile DIR` traces the cycles with torch.profiler, after one
 untraced warm-up cycle on a twin world: DIR receives the Chrome trace
@@ -31,7 +41,8 @@ import sys
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m kube_batch_tpu_torch")
-    ap.add_argument("--workload", type=int, default=1, choices=range(1, 6))
+    ap.add_argument("--workload", default="1",
+                    choices=[str(n) for n in range(1, 6)] + ["affinity"])
     ap.add_argument("--cycles", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -39,25 +50,36 @@ def main(argv=None) -> int:
                     help="scheduler.conf to run instead of the default conf")
     ap.add_argument("--pack-mode", choices=("incremental", "full"),
                     default="incremental")
+    ap.add_argument("--joint-solve", choices=("on", "off"), default=None)
     ap.add_argument("--profile", metavar="DIR", default=None)
     args = ap.parse_args(argv)
 
     from kube_batch_tpu_torch.framework.conf import parse_conf
-    from kube_batch_tpu_torch.models.workloads import build_config
     from kube_batch_tpu_torch.scheduler import Scheduler
 
     conf = None
     if args.conf:
         with open(args.conf) as f:
             conf = parse_conf(f.read())
-    kw = {} if args.workload == 1 else {"seed": args.seed}
-    cache, sim = build_config(args.workload, **kw)
+    cache, sim = _world(args)
+    joint = None if args.joint_solve is None else args.joint_solve == "on"
     sched = Scheduler(cache, conf=conf, device=args.device,
-                      pack_mode=args.pack_mode)
+                      pack_mode=args.pack_mode, joint_solve=joint)
     if args.profile:
         return _profiled(sched, sim, args)
     _cycles(sched, sim, args.cycles)
     return 0
+
+
+def _world(args):
+    """(cache, sim) of the chosen workload."""
+    from kube_batch_tpu_torch.models.workloads import build_config, config5_affinity
+
+    if args.workload == "affinity":
+        return config5_affinity(seed=args.seed)
+
+    n = int(args.workload)
+    return build_config(n, **({} if n == 1 else {"seed": args.seed}))
 
 
 def _cycles(sched, sim, cycles: int) -> float:
@@ -72,7 +94,8 @@ def _cycles(sched, sim, cycles: int) -> float:
         line = {"cycle": cycle, "device": str(sched.device),
                 "bound": 0 if ssn is None else len(ssn.bound)}
         if ssn is not None:
-            line.update(sched.last_stats)
+            line.update({("cycle_kind" if k == "cycle" else k): v
+                         for k, v in sched.last_stats.items()})
             line.update({k: round(v, 3) for k, v in sched.last_timings.items()})
         print(json.dumps(line), flush=True)
         sim.tick()
@@ -90,12 +113,11 @@ def _profiled(sched, sim, args) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kube_batch_tpu_torch.models.workloads import build_config
     from kube_batch_tpu_torch.scheduler import Scheduler
 
-    kw = {} if args.workload == 1 else {"seed": args.seed}
-    Scheduler(build_config(args.workload, **kw)[0], conf=sched.conf,
-              device=sched.device, pack_mode=sched.pack_mode).run_once()
+    Scheduler(_world(args)[0], conf=sched.conf, device=sched.device,
+              pack_mode=sched.pack_mode,
+              joint_solve=sched.cycle_kind == "joint").run_once()
     os.makedirs(args.profile, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if sched.device.type == "cuda":

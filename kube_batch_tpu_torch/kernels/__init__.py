@@ -11,6 +11,9 @@
 | K7 | segment_sum.segment_sum, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
 | K8 | lex_rank.lex_push, lex_rank.sort_by_segment, lex_rank.vtime | CUDA C++ | framework/policy.py · rank_fn, virtual_start_times; ops/assignment.py · rank_from_keys |
 | K9 | row_patch.row_patch | CUDA C++ | cache/incremental.py · _row_patch |
+| K10 | affinity.affinity_mask, affinity.affinity_row | CUDA C++ | plugins/predicates.py · _topo_feasibility, _affinity_candidate_ok, pod_affinity_predicate, pod_affinity_row |
+| K11 | resident.resident_tables | CUDA C++ | plugins/predicates.py · resident_podlabels, _resident_mask, resident_domain_labels |
+| K12 | joint_tier.tier_control | CUDA C++ | ops/joint.py · _haswork_fn, advance (the tier_done test) |
 
 Every wrapper runs its plain PyTorch version for CPU tensors, launches
 its kernel for CUDA tensors (or raises), and counts its launches in a
@@ -18,11 +21,14 @@ plain int attribute `launches`.
 """
 
 from kube_batch_tpu_torch.kernels import (  # noqa: F401
+    affinity,
     failure_counts,
+    joint_tier,
     lex_rank,
     predicate_mask,
     preempt_scan,
     propose,
+    resident,
     resolve,
     row_patch,
     segment_sum,
@@ -48,6 +54,10 @@ def wrappers() -> dict:
         "sort_by_segment": lex_rank.sort_by_segment,
         "vtime": lex_rank.vtime,
         "row_patch": row_patch.row_patch,
+        "affinity_mask": affinity.affinity_mask,
+        "affinity_row": affinity.affinity_row,
+        "resident_tables": resident.resident_tables,
+        "tier_control": joint_tier.tier_control,
     }
 
 

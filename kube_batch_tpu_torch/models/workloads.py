@@ -8,12 +8,18 @@
 | 4 | preempt + reclaim: 5k pods, 500 nodes, 4 priority classes         |
 | 5 | full pipeline: 50k-pod MPI/TFJob mix, 5k nodes, backfill + gang   |
 
+`config5_affinity` is config 5 with inter-pod affinity terms (the
+affinity path of chip_smoke.py); its recipe `config5_affinity_world`
+takes a package's cluster / workloads / simulator modules, so the tests
+build the identical world in the reference package too.
+
 All generators are deterministic under a seed so differential tests
 (the port against the JAX package) see identical worlds.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import random
 
 from kube_batch_tpu_torch.api.resource import ResourceSpec
@@ -197,6 +203,85 @@ def config5_full(spec: ResourceSpec = DEFAULT_SPEC, seed: int = 0,
         total += len(pods)
         j += 1
     return cache, sim
+
+
+AFFINITY_TEAMS = 16
+
+
+def config5_affinity_world(cl, wl, sim_mod, n_nodes: int = 5000,
+                           target_pods: int = 50000, seed: int = 0,
+                           rack_size: int = 40):
+    """Config 5 with inter-pod affinity: config 5's cluster, job mix,
+    sizes and `rng` draws (workloads.py · config5_full), built from a
+    package's `cluster`, `workloads` and `simulator` modules.  Nodes carry
+    `zone=z{i % 3}` and `rack=r{i // rack_size}`; every pod of job j is
+    labelled `team=t{j % 16}` and a role, and the gangs carry the terms
+    batch users write (parameter servers spread one per node, MPI ranks
+    kept in a rack of their team):
+
+    * TF parameter servers (`role=ps`): anti-affinity `role=ps`;
+    * TF workers (`role=worker`): soft `rack:team` (1.0) and `zone:team`
+      (0.5) preferences;
+    * MPI launcher (`role=launcher`): none;
+    * MPI workers (`role=mpi`): required affinity `rack:team`;
+    * best-effort filler: no label, no term."""
+    rng = random.Random(seed)
+    cache, sim = sim_mod.make_world(wl.DEFAULT_SPEC)
+    sim.add_queue(cl.Queue(name="research", weight=3.0))
+    sim.add_queue(cl.Queue(name="prod", weight=5.0))
+    sim.add_queue(cl.Queue(name="besteffort", weight=1.0))
+    for i in range(n_nodes):
+        sim.add_node(wl._node(f"n{i}", cpu_milli=32000, mem=128 * wl.GI, accel=8,
+                              labels={"zone": f"z{i % 3}",
+                                      "rack": f"r{i // rack_size}"}))
+
+    def tagged(pods, team, role, **terms):
+        return [dataclasses.replace(p, labels={"team": team, "role": role}, **terms)
+                for p in pods]
+
+    total, j = 0, 0
+    while total < target_pods * 0.95:
+        kind = rng.random()
+        queue = rng.choice(["research", "prod"])
+        team = f"t{j % AFFINITY_TEAMS}"
+        if kind < 0.45:
+            n_ps = rng.choice([1, 2])
+            group, pods = wl.tf_job(f"tf{j}", queue, n_ps=n_ps,
+                                    n_workers=rng.choice([4, 8, 16]),
+                                    priority=rng.choice([0, 100]))
+            pods = (tagged(pods[:n_ps], team, "ps",
+                           anti_affinity=frozenset({"role=ps"}))
+                    + tagged(pods[n_ps:], team, "worker",
+                             pod_prefs={f"rack:team={team}": 1.0,
+                                        f"zone:team={team}": 0.5}))
+        elif kind < 0.9:
+            group, pods = wl.mpi_job(f"mpi{j}", queue,
+                                     n_workers=rng.choice([8, 16, 32]),
+                                     priority=rng.choice([0, 100]))
+            pods = (tagged(pods[:1], team, "launcher")
+                    + tagged(pods[1:], team, "mpi",
+                             affinity=frozenset({f"rack:team={team}"})))
+        else:
+            group = cl.PodGroup(name=f"be{j}", queue="besteffort", min_member=1)
+            pods = [cl.Pod(name=f"be{j}-{i}", request={"pods": 1})
+                    for i in range(rng.choice([10, 50]))]
+        sim.submit(group, pods)
+        total += len(pods)
+        j += 1
+    return cache, sim
+
+
+def config5_affinity(seed: int = 0, n_nodes: int = 5000,
+                     target_pods: int = 50000, rack_size: int = 40):
+    """`config5_affinity_world` from this package's own modules."""
+    import sys
+
+    import kube_batch_tpu_torch.cache.cluster as cluster
+    import kube_batch_tpu_torch.sim.simulator as simulator
+
+    return config5_affinity_world(cluster, sys.modules[__name__], simulator,
+                                  n_nodes=n_nodes, target_pods=target_pods,
+                                  seed=seed, rack_size=rack_size)
 
 
 CONFIG_BUILDERS = {

@@ -163,6 +163,74 @@ def resolve_conflicts(
     return accept & (rank < watermark), perm, s_node
 
 
+def auction_round(
+    snap: SnapshotTensors,
+    state: AllocState,
+    predicate_mask: torch.Tensor,   # bool[T, N] static feasibility
+    score_spec,                     # propose.ScoreSpec
+    rank_fn: RankFn,
+    eligible_fn: EligibleFn,
+    eps: torch.Tensor,              # f32[R]
+    use_future: bool = False,
+    one_per_node: bool = False,
+    score_quantum: float = 0.0,
+    dyn_predicate_fn=None,
+    global_serialize_fn=None,
+    domain_serialize_fn=None,
+    serialize_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One auction round up to its apply: every eligible pending task
+    proposes (K2), nodes resolve conflicts (K3 resolve), the serialize
+    steps trim the accepted set.  Returns (accept bool[T], perm, sorted
+    node ids) for `apply_round`; nothing is read on the host."""
+    avail = state.node_future if use_future else state.node_idle
+    pending = (state.task_state == int(TaskStatus.PENDING)) & snap.task_mask
+    eligible = pending & eligible_fn(snap, state)
+    dyn = (
+        dyn_predicate_fn(snap, state, not use_future)
+        if dyn_predicate_fn is not None else None
+    )
+    extras = score_spec.extra_terms(snap, state)
+    best, cnt, active = propose.propose_best(
+        predicate_mask, dyn, snap.task_req, avail, eps, snap.node_mask,
+        eligible, state.node_future, snap.node_cap, score_spec, extras,
+        score_quantum,
+    )
+    rank = rank_fn(snap, state)
+    k = tie_ordinal(active, rank, cnt)
+    prop_node = propose.propose_pick(
+        predicate_mask, dyn, snap.task_req, avail, eps, snap.node_mask,
+        eligible, state.node_future, snap.node_cap, score_spec, extras,
+        score_quantum, best, active, k,
+    )
+    accept, perm, s_node = resolve_conflicts(
+        prop_node, active, rank, snap.task_req, avail, eps,
+        one_per_node=one_per_node, serialize_mask=serialize_mask,
+    )
+    if domain_serialize_fn is not None and snap.node_key_domain.shape[1]:
+        accept = _domain_serialize(
+            snap, state, accept, prop_node, rank, domain_serialize_fn
+        )
+    if global_serialize_fn is not None:
+        gmask = global_serialize_fn(snap, state)
+        if gmask is not None:
+            accept = _global_serialize(accept, rank, gmask)
+    return accept, perm, s_node
+
+
+def apply_round(snap, state, accept, perm, s_node, use_future: bool) -> None:
+    """Allocate the accepted proposals in place (K3 apply): per-node
+    deltas into node_future (and node_idle in the Idle pass), the task
+    rows' state and node.  A round that accepted nothing changes
+    nothing."""
+    new_status = int(TaskStatus.PIPELINED if use_future else TaskStatus.ALLOCATED)
+    resolve.apply(
+        perm, s_node, accept, snap.task_req, state.node_future,
+        state.node_idle, use_future, new_status, state.task_state,
+        state.task_node,
+    )
+
+
 def allocate_rounds(
     snap: SnapshotTensors,
     state: AllocState,
@@ -192,49 +260,17 @@ def allocate_rounds(
     terms).  `stats["rounds"]` receives the number of rounds run."""
     if max_rounds is None:
         max_rounds = snap.num_tasks
-    new_status = int(TaskStatus.PIPELINED if use_future else TaskStatus.ALLOCATED)
     rounds = 0
     for _ in range(max_rounds):
         rounds += 1
-        avail = state.node_future if use_future else state.node_idle
-        pending = (state.task_state == int(TaskStatus.PENDING)) & snap.task_mask
-        eligible = pending & eligible_fn(snap, state)
-        dyn = (
-            dyn_predicate_fn(snap, state, not use_future)
-            if dyn_predicate_fn is not None else None
+        accept, perm, s_node = auction_round(
+            snap, state, predicate_mask, score_spec, rank_fn, eligible_fn,
+            eps, use_future, one_per_node, score_quantum, dyn_predicate_fn,
+            global_serialize_fn, domain_serialize_fn, serialize_mask,
         )
-        extras = score_spec.extra_terms(snap, state)
-        best, cnt, active = propose.propose_best(
-            predicate_mask, dyn, snap.task_req, avail, eps, snap.node_mask,
-            eligible, state.node_future, snap.node_cap, score_spec, extras,
-            score_quantum,
-        )
-        rank = rank_fn(snap, state)
-        k = tie_ordinal(active, rank, cnt)
-        prop_node = propose.propose_pick(
-            predicate_mask, dyn, snap.task_req, avail, eps, snap.node_mask,
-            eligible, state.node_future, snap.node_cap, score_spec, extras,
-            score_quantum, best, active, k,
-        )
-        accept, perm, s_node = resolve_conflicts(
-            prop_node, active, rank, snap.task_req, avail, eps,
-            one_per_node=one_per_node, serialize_mask=serialize_mask,
-        )
-        if domain_serialize_fn is not None and snap.node_key_domain.shape[1]:
-            accept = _domain_serialize(
-                snap, state, accept, prop_node, rank, domain_serialize_fn
-            )
-        if global_serialize_fn is not None:
-            gmask = global_serialize_fn(snap, state)
-            if gmask is not None:
-                accept = _global_serialize(accept, rank, gmask)
         if not bool(accept.any()):
             break
-        resolve.apply(
-            perm, s_node, accept, snap.task_req, state.node_future,
-            state.node_idle, use_future, new_status, state.task_state,
-            state.task_node,
-        )
+        apply_round(snap, state, accept, perm, s_node, use_future)
     if stats is not None:
         stats["rounds"] = rounds
     return state

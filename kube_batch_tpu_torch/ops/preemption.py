@@ -96,13 +96,175 @@ def _request_sum(mask: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
 
 
 @dataclasses.dataclass
-class _Plan:
-    """Host view of the carry, read once per step."""
+class EvictCarry:
+    """The loop carry between steps: `tried` latches served preemptors
+    (or those out of nodes), `prov` the open plan's provisional victims,
+    `excl` the nodes whose plan failed for preemptor `excl_p`; the plan
+    itself (open or not, its preemptor and node) as the host read it."""
 
-    active: bool = False     # a plan is open
-    p: torch.Tensor | None = None   # its preemptor (0-dim device tensor)
-    n: int = 0               # its node
+    tried: torch.Tensor       # bool[T]
+    prov: torch.Tensor        # bool[T]
+    excl: torch.Tensor        # bool[N]
+    excl_p: torch.Tensor      # i64[] (-1: none)
+    active: bool = False      # a plan is open
+    p: torch.Tensor | None = None     # its preemptor (0-dim device tensor)
+    n: int = 0                # its node
     n_t: torch.Tensor | None = None
+
+    @classmethod
+    def fresh(cls, T: int, N: int, device) -> "EvictCarry":
+        return cls(
+            tried=torch.zeros(T, dtype=torch.bool, device=device),
+            prov=torch.zeros(T, dtype=torch.bool, device=device),
+            excl=torch.zeros(N, dtype=torch.bool, device=device),
+            excl_p=torch.full((), -1, dtype=torch.long, device=device),
+        )
+
+
+@dataclasses.dataclass
+class StepOut:
+    """One step's results, all on the device: the new state and carry
+    tensors, the flag vector the host reads — (progressed, plan still
+    open, node, opened, finalized, rolled back, no node) — and the
+    evicted row and rollback mask for the joint solve's attribution."""
+
+    state: AllocState
+    tried: torch.Tensor
+    prov: torch.Tensor
+    excl: torch.Tensor
+    excl_p: torch.Tensor
+    p: torch.Tensor
+    n_t: torch.Tensor
+    flags: torch.Tensor       # i64[7]
+    is_v: torch.Tensor        # bool[T] the victim evicted this step
+    fail: torch.Tensor        # bool[] the open plan rolled back
+
+
+FLAG_KEYS = ("progressed", "evicted", "node", "opened", "finalized",
+             "rolled_back", "no_node")
+
+
+def evict_step(
+    snap: SnapshotTensors,
+    st: AllocState,
+    c: EvictCarry,
+    predicate_mask: torch.Tensor,    # bool[T, N]
+    victim_mask_fn: VictimMaskFn,
+    starving_fn: StarvingFn,
+    rank_fn,
+    eligible_fn,
+    eps: torch.Tensor,
+    dyn_predicate_row_fn=None,       # (snap, state, p) -> bool[N] | None
+) -> StepOut:
+    """One eviction-granular Statement step (≙ the body of
+    kube_batch_tpu ops/preemption.py · preemption_rounds, and of the
+    evict tiers of ops/joint.py · joint_rounds): open a plan, evict one
+    re-validated victim, finalize, or roll back.  Nothing is read on the
+    host; the branch between opening and continuing a plan is the host's
+    (`c.active`, read at the end of the previous step)."""
+    T, N = snap.num_tasks, snap.num_nodes
+    dev = snap.device
+    idx_t = torch.arange(T, device=dev)
+    idx_n = torch.arange(N, device=dev)
+    node_ok = snap.node_mask & snap.node_ready
+    releasing, pipelined = int(TaskStatus.RELEASING), int(TaskStatus.PIPELINED)
+    excl = c.excl
+    rank = rank_fn(snap, st)
+    if c.active:
+        p, n_t = c.p, c.n_t
+        have_p = active = torch.ones((), dtype=torch.bool, device=dev)
+        opening = no_node = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        pending = (st.task_state == int(TaskStatus.PENDING)) & snap.task_mask
+        tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
+        elig = (pending & starving_fn(snap, st)[tj] & (snap.task_job >= 0)
+                & eligible_fn(snap, st) & ~c.tried)
+        scan = _k6.preempt_open(
+            rank, elig, snap.task_state, st.task_state, snap.task_mask,
+            c.prov, snap.task_req, st.node_future, node_ok, eps,
+        )
+        p = scan[0].long()
+        have_p = scan[1].bool()
+        any_possible_or_fit = scan[2].bool() | scan[3].bool()
+        # failed-node exclusions are scoped to one preemptor
+        excl = excl & (p == c.excl_p)
+    victims = (victim_mask_fn(snap, st, p) & snap.task_mask
+               & (st.task_node >= 0) & ~c.prov)
+    preq = snap.task_req[p]
+    dyn_row = (dyn_predicate_row_fn(snap, st, p)
+               if dyn_predicate_row_fn is not None else None)
+    if c.active:
+        scan = _k6.preempt_continue(rank, victims, st.task_node, c.n)
+        v, any_vic = scan[0].long(), scan[1].bool()
+        fit_now = fits(preq, st.node_future[c.n], eps)
+        n = n_t
+        progressed_t = have_p
+    else:
+        ok = predicate_mask[p] & node_ok & ~excl
+        if dyn_row is not None:
+            ok = ok & dyn_row
+        _k, out = min_victims_per_node(snap, st.node_future, victims, rank,
+                                       preq, eps, ok)
+        n = out[0].long()
+        node_found = out[1].bool()
+        v, any_vic, fit_now = out[2].long(), out[3].bool(), out[4].bool()
+        opening = have_p & node_found
+        no_node = have_p & ~node_found
+        active = opening
+        progressed_t = have_p & any_possible_or_fit
+    viable = (dyn_row[n] if dyn_row is not None
+              else torch.ones((), dtype=torch.bool, device=dev))
+    finalize = active & viable & fit_now
+    evict = active & viable & ~fit_now & any_vic
+    fail = active & (~viable | (~fit_now & ~any_vic))
+
+    is_p = idx_t == p
+    is_v = (idx_t == v) & evict
+    task_state = torch.where(is_v, releasing, st.task_state)
+    task_state = torch.where(finalize & is_p, pipelined, task_state)
+    # Discard: provisional victims return to their snapshot status
+    task_state = torch.where(fail & c.prov, snap.task_state, task_state)
+    task_node = torch.where(finalize & is_p, n.to(torch.int32), st.task_node)
+    prov_req_sum = _request_sum(c.prov, snap.task_req)
+    zero = torch.zeros_like(preq)
+    delta = (torch.where(evict, snap.task_req[v], zero)
+             - torch.where(finalize, preq, zero)
+             - torch.where(fail, prov_req_sum, zero))
+    node_future = st.node_future.index_add(0, n.view(1), delta[None, :])
+    closed = finalize | fail
+    flags = torch.stack([
+        progressed_t.long(), evict.long(), n, opening.long(),
+        finalize.long(), fail.long(), no_node.long(),
+    ])
+    return StepOut(
+        state=AllocState(task_state=task_state, task_node=task_node,
+                         node_idle=st.node_idle, node_future=node_future,
+                         aux=st.aux),
+        tried=c.tried | (is_p & (no_node | finalize)),
+        prov=~closed & (c.prov | is_v),
+        excl=torch.where(fail, excl | (idx_n == n), excl),
+        excl_p=p, p=p, n_t=n, flags=flags, is_v=is_v, fail=fail,
+    )
+
+
+def next_carry(out: StepOut, flags: list[int]) -> EvictCarry:
+    """The carry after a step whose flag vector the host has read."""
+    return EvictCarry(tried=out.tried, prov=out.prov, excl=out.excl,
+                      excl_p=out.excl_p, active=bool(flags[1]), p=out.p,
+                      n=flags[2], n_t=out.n_t)
+
+
+def tally_step(tally: dict, flags: list[int]) -> None:
+    """Count a step by its outcome (see `new_tally`)."""
+    tally["steps"] += 1
+    for key, flag in zip(FLAG_KEYS, flags):
+        if key in tally:
+            tally[key] += flag
+
+
+def new_tally() -> dict:
+    return {"steps": 0, "opened": 0, "evicted": 0, "finalized": 0,
+            "rolled_back": 0, "no_node": 0}
 
 
 def preemption_rounds(
@@ -128,117 +290,29 @@ def preemption_rounds(
     T, N = snap.num_tasks, snap.num_nodes
     if max_iters is None:
         max_iters = 2 * T + 4 * N + 16
-    dev = snap.device
-    idx_t = torch.arange(T, device=dev)
-    idx_n = torch.arange(N, device=dev)
-    node_ok = snap.node_mask & snap.node_ready
-    releasing, pipelined = int(TaskStatus.RELEASING), int(TaskStatus.PIPELINED)
-    pending_code = int(TaskStatus.PENDING)
-
     st = state
-    tried = torch.zeros(T, dtype=torch.bool, device=dev)
-    prov = torch.zeros(T, dtype=torch.bool, device=dev)
-    excl = torch.zeros(N, dtype=torch.bool, device=dev)
-    excl_p = torch.full((), -1, dtype=torch.long, device=dev)
-    plan = _Plan()
-    tally = {"steps": 0, "opened": 0, "evicted": 0, "finalized": 0,
-             "rolled_back": 0, "no_node": 0}
+    c = EvictCarry.fresh(T, N, snap.device)
+    tally = new_tally()
     t0 = time.perf_counter()
     progressed = True
     while progressed and tally["steps"] < max_iters:
-        rank = rank_fn(snap, st)
-        if plan.active:
-            p, n_t = plan.p, plan.n_t
-            have_p = active = torch.ones((), dtype=torch.bool, device=dev)
-            opening = no_node = torch.zeros((), dtype=torch.bool, device=dev)
-        else:
-            pending = (st.task_state == pending_code) & snap.task_mask
-            tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
-            elig = (pending & starving_fn(snap, st)[tj] & (snap.task_job >= 0)
-                    & eligible_fn(snap, st) & ~tried)
-            scan = _k6.preempt_open(
-                rank, elig, snap.task_state, st.task_state, snap.task_mask,
-                prov, snap.task_req, st.node_future, node_ok, eps,
-            )
-            p = scan[0].long()
-            have_p = scan[1].bool()
-            any_possible_or_fit = scan[2].bool() | scan[3].bool()
-            # failed-node exclusions are scoped to one preemptor
-            excl = excl & (p == excl_p)
-        victims = (victim_mask_fn(snap, st, p) & snap.task_mask
-                   & (st.task_node >= 0) & ~prov)
-        preq = snap.task_req[p]
-        dyn_row = (dyn_predicate_row_fn(snap, st, p)
-                   if dyn_predicate_row_fn is not None else None)
-        if plan.active:
-            scan = _k6.preempt_continue(rank, victims, st.task_node, plan.n)
-            v, any_vic = scan[0].long(), scan[1].bool()
-            fit_now = fits(preq, st.node_future[plan.n], eps)
-            n = n_t
-            progressed_t = have_p
-        else:
-            ok = predicate_mask[p] & node_ok & ~excl
-            if dyn_row is not None:
-                ok = ok & dyn_row
-            _k, out = min_victims_per_node(snap, st.node_future, victims, rank,
-                                           preq, eps, ok)
-            n = out[0].long()
-            node_found = out[1].bool()
-            v, any_vic, fit_now = out[2].long(), out[3].bool(), out[4].bool()
-            opening = have_p & node_found
-            no_node = have_p & ~node_found
-            active = opening
-            progressed_t = have_p & any_possible_or_fit
-        viable = (dyn_row[n] if dyn_row is not None
-                  else torch.ones((), dtype=torch.bool, device=dev))
-        finalize = active & viable & fit_now
-        evict_step = active & viable & ~fit_now & any_vic
-        fail = active & (~viable | (~fit_now & ~any_vic))
-
-        is_p = idx_t == p
-        is_v = (idx_t == v) & evict_step
-        task_state = torch.where(is_v, releasing, st.task_state)
-        task_state = torch.where(finalize & is_p, pipelined, task_state)
-        # Discard: provisional victims return to their snapshot status
-        task_state = torch.where(fail & prov, snap.task_state, task_state)
-        task_node = torch.where(finalize & is_p, n.to(torch.int32), st.task_node)
-        prov_req_sum = _request_sum(prov, snap.task_req)
-        zero = torch.zeros_like(preq)
-        delta = (torch.where(evict_step, snap.task_req[v], zero)
-                 - torch.where(finalize, preq, zero)
-                 - torch.where(fail, prov_req_sum, zero))
-        node_future = st.node_future.index_add(0, n.view(1), delta[None, :])
-        st = AllocState(task_state=task_state, task_node=task_node,
-                        node_idle=st.node_idle, node_future=node_future,
-                        aux=st.aux)
-
-        closed = finalize | fail
-        tried = tried | (is_p & (no_node | finalize))
-        prov = ~closed & (prov | is_v)
-        excl = torch.where(fail, excl | (idx_n == n), excl)
-        excl_p = p
-        flags = torch.stack([
-            progressed_t.long(), evict_step.long(), n, opening.long(),
-            finalize.long(), fail.long(), no_node.long(),
-        ]).tolist()                                   # the step's one sync
-        tally["steps"] += 1
-        tally["opened"] += flags[3]
-        tally["evicted"] += flags[1]
-        tally["finalized"] += flags[4]
-        tally["rolled_back"] += flags[5]
-        tally["no_node"] += flags[6]
+        out = evict_step(snap, st, c, predicate_mask, victim_mask_fn,
+                         starving_fn, rank_fn, eligible_fn, eps,
+                         dyn_predicate_row_fn)
+        flags = out.flags.tolist()                    # the step's one sync
+        tally_step(tally, flags)
+        st, c = out.state, next_carry(out, flags)
         progressed = bool(flags[0])
-        plan = _Plan(active=bool(flags[1]), p=p, n=flags[2], n_t=n)
 
-    if plan.active:
+    if c.active:
         # Truncated mid-plan: apply the Discard once, so truncation can
         # never commit a half-statement.
-        prov_req_sum = _request_sum(prov, snap.task_req)
+        prov_req_sum = _request_sum(c.prov, snap.task_req)
         st = AllocState(
-            task_state=torch.where(prov, snap.task_state, st.task_state),
+            task_state=torch.where(c.prov, snap.task_state, st.task_state),
             task_node=st.task_node, node_idle=st.node_idle,
             node_future=st.node_future.index_add(
-                0, plan.n_t.view(1), -prov_req_sum[None, :]),
+                0, c.n_t.view(1), -prov_req_sum[None, :]),
             aux=st.aux,
         )
     if stats is not None:

@@ -59,24 +59,24 @@ def _podpref_present(snap) -> bool:
 
 def pod_affinity_score(snap, state):
     """f32[T, N] preferred co-location score (≙ InterPodAffinityPriority),
-    or None when no task states a soft pod-affinity term."""
+    or None when no task states a soft pod-affinity term.  The resident
+    tables come from kernel K11; the weighted [T, K] @ [K, N] products
+    stay torch.matmul in float32 (TF32 is off, kube_batch_tpu_torch.device)."""
     active = state.aux.get(PODPREF_AUX)
     if active is None:
         active = state.aux[PODPREF_AUX] = _podpref_present(snap)
     if not active:
         return None
-    from kube_batch_tpu_torch.plugins.predicates import (
-        _present,
-        resident_domain_labels,
-        resident_podlabels,
-    )
+    from kube_batch_tpu_torch.kernels.affinity import present_table
+    from kube_batch_tpu_torch.plugins.predicates import resident_tables
 
-    Hb, _ = resident_podlabels(snap, state)
+    Hb, _, Hd, _ = resident_tables(snap, state)
     raw = snap.task_podpref @ Hb.float().T
     total_w = snap.task_podpref.sum(dim=1)
     if snap.task_podpref_topo.shape[1]:
-        Hd, _ = resident_domain_labels(snap, state)
-        raw = raw + snap.task_podpref_topo @ _present(snap, Hd).T
+        present = present_table(snap.node_key_domain, snap.topo_term_key,
+                           snap.topo_term_label, Hd)
+        raw = raw + snap.task_podpref_topo @ present.T
         total_w = total_w + snap.task_podpref_topo.sum(dim=1)
     denom = torch.clamp(total_w, min=1e-9)
     return raw / denom[:, None] * MAX_SCORE

@@ -10,12 +10,15 @@ The static predicates become one bool[T, N] mask, computed by kernel K1
 exactly like the reference: actions check `Resreq ⊑ Idle` themselves.
 
 Inter-pod affinity is a DYNAMIC predicate — placements earlier in the
-same cycle change feasibility — re-evaluated every auction round in plain
-torch: segment sums of resident labels into [N, K] / [D, K] tables, then
-[T, K] @ [K, N] products (no TF32; the operands are 0/1).  When no task
-of the snapshot carries a required affinity or anti-affinity term, the
-predicate is all-true, the serialize sets are empty and nothing is
-evaluated (`affinity_active`).
+same cycle change feasibility — re-evaluated every auction round (and,
+as a row, every preemption step): kernel K11 (kernels/resident.py)
+builds the resident label tables per node and per topology domain,
+kernel K10 (kernels/affinity.py) the bool[T, N] mask or the one task's
+bool[N] row against them.  The per-task serialize sets stay torch: they
+are [T] reductions over snapshot-static columns.  When no task of the
+snapshot carries a required affinity or anti-affinity term, the
+predicate is all-true, the serialize sets are empty and neither kernel
+launches (`affinity_active`).
 
 Arguments (≙ predicates.go's `predicate.*Enable` toggles):
     predicate.NodeSelectorEnable    (default true)
@@ -33,13 +36,9 @@ from __future__ import annotations
 
 import torch
 
-from kube_batch_tpu_torch.api.snapshot import (
-    allocated_mask,
-    segment_sum,
-    status_is,
-)
-from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.plugin import Plugin, register_plugin
+from kube_batch_tpu_torch.kernels import affinity as _k10
+from kube_batch_tpu_torch.kernels import resident as _k11
 from kube_batch_tpu_torch.kernels.predicate_mask import (
     PredicateFlags,
     predicate_mask,
@@ -97,77 +96,23 @@ def affinity_active(snap, state) -> bool:
     return flag
 
 
-def _resident_mask(snap, state, include_releasing: bool):
-    placed = (state.task_node >= 0) & snap.task_mask
-    held = (
-        allocated_mask(state.task_state)
-        | status_is(state.task_state, TaskStatus.PIPELINED)
-    ) & placed
-    if include_releasing:
-        held = held | (status_is(state.task_state, TaskStatus.RELEASING) & placed)
-    return held
+def resident_tables(snap, state, include_releasing: bool = False):
+    """(Hb, Ab, Hd, Ad) of the state's residents, kernel K11
+    (kernels/resident.py): bool[N, K] label / anti-term presence per
+    node and, when the snapshot has topology-scoped terms, bool[D, K]
+    per topology domain (None otherwise)."""
+    return _k11.resident_tables(
+        snap.task_podlabels, snap.task_anti, snap.task_anti_topo,
+        state.task_node, state.task_state, snap.task_mask,
+        snap.node_key_domain, snap.topo_term_key, snap.topo_term_label,
+        snap.num_nodes, snap.domain_mask.shape[0], include_releasing,
+    )
 
 
-def resident_podlabels(snap, state, include_releasing: bool = False):
-    """(Hb, Ab): bool[N, K] label / anti-term presence among each node's
-    residents (allocated statuses or pipelined with a node; plus
-    RELEASING ones when `include_releasing`)."""
-    held = _resident_mask(snap, state, include_releasing)
-    seg = torch.where(held, state.task_node, snap.num_nodes)
-    w = held.float()[:, None]
-    Hb = segment_sum(snap.task_podlabels * w, seg, snap.num_nodes) > 0
-    Ab = segment_sum(snap.task_anti * w, seg, snap.num_nodes) > 0
-    return Hb, Ab
-
-
-def resident_domain_labels(snap, state, include_releasing: bool = False):
-    """(Hd, Ad): bool[D, K] label / anti-term-label presence among each
-    topology DOMAIN's residents (domain ids are disjoint across keys)."""
-    TK = snap.node_key_domain.shape[1]
-    D = snap.domain_mask.shape[0]
-    K = snap.task_podlabels.shape[1]
-    held = _resident_mask(snap, state, include_releasing)
-    w = held.float()[:, None]
-    node_of = torch.clamp(state.task_node, 0, snap.num_nodes - 1).long()
-    onehot_lab = torch.nn.functional.one_hot(
-        snap.topo_term_label.long(), K
-    ).float()                                                   # [K2, K]
-    Hd = torch.zeros((D, K), dtype=torch.float32, device=snap.device)
-    Ad = torch.zeros((D, K), dtype=torch.float32, device=snap.device)
-    for tk in range(TK):
-        seg = torch.where(held, snap.node_key_domain[node_of, tk], D)
-        Hd = Hd + segment_sum(snap.task_podlabels * w, seg, D)
-        anti_this_key = snap.task_anti_topo * (snap.topo_term_key == tk).float()[None, :]
-        anti_lab = anti_this_key @ onehot_lab                   # [T, K]
-        Ad = Ad + segment_sum(anti_lab * w, seg, D)
-    return Hd > 0, Ad > 0
-
-
-def _present(snap, Hd):
-    """f32[N, K2]: is term k2's label present in node n's domain."""
-    A = snap.node_key_domain[:, snap.topo_term_key.long()].long()   # [N, K2]
-    return Hd[A, snap.topo_term_label.long()[None, :]].float()
-
-
-def _topo_feasibility(snap, Hb, Hd, Ad_now, Hd_now):
-    """(aff_ok, anti_sym_ok): bool[T, N] for the topology-scoped terms."""
-    present = _present(snap, Hd)
-    need = snap.task_aff_topo.sum(dim=1, keepdim=True)
-    have = snap.task_aff_topo @ present.T                       # [T, N]
-    label = snap.topo_term_label.long()
-    exists = Hb.any(dim=0)[label]                               # bool[K2]
-    own_at_term = snap.task_podlabels[:, label]                 # [T, K2]
-    bootstrap = (
-        snap.task_aff_topo * own_at_term * (~exists).float()[None, :]
-    ).sum(dim=1, keepdim=True)
-    aff_ok = have + bootstrap >= need
-
-    anti_hit = snap.task_anti_topo @ _present(snap, Hd_now).T   # [T, N]
-    sym_hit = torch.zeros_like(anti_hit)
-    for tk in range(snap.node_key_domain.shape[1]):
-        Ad_n = Ad_now[snap.node_key_domain[:, tk].long()].float()   # [N, K]
-        sym_hit = sym_hit + snap.task_podlabels @ Ad_n.T
-    return aff_ok, (anti_hit <= 0.5) & (sym_hit <= 0.5)
+def _fields(snap):
+    return (snap.task_aff, snap.task_anti, snap.task_podlabels,
+            snap.task_aff_topo, snap.task_anti_topo, snap.topo_term_key,
+            snap.topo_term_label, snap.node_key_domain)
 
 
 def pod_affinity_predicate(snap, state, immediate: bool = False):
@@ -182,36 +127,18 @@ def pod_affinity_predicate(snap, state, immediate: bool = False):
     * symmetry: no resident's anti term matches the task's own labels.
 
     `immediate` (the Idle pass) makes the anti/symmetry side also see
-    RELEASING residents."""
+    RELEASING residents.  The tables come from kernel K11, the mask from
+    kernel K10 (kernels/affinity.py)."""
     if not affinity_active(snap, state):
         return None
-    Hb, Ab = resident_podlabels(snap, state)
+    Hb, Ab, Hd, Ad = resident_tables(snap, state)
     if immediate:
-        Hb_anti, Ab_anti = resident_podlabels(snap, state, include_releasing=True)
+        Hb_now, Ab_now, Hd_now, Ad_now = resident_tables(
+            snap, state, include_releasing=True)
     else:
-        Hb_anti, Ab_anti = Hb, Ab
-    Hf = Hb.float()
-    need = snap.task_aff.sum(dim=1, keepdim=True)
-    have = snap.task_aff @ Hf.T
-    term_exists = Hb.any(dim=0)
-    bootstrap = (
-        snap.task_aff * (snap.task_podlabels > 0).float() * (~term_exists).float()[None, :]
-    ).sum(dim=1, keepdim=True)
-    aff_ok = have + bootstrap >= need
-    anti_hit = snap.task_anti @ Hb_anti.float().T
-    sym_hit = snap.task_podlabels @ Ab_anti.float().T
-    ok = aff_ok & (anti_hit <= 0.5) & (sym_hit <= 0.5)
-    if snap.task_aff_topo.shape[1]:
-        Hd, Ad = resident_domain_labels(snap, state)
-        if immediate:
-            Hd_now, Ad_now = resident_domain_labels(
-                snap, state, include_releasing=True
-            )
-        else:
-            Hd_now, Ad_now = Hd, Ad
-        topo_aff_ok, topo_anti_ok = _topo_feasibility(snap, Hb, Hd, Ad_now, Hd_now)
-        ok = ok & topo_aff_ok & topo_anti_ok
-    return ok
+        Hb_now, Ab_now, Hd_now, Ad_now = Hb, Ab, Hd, Ad
+    return _k10.affinity_mask(*_fields(snap), Hb, Hb_now, Ab_now, Hd, Hd_now,
+                              Ad_now)
 
 
 def pod_affinity_row(snap, state, p):
@@ -220,37 +147,11 @@ def pod_affinity_row(snap, state, p):
     of the [T, N] matrix; future-oriented, since the preemptor pipelines
     onto FutureIdle after its victims leave.  None when no task carries
     an affinity term (≙ kube_batch_tpu plugins/predicates.py ·
-    pod_affinity_row)."""
+    pod_affinity_row).  Kernels K11 and K10."""
     if not affinity_active(snap, state):
         return None
-    Hb, Ab = resident_podlabels(snap, state)
-    Hf = Hb.float()
-    aff = snap.task_aff[p]                                      # f32[K]
-    own = snap.task_podlabels[p]
-    term_exists = Hb.any(dim=0)
-    need = aff.sum()
-    have = Hf @ aff                                             # f32[N]
-    bootstrap = (aff * (own > 0).float() * (~term_exists).float()).sum()
-    aff_ok = have + bootstrap >= need
-    anti_hit = Hf @ snap.task_anti[p]
-    sym_hit = Ab.float() @ own
-    ok = aff_ok & (anti_hit <= 0.5) & (sym_hit <= 0.5)
-    if snap.task_aff_topo.shape[1]:
-        Hd, Ad = resident_domain_labels(snap, state)
-        label = snap.topo_term_label.long()
-        A = snap.node_key_domain[:, snap.topo_term_key.long()].long()   # [N, K2]
-        present = Hd[A, label[None, :]].float()
-        aff2 = snap.task_aff_topo[p]
-        have2 = present @ aff2                                  # f32[N]
-        exists2 = term_exists[label]
-        boot2 = (aff2 * own[label] * (~exists2).float()).sum()
-        anti2 = present @ snap.task_anti_topo[p]
-        sym2 = torch.zeros(snap.num_nodes, dtype=torch.float32, device=snap.device)
-        for tk in range(snap.node_key_domain.shape[1]):
-            Ad_n = Ad[snap.node_key_domain[:, tk].long()].float()   # [N, K]
-            sym2 = sym2 + Ad_n @ own
-        ok = ok & (have2 + boot2 >= aff2.sum()) & (anti2 <= 0.5) & (sym2 <= 0.5)
-    return ok
+    Hb, Ab, Hd, Ad = resident_tables(snap, state)
+    return _k10.affinity_row(*_fields(snap), Hb, Ab, Hd, Ad, p)
 
 
 def anti_serialize_mask(snap, state):
@@ -272,7 +173,7 @@ def bootstrap_mask(snap, state):
     globally.  None when no affinity term exists."""
     if not affinity_active(snap, state):
         return None
-    Hb, _ = resident_podlabels(snap, state)
+    Hb, _, _, _ = resident_tables(snap, state)
     term_exists = Hb.any(dim=0)
     m = ((snap.task_aff > 0) & ~term_exists[None, :]).any(dim=1)
     if snap.task_aff_topo.shape[1]:

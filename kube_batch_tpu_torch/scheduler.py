@@ -7,12 +7,18 @@ binds → PodGroup status.  The pack is event-driven by default: the
 scheduler's IncrementalPacker patches only the rows whose pods, jobs or
 nodes changed since the last cycle (cache/incremental.py) and
 `pack_mode="full"` rebuilds every cycle instead; decisions are the same
-either way.  The commit pipeline, compile bank, guardrails, health
-ledger and mesh are later slices (ROADMAP A7–A10).
+either way.  `joint_solve` (or KB_TPU_JOINT_SOLVE=1) runs the cycle as
+the joint single solve (ops/joint.py) instead of the actions in sequence;
+a conf it cannot fold takes the sequential path, as in the reference,
+and `last_stats["cycle"]` says which one ran.  The commit pipeline,
+compile bank, guardrails, health ledger and mesh are later slices
+(ROADMAP A7–A10).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 
 import numpy as np
@@ -39,11 +45,15 @@ class Scheduler:
     """Runs scheduling cycles of one conf against one cache on `device`
     ("cuda" by default; raises when no CUDA device is present).
     `pack_mode` "incremental" (default) patches the previous cycle's
-    pack, "full" rebuilds it every cycle (the escape hatch)."""
+    pack, "full" rebuilds it every cycle (the escape hatch).
+    `joint_solve` True runs the joint single solve, False the actions in
+    sequence; None (the default) reads KB_TPU_JOINT_SOLVE ("1" = joint),
+    as the reference does."""
 
     def __init__(self, cache, conf: SchedulerConf | None = None,
                  device: str | torch.device = "cuda",
-                 pack_mode: str = "incremental") -> None:
+                 pack_mode: str = "incremental",
+                 joint_solve: bool | None = None) -> None:
         if pack_mode not in PACK_MODES:
             raise ValueError(
                 f"pack_mode must be one of {PACK_MODES}, got {pack_mode!r}"
@@ -52,7 +62,19 @@ class Scheduler:
         self.cache = cache
         self.conf = conf if conf is not None else default_conf()
         self.policy, self.plugins = build_policy(self.conf)
-        self.cycle = make_cycle_solver(self.policy, self.conf.actions)
+        if joint_solve is None:
+            joint_solve = os.environ.get("KB_TPU_JOINT_SOLVE") == "1"
+        self.cycle, self.cycle_kind = None, "sequential"
+        if joint_solve:
+            try:
+                self.cycle = make_cycle_solver(self.policy, self.conf.actions,
+                                               joint=True)
+                self.cycle_kind = "joint"
+            except ValueError as exc:
+                logging.warning("joint solve unavailable, sequential cycle: %s",
+                                exc)
+        if self.cycle is None:
+            self.cycle = make_cycle_solver(self.policy, self.conf.actions)
         self.packer = IncrementalPacker(cache, device=self.device)
         self.packer.force_full = pack_mode == "full"
         self.pack_mode = pack_mode
@@ -65,7 +87,8 @@ class Scheduler:
             for name in self.conf.actions
         }
         #: per-phase wall milliseconds, auction rounds, preemption steps
-        #: and evictions per action of the last cycle
+        #: (the joint solve: steps and ms per tier), evictions per action
+        #: and the cycle kind of the last cycle
         self.last_timings: dict[str, float] = {}
         self.last_stats: dict = {}
 
@@ -122,6 +145,7 @@ class Scheduler:
         self._idle_armed = True
         # The pack drained the journal; idle-refresh marks restart.
         self._idle_refreshed_version = 0
+        stats["cycle"] = self.cycle_kind
         stats["pack_mode"] = self.packer.last_mode
         stats["pack_h2d_bytes"] = self.packer.last_h2d_bytes
         self.last_stats = stats

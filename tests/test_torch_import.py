@@ -92,6 +92,29 @@ def test_cli_without_device_needs_cuda(monkeypatch):
     assert main(["--workload", "1", "--cycles", "1", "--device", "cpu"]) == 0
 
 
+def test_cli_joint_solve_and_affinity_workload(capsys, monkeypatch):
+    """`--joint-solve on` runs the joint cycle and says so; the affinity
+    workload runs (here cut to 16 nodes and 120 pods) on the CPU."""
+    import functools
+    import json
+
+    from kube_batch_tpu_torch.__main__ import main
+    from kube_batch_tpu_torch.models import workloads
+
+    assert main(["--workload", "1", "--cycles", "1", "--device", "cpu",
+                 "--joint-solve", "on"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["cycle_kind"] == "joint" and line["bound"] == 8
+    assert [t["tier"] for t in line["joint_tiers"]] == [
+        "allocate:idle", "allocate:future", "backfill"]
+    monkeypatch.setattr(workloads, "config5_affinity", functools.partial(
+        workloads.config5_affinity, n_nodes=16, target_pods=120))
+    assert main(["--workload", "affinity", "--cycles", "1", "--device", "cpu",
+                 "--joint-solve", "off"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["cycle_kind"] == "sequential" and line["bound"] > 0
+
+
 def test_kernel_build_needs_nvcc(monkeypatch):
     """Without nvcc the CUDA kernels refuse to build (no silent fallback)."""
     from kube_batch_tpu_torch.kernels import build
@@ -145,10 +168,16 @@ def test_rank_and_row_patch_wrappers_refuse_other_devices():
     "kube_batch_tpu_torch.cache.incremental",
     "kube_batch_tpu_torch.kernels.lex_rank",
     "kube_batch_tpu_torch.kernels.row_patch",
+    "kube_batch_tpu_torch.kernels.affinity",
+    "kube_batch_tpu_torch.kernels.resident",
+    "kube_batch_tpu_torch.kernels.joint_tier",
+    "kube_batch_tpu_torch.ops.joint",
+    "kube_batch_tpu_torch.actions.fused",
 ])
 def test_host_cycle_modules_import_alone(module):
-    """The modules this slice adds import with JAX and the reference
-    package blocked, without nvcc, triton or a card."""
+    """The modules the host-cycle, affinity and joint-solve slices add
+    import with JAX and the reference package blocked, without nvcc,
+    triton or a card."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
     code = ('import sys\n'

@@ -24,6 +24,7 @@ from kube_batch_tpu.models import workloads as jax_workloads
 from kube_batch_tpu.sim import simulator as jax_sim
 from kube_batch_tpu_torch.cache.packer import pack_snapshot_loop
 from kube_batch_tpu_torch.models import workloads as torch_workloads
+from kube_batch_tpu_torch.models.workloads import config5_affinity_world
 from kube_batch_tpu_torch.sim import simulator as torch_sim
 
 PACKAGES = {
@@ -145,6 +146,10 @@ WORLDS = {
         seed=0, n_nodes=32, target_pods=300
     ),
     "affinity": _affinity_world,
+    # the affinity path's world at 48 nodes in racks of 8, about 400 pods
+    "config5_affinity_small": lambda cl, wl, s: config5_affinity_world(
+        cl, wl, s, n_nodes=48, target_pods=400, rack_size=8
+    ),
     "volume": _volume_world,
     "quantum": _quantum_world,
     "oracle": _oracle_world,
