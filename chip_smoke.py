@@ -9,6 +9,12 @@ and `triton`.  Phases (any failure exits non-zero):
 1. card and build — the card's name and power limit, torch/CUDA
    versions, and the build of every CUDA kernel from this checkout's
    sources (one nvcc per source, all at once: K1–K3 and K5–K12), timed;
+   then K7 and K6 on their edge inputs (K7: one segment, mostly empty
+   segments, every row masked out, one segment holding every row,
+   non-integer values — two runs bitwise equal, the plain version equal,
+   within K7_REL_TOL on the non-integer values; K6's preempt_open:
+   nothing eligible, a fit only at the last cell, a fit at the first
+   cell, no ready node, and T = 65,536 with N = 8,192, timed);
 2. slice parity — config 3, config 4 (oversubscribed), a mid-size
    config 5 (500 nodes, 5,000 pods) and a feature world that turns on
    every kernel option of the default conf (affinity terms, preferences,
@@ -77,7 +83,7 @@ and `triton`.  Phases (any failure exits non-zero):
    mask and failure tallies of that cycle, and the auction round whose
    resolve rejected the most proposals), K7 on every call of the main
    path, K5–K7 on every input the preempt path gave them in cycles 2 and
-   3 (segment sums sampled), timed on cycle 2's; K8 on every 10th call
+   3 (segment sums and counts sampled), timed on cycle 2's; K8 on every 10th call
    of the main path and every 25th of the preempt path, timed at both
    paths' widths (T = 65,536 and 8,192); K9 on every call of the host
    cycle, timed on the largest; K11 and K10 on every 8th / 4th call of
@@ -143,7 +149,9 @@ KERNELS = {
     "preempt_continue": ("cuda", "kube_batch_tpu_torch/kernels/csrc/preempt_scan.cu",
                          "kube_batch_tpu/ops/preemption.py:249"),
     "segment_sum": ("cuda", "kube_batch_tpu_torch/kernels/csrc/segment_sum.cu",
-                    "kube_batch_tpu/api/snapshot.py:203"),
+                    "kube_batch_tpu/api/snapshot.py:212"),
+    "segment_count": ("cuda", "kube_batch_tpu_torch/kernels/csrc/segment_sum.cu",
+                      "kube_batch_tpu/api/snapshot.py:203"),
     "waterfill": ("cuda", "kube_batch_tpu_torch/kernels/csrc/segment_sum.cu",
                   "kube_batch_tpu/ops/waterfill.py:24"),
     "lex_push": ("cuda", "kube_batch_tpu_torch/kernels/csrc/lex_rank.cu",
@@ -164,7 +172,7 @@ KERNELS = {
                      "kube_batch_tpu/ops/joint.py:200"),
 }
 PREEMPT_KERNELS = ("victim_prefix", "preempt_open", "preempt_continue",
-                   "segment_sum", "waterfill")
+                   "segment_sum", "segment_count", "waterfill")
 EVICTING_ONLY = ("victim_prefix", "preempt_open", "preempt_continue")
 RANK_KERNELS = ("lex_push", "sort_by_segment", "vtime")
 # launched where a steady cycle row-patches; required on the host cycle
@@ -191,9 +199,9 @@ PREEMPT_WAVE = (
 )
 RESEARCH_WEIGHT = 4.0
 WAVE_PREFIXES = tuple(w[0] for w in PREEMPT_WAVE)
-# the recorder keeps every 25th segment_sum and K8 call of the preempt
-# path, and every 10th K8 call of the main path
-PREEMPT_EVERY = {name: 25 for name in ("segment_sum",) + RANK_KERNELS}
+# the recorder keeps every 25th segment sum or count and K8 call of the
+# preempt path, and every 10th K8 call of the main path
+PREEMPT_EVERY = {name: 25 for name in ("segment_sum", "segment_count") + RANK_KERNELS}
 MAIN_EVERY = {name: 10 for name in RANK_KERNELS}
 # the host-cycle phase: config 5 full, 4 cycles, churn between them
 HOST_CYCLES = 4
@@ -293,6 +301,158 @@ def phase_card_and_build():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"ptxas[{name}]: {line.strip()}")
     log(json.dumps({"phase": "build", "nvcc_parallel_s": round(build_s, 3)}))
+
+
+# ---------------------------------------------------------------------------
+# edge inputs of K7 and K6
+# ---------------------------------------------------------------------------
+
+# K7 float sums of non-integer values may differ from the plain version
+# (a float64 index_add_, whose order on the card is that of its atomics)
+# by one float32 unit in the last place: both sums are float64 (relative
+# error under T·2⁻⁵³ ≈ 2⁻³⁷ at T = 65,536) rounded once to float32, so
+# they round to the same float32 or to one of its two neighbours.
+K7_REL_TOL = 2.0 ** -23
+
+
+def k7_edge_inputs(device, T: int = 8192, J: int = 512, R: int = 4, seed: int = 0):
+    """name → (values f32[T, R], seg, S, SegmentIndex, integer-valued):
+    S = 1; S = J with most segments empty; every row masked out; one
+    segment holding every row; non-integer values."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.api.snapshot import build_segment_index
+
+    rng = np.random.default_rng(seed)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    ints = on((rng.integers(0, 1 << 12, (T, R)) * 256).astype(np.float32))
+    frac = on((rng.random((T, R)) * 1e6).astype(np.float32))
+    keep = on(rng.random(T) < 0.7)
+    jobs = on(rng.integers(-1, J, T).astype(np.int32))          # -1: padding
+    sparse = on((rng.integers(0, J // 16, T) * 16).astype(np.int32))
+    cases = {
+        "one_segment": (ints, on(np.zeros(T, np.int32)), 1, True),
+        "empty_segments": (ints, sparse, J, True),
+        "all_masked": (ints, jobs, J, True),
+        "one_segment_holds_all": (ints, on(np.full(T, 7, np.int32)), J, True),
+        "non_integer": (frac, jobs, J, False),
+    }
+    out = {}
+    for name, (values, base, S, exact) in cases.items():
+        idx = build_segment_index(base, S)
+        mask = keep & (base >= 0) & (name != "all_masked")
+        seg = torch.where(mask, idx.base, S)
+        out[name] = (values, seg, S, idx, exact)
+    return out
+
+
+def k6_edge_inputs(device, seed: int = 0, full=(65536, 8192)):
+    """name → preempt_open's ten arguments and the outputs each must give
+    (None: whatever the plain version gives): nothing eligible; a fit only
+    at the last eligible row and the last ready node; a fit at the first
+    cell; no ready node; `full` = (T, N) = (65,536, 8,192) and no fit."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def world(T, N, R=4, p_elig=0.3):
+        rank = rng.permutation(T).astype(np.int32)
+        elig = rng.random(T) < p_elig
+        snap_state = rng.integers(0, 8, T).astype(np.int32)
+        live_state = rng.integers(0, 8, T).astype(np.int32)
+        task_mask = rng.random(T) < 0.9
+        prov = rng.random(T) < 0.2
+        req = rng.integers(1000, 8000, (T, R)).astype(np.float32)
+        future = rng.integers(-4, 1, (N, R)).astype(np.float32) * 1000   # no fit
+        node_ok = rng.random(N) < 0.9
+        eps = np.full(R, 1e-3, np.float32)
+        return [rank, elig, snap_state, live_state, task_mask, prov, req, future,
+                node_ok, eps]
+
+    cases = {}
+    a = world(8192, 512)
+    a[1][:] = False
+    cases["nothing_eligible"] = (a, [0, 0, None, 0])
+    a = world(8192, 512)
+    last_t, last_n = int(np.flatnonzero(a[1])[-1]), int(np.flatnonzero(a[8])[-1])
+    a[6][last_t] = 1.0
+    a[7][last_n] = 1.0
+    cases["fit_last_cell"] = (a, [None, 1, None, 1])
+    a = world(8192, 512)
+    first_t, first_n = int(np.flatnonzero(a[1])[0]), int(np.flatnonzero(a[8])[0])
+    a[7][first_n] = a[6][first_t]
+    cases["fit_first_cell"] = (a, [None, 1, None, 1])
+    a = world(8192, 512)
+    a[8][:] = False
+    a[7][:] = 1e9
+    cases["no_ready_node"] = (a, [None, 1, None, 0])
+    cases["full_width_no_fit"] = (world(*full, p_elig=0.25), [None, 1, None, 0])
+    return {name: ([on(x) for x in args], want) for name, (args, want) in cases.items()}
+
+
+def phase_edge_inputs(device) -> dict:
+    """K7 and K6 on their edge inputs on the card: two runs bitwise
+    equal, the plain version equal (K7 on non-integer values: within
+    K7_REL_TOL), K6's outputs as each case requires.  Times the
+    full-width K6 case.  Returns {name: max_abs_err} for the kernels
+    line's K7 and K6 rows."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+
+    errs = {"segment_sum": 0.0, "segment_count": 0.0, "preempt_open": 0.0}
+    for name, (values, seg, S, idx, exact) in k7_edge_inputs(device).items():
+        args = (values, seg, S, idx.order, idx.offsets)
+        a, b = k7.segment_sum(*args), k7.segment_sum(*args)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"segment_sum edge {name}: two runs differ")
+        want = k7.segment_sum_plain(values, seg, S)
+        if exact:
+            errs["segment_sum"] = max(errs["segment_sum"],
+                                      require_equal(f"segment_sum edge {name}", [(a, want)]))
+            rel = 0.0
+        else:
+            gap = (a.double() - want.double()).abs()
+            rel = float((gap / want.double().abs().clamp(min=1e-30)).max())
+            if not bool((gap <= K7_REL_TOL * want.double().abs()).all()):
+                fail(f"segment_sum edge {name}: relative error {rel} above {K7_REL_TOL}")
+        kept = seg < S
+        counts = [k7.segment_count(kept, seg, S), k7.segment_count(kept.int(), seg, S)]
+        errs["segment_count"] = max(errs["segment_count"], require_equal(
+            f"segment_count edge {name}",
+            [(c, k7.segment_sum_plain(kept, seg, S)) for c in counts]))
+        log(json.dumps({"phase": "k7-edge", "case": name, "rows": seg.numel(),
+                        "segments": S, "rows_kept": int(kept.sum()),
+                        "nonempty_segments": int(torch.unique(seg[kept]).numel()),
+                        "bitwise_repeatable": True, "exact": exact,
+                        "max_rel_err": rel}))
+    for name, (args, want) in k6_edge_inputs(device).items():
+        a, b = k6.preempt_open(*args), k6.preempt_open(*args)
+        plain = k6.preempt_open_plain(*args)
+        errs["preempt_open"] = max(errs["preempt_open"], require_equal(
+            f"preempt_open edge {name}", [(a, plain), (b, plain)]))
+        got = a.tolist()
+        if any(w is not None and w != g for w, g in zip(want, got)):
+            fail(f"preempt_open edge {name}: {got}, want {want}")
+        line = {"phase": "k6-edge", "case": name, "tasks": args[0].numel(),
+                "nodes": args[7].shape[0], "eligible": int(args[1].sum()),
+                "ready_nodes": int(args[8].sum()), "out": got}
+        if name == "full_width_no_fit":
+            line.update(ms=time_ms(lambda: k6.preempt_open(*args)),
+                        plain_ms=time_ms(lambda: k6.preempt_open_plain(*args),
+                                         warmup=1, runs=3),
+                        bound_ms=preempt_open_bound(args)[0])
+        log(json.dumps(line))
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +665,7 @@ _MUTATED = {
     "preempt_open": (),
     "preempt_continue": (),
     "segment_sum": (),
+    "segment_count": (),
     "waterfill": (),
     "lex_push": (0, 1),
     "sort_by_segment": (0, 1),
@@ -576,6 +737,7 @@ class Recorder:
             (preempt_scan, "preempt_open", "preempt_open"),
             (preempt_scan, "preempt_continue", "preempt_continue"),
             (segment_sum, "segment_sum", "segment_sum"),
+            (segment_sum, "segment_count", "segment_count"),
             (segment_sum, "waterfill", "waterfill"),
             (lex_rank, "lex_push", "lex_push"),
             (lex_rank, "sort_by_segment", "sort_by_segment"),
@@ -683,10 +845,10 @@ def check_call(name: str, args):
         out = k6.preempt_continue(*args)
         err = require_equal(name, [(out, k6.preempt_continue_plain(*args))])
         return err, {"victim_found": int(out[1]), "no_victim_left": 1 - int(out[1])}
-    if name == "segment_sum":
-        values, seg, num = args
-        out = k7.segment_sum(*args)
-        err = require_equal(name, [(out, k7.segment_sum_plain(*args))])
+    if name in ("segment_sum", "segment_count"):
+        values, seg, num = args[:3]
+        out = getattr(k7, name)(*args)
+        err = require_equal(name, [(out, k7.segment_sum_plain(values, seg, num))])
         return err, {"nonempty_segments": int(torch.unique(seg[seg < num]).numel())}
     if name == "waterfill":
         out = k7.waterfill(*args)
@@ -807,27 +969,54 @@ def check_all(rec: Recorder, names=None) -> dict:
 
 
 def segment_sum_timing(args):
-    """(ms, plain_ms, library_ms, bound) of K7's segment_sum on `args`;
-    the library call is one float64 `index_add_` of the same rows."""
+    """(ms, plain_ms, library_ms, bound) of K7's segment_sum on `args`
+    (values, seg, S, order, offsets); the library call is one float64
+    `index_add_` of the same rows.  The bound counts what the function
+    needs on this call's data: the ids of every row, the values of the
+    rows kept (seg < S) and the sums; the segment index is this design's,
+    not the function's."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+
+    values, seg, num = args[:3]
+    C = values[0].numel()
+    kept = int((seg < num).sum())
+    idx, vals64 = seg.long(), values.double()
+    acc64 = torch.zeros((num + 1,) + tuple(values.shape[1:]), dtype=torch.float64,
+                        device=values.device)
+    return (time_ms(lambda: k7.segment_sum(*args)),
+            time_ms(lambda: k7.segment_sum_plain(values, seg, num)),
+            time_ms(lambda: acc64.index_add_(0, idx, vals64)),
+            bound(seg.numel() * seg.element_size() + kept * C * 4 + num * C * 4,
+                  kept * C, F64_OPS_PER_S))
+
+
+def segment_count_timing(args):
+    """(ms, plain_ms, library_ms, bound) of K7's segment_count on `args`;
+    the library call is one int32 `index_add_` of the same rows."""
     import torch
 
     from kube_batch_tpu_torch.kernels import segment_sum as k7
 
     values, seg, num = args
     C = values[0].numel()
-    idx, vals64 = seg.long(), values.double()
-    acc64 = torch.zeros((num + 1,) + tuple(values.shape[1:]), dtype=torch.float64,
+    idx, vals32 = seg.long(), values.int()
+    acc32 = torch.zeros((num + 1,) + tuple(values.shape[1:]), dtype=torch.int32,
                         device=values.device)
-    return (time_ms(lambda: k7.segment_sum(*args)),
+    return (time_ms(lambda: k7.segment_count(*args)),
             time_ms(lambda: k7.segment_sum_plain(*args)),
-            time_ms(lambda: acc64.index_add_(0, idx, vals64)),
-            bound(seg.numel() * seg.element_size() + values.numel() * 4 + num * C * 4,
-                  values.numel(), F64_OPS_PER_S))
+            time_ms(lambda: acc32.index_add_(0, idx, vals32)),
+            bound(seg.numel() * (seg.element_size() + values.element_size() * C)
+                  + num * C * 4, values.numel()))
 
 
 def widest_float_sum(calls):
-    return max((a for a in calls if a[0].is_floating_point()),
-               key=lambda a: a[0].numel())
+    return max(calls, key=lambda a: a[0].numel())
+
+
+def widest_count(calls):
+    return max(calls, key=lambda a: a[1].numel())
 
 
 # ---------------------------------------------------------------------------
@@ -1429,7 +1618,8 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
                       ("preempt_continue", "victim_found"),
                       ("preempt_continue", "no_victim_left"),
                       ("preempt_continue", "steps_rolled_back"),
-                      ("segment_sum", "nonempty_segments")):
+                      ("segment_sum", "nonempty_segments"),
+                      ("segment_count", "nonempty_segments")):
         if checks[name].get(key, 0) <= 0:
             fail(f"preempt path: {name} never met a case with {key} > 0")
 
@@ -1464,19 +1654,12 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
                     "victims": int((s_node < N).sum()), "rows_walked": walked}))
 
     # K6: the opening step with the most eligible tasks and no direct fit
-    opens = cycle2("preempt_open")
-    no_fit = [a for a in opens if int(k6.preempt_open(*a)[3]) == 0] or opens
-    args = max(no_fit, key=lambda a: int(a[1].sum()))
-    rank, elig, _ss, _ls, _tm, _prov, req, future, node_ok, _eps = args
-    T, (N, R) = rank.shape[0], future.shape
-    E, M = int(elig.sum()), int(node_ok.sum())
-    direct = int(k6.preempt_open(*args)[3])
+    args = timing_inputs(rec)["preempt_open"]
     record("preempt_open", time_ms(lambda: k6.preempt_open(*args)),
-           time_ms(lambda: k6.preempt_open_plain(*args)),
-           bound(T * 15 + E * R * 4 + N * R * 4 + N + R * 4 + 16,
-                 0 if direct else E * M * 2 * R))
+           time_ms(lambda: k6.preempt_open_plain(*args)), preempt_open_bound(args))
     log(json.dumps({"phase": "kernel-note", "name": "preempt_open",
-                    "eligible": E, "ready_nodes": M, "direct_fit": direct}))
+                    "eligible": int(args[1].sum()), "ready_nodes": int(args[8].sum()),
+                    "direct_fit": int(k6.preempt_open(*args)[3])}))
     # ... and cycle 2's continuing step whose node holds the most victims
     args = max(cycle2("preempt_continue"),
                key=lambda a: int((a[1] & (a[2] == a[3])).sum()))
@@ -1488,11 +1671,17 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
                     "candidate_victims": int(victims.sum()),
                     "on_node": int((victims & (task_node == n)).sum())}))
 
-    # K7: the widest recorded float sum
-    args = widest_float_sum(cycle2("segment_sum"))
+    # K7: the widest recorded float sum and count
+    args = timing_inputs(rec)["segment_sum"]
     ms, plain_ms, library_ms, b = segment_sum_timing(args)
     record("segment_sum", ms, plain_ms, b, library_ms)
     log(json.dumps({"phase": "kernel-note", "name": "segment_sum",
+                    "rows": args[1].numel(), "columns": args[0][0].numel(),
+                    "segments": args[2], "rows_kept": int((args[1] < args[2]).sum())}))
+    args = widest_count(cycle2("segment_count"))
+    ms, plain_ms, library_ms, b = segment_count_timing(args)
+    record("segment_count", ms, plain_ms, b, library_ms)
+    log(json.dumps({"phase": "kernel-note", "name": "segment_count",
                     "rows": args[1].numel(), "columns": args[0][0].numel(),
                     "segments": args[2]}))
 
@@ -1503,6 +1692,36 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
            time_ms(lambda: k7.waterfill_plain(*args)),
            bound(Q * 4 + 2 * Q * R * 4 + R * 4 + Q, (Q + 1) * Q * R * 8))
     return out
+
+
+def timing_inputs(rec: Recorder) -> dict:
+    """The preempt path's timed inputs, chosen from the recorded calls of
+    its cycle 2 (the first recorded cycle): K6's opening step with the
+    most eligible tasks and no direct fit, and K7's widest float sum."""
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
+
+    first = min(c for c, _r, _a in rec.calls["predicate_mask"])
+    opens = [a for c, _r, a in rec.calls["preempt_open"] if c == first]
+    no_fit = [a for a in opens if int(k6.preempt_open(*a)[3]) == 0] or opens
+    return {
+        "preempt_open": max(no_fit, key=lambda a: int(a[1].sum())),
+        "segment_sum": widest_float_sum(
+            [a for c, _r, a in rec.calls["segment_sum"] if c == first]),
+    }
+
+
+def preempt_open_bound(args):
+    """K6 preempt_open's least time on these inputs: its [T] and [N]
+    inputs and the eligible rows' requests read once; with no direct fit,
+    2·R compares for every eligible row × ready node."""
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
+
+    rank, elig, _ss, _ls, _tm, _prov, req, future, node_ok, _eps = args
+    T, (N, R) = rank.shape[0], future.shape
+    E, M = int(elig.sum()), int(node_ok.sum())
+    direct = int(k6.preempt_open_plain(*args)[3])
+    return bound(T * 15 + E * R * 4 + N * R * 4 + N + R * 4 + 16,
+                 0 if direct else E * M * 2 * R)
 
 
 # ---------------------------------------------------------------------------
@@ -1683,21 +1902,28 @@ def phase_kernels(rec: Recorder):
     # K7 on every call of both main-path cycles (the allocate path's job,
     # queue and namespace sums of drf, proportion, gang and predicates, and
     # the water-fill), and timed on cycle 2's widest float sum
-    k7_checks = check_all(rec, ("segment_sum", "waterfill"))
+    k7_checks = check_all(rec, ("segment_sum", "segment_count", "waterfill"))
     log(json.dumps({"phase": "main-path-k7", "equal_to_plain": True, **k7_checks}))
-    if k7_checks["segment_sum"].get("nonempty_segments", 0) <= 0:
-        fail("main path: segment_sum never met a non-empty segment")
+    for name in ("segment_sum", "segment_count"):
+        if k7_checks[name].get("nonempty_segments", 0) <= 0:
+            fail(f"main path: {name} never met a non-empty segment")
     if k7_checks["waterfill"]["calls"] <= 0:
         fail("main path: the water-fill was never called")
-    last = max(c for c, _r, _a in rec.calls["predicate_mask"])
-    args = widest_float_sum([a for c, _r, a in rec.calls["segment_sum"] if c == last])
+    args = main_timing_input(rec)
     ms, plain_ms, library_ms, b = segment_sum_timing(args)
     log(json.dumps({"phase": "kernel-main-path", "name": "segment_sum",
                     "rows": args[1].numel(), "columns": args[0][0].numel(),
-                    "segments": args[2], "ms": round(ms, 4),
+                    "segments": args[2], "rows_kept": int((args[1] < args[2]).sum()),
+                    "ms": round(ms, 4),
                     "plain_ms": round(plain_ms, 4), "library_ms": round(library_ms, 4),
-                    "bound_ms": round(b[0], 5), "bound_by": b[1]}))
+                    "bound_ms": round(b[0], 6), "bound_by": b[1]}))
     return out
+
+
+def main_timing_input(rec: Recorder):
+    """The main path's widest float sum of its last cycle (65,536 rows)."""
+    last = max(c for c, _r, _a in rec.calls["predicate_mask"])
+    return widest_float_sum([a for c, _r, a in rec.calls["segment_sum"] if c == last])
 
 
 # ---------------------------------------------------------------------------
@@ -1706,9 +1932,10 @@ def phase_kernels(rec: Recorder):
 
 def _rank_timings(rec: Recorder, label: str) -> dict:
     """Time K8's three entry points on the widest recorded call of each
-    (rows T), beside the plain version, the library call (a stable
-    torch.argsort of the gathered key; a stable torch.sort of the int64
-    segment key; none for vtime) and the bound."""
+    (rows T), beside the plain version, the library form (for lex_push the
+    gather, a stable torch.argsort, the permutation and the dense-rank
+    scatter, the whole function; a stable torch.sort of the int64 segment
+    key; none for vtime) and the bound."""
     import torch
 
     from kube_batch_tpu_torch.kernels import lex_rank as k8
@@ -1720,11 +1947,20 @@ def _rank_timings(rec: Recorder, label: str) -> dict:
 
     perm, key = widest("lex_push")
     T = perm.numel()
-    gathered = key[perm]
+    positions = torch.arange(T, dtype=torch.int32, device=perm.device)
+    dense = torch.empty(T, dtype=torch.int32, device=perm.device)
+
+    def library():
+        # the same function in library calls: the gather, a stable
+        # argsort, the permutation and the dense rank
+        order = perm[torch.argsort(key[perm], stable=True)]
+        dense[order] = positions
+        return order, dense
+
     out["lex_push"] = (
         time_ms(lambda: k8.lex_push(perm, key)),
         time_ms(lambda: k8.lex_push_plain(perm, key)),
-        time_ms(lambda: torch.argsort(gathered, stable=True)),
+        time_ms(library),
         bound(T * (key.element_size() + 8 + 8 + 4), T * 4 * 4),
     )
     seg, rank, S = widest("sort_by_segment")
@@ -1784,8 +2020,9 @@ def phase_rank_kernels(main_rec: Recorder, preempt_rec: Recorder) -> dict:
 def phase_row_patch(rec: Recorder) -> dict:
     """K9 on every call of the host cycle against its plain version;
     timed on the call with the most rows, beside its plain version on the
-    card, the library form (one index_copy_ per field, indices and values
-    already on the card) and the bound."""
+    card, the library form (per field, its indices and values copied from
+    the same host numpy arrays to the card, then one index_copy_) and the
+    bound."""
     import numpy as np
     import torch
 
@@ -1799,12 +2036,11 @@ def phase_row_patch(rec: Recorder) -> dict:
                            key=lambda a: sum(len(r) for r in a[1]))
     bufs = [b.clone() for b in bufs]
     dev = bufs[0].device
-    idx = [torch.from_numpy(r.astype(np.int64)).to(dev) for r in rows]
-    val = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in vals]
 
     def library():
-        for b, i, v in zip(bufs, idx, val):
-            b.index_copy_(0, i, v)
+        for b, r, v in zip(bufs, rows, vals):
+            b.index_copy_(0, torch.from_numpy(r.astype(np.int64)).to(dev),
+                          torch.from_numpy(np.ascontiguousarray(v)).to(dev))
 
     payload = sum(r.nbytes + v.nbytes for r, v in zip(rows, vals))
     b = bound(payload + sum(v.nbytes for v in vals), 0)
@@ -2012,8 +2248,9 @@ def phase_joint_path(device, seq_cycles, n_cycles: int = JOINT_CYCLES):
             preempt_wave(sim)
     counts = kernels.counts()
     log(json.dumps({"phase": "joint-path-launches", **counts}))
-    if counts["tier_control"] <= 0:
-        fail("kernel tier_control was not launched on the joint path")
+    for name in ("tier_control", "preempt_open", "segment_sum", "segment_count"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the joint path")
     if cycles[0]["evicted"]:
         fail("joint path: cycle 1 evicted pods from the empty cluster")
     if not cycles[1]["evicted"]:
@@ -2143,6 +2380,23 @@ def _tier_control_bytes(args, done: bool) -> int:
     return n
 
 
+def redesign_order(kernels_line) -> list:
+    """The kernels in the order a redesign should take them: first those
+    slower than their library form, largest factor first; then the rest
+    by launches × (ms − bound_ms), the card time above the bound over
+    the path's launches."""
+    slower = sorted((k for k in kernels_line
+                     if k["library_ms"] is not None and k["ms"] > k["library_ms"]),
+                    key=lambda k: -k["ms"] / k["library_ms"])
+    rest = sorted((k for k in kernels_line if k not in slower),
+                  key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
+    return ([{"name": k["name"], "library_factor": round(k["ms"] / k["library_ms"], 3)}
+             for k in slower]
+            + [{"name": k["name"],
+                "excess_ms": round(k["launches"] * (k["ms"] - k["bound_ms"]), 1)}
+               for k in rest])
+
+
 def main() -> int:
     import torch
 
@@ -2169,6 +2423,7 @@ def main() -> int:
         cpu_parity = {w: ppool.apply_async(parity_cpu, (ROOT, w))
                       for w in PARITY_WORLDS}
         phase_card_and_build()
+        edge_errs = phase_edge_inputs(device)
         row_counts, row_rec = phase_parity(cpu_parity)
         ppool.close()
         ppool.join()
@@ -2191,6 +2446,8 @@ def main() -> int:
         pool.terminate()
         ppool.terminate()
 
+    for name, err in edge_errs.items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     kernels_line = []
     for name, (route, source, replaces) in KERNELS.items():
         r = records[name]
@@ -2207,6 +2464,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+    log(json.dumps({"phase": "redesign-order", "kernels": redesign_order(kernels_line)}))
     log(json.dumps({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

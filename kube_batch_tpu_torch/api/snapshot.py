@@ -38,6 +38,7 @@ from kube_batch_tpu_torch.api.types import (
     VALID_STATUSES,
     TaskStatus,
 )
+from kube_batch_tpu_torch.kernels import lex_rank as _k8
 from kube_batch_tpu_torch.kernels import segment_sum as _k7
 
 # Sentinel index for "no node / no job / no queue".
@@ -140,6 +141,20 @@ class SnapshotTensors:
     def num_resources(self) -> int:
         return self.task_req.shape[1]
 
+    def segment_index(self, kind: str) -> "SegmentIndex":
+        """The segment index of one base id vector ("job", "queue" or
+        "ns", see `SEGMENT_BASES`), built at its first use after a pack
+        and kept beside the snapshot.  The incremental packer carries it
+        to the next pack's snapshot only when that pack wrote none of its
+        base's fields (`carry_segment_indexes`); nothing else writes them
+        between packs."""
+        kept = self.__dict__.setdefault("_segment_index", {})
+        idx = kept.get(kind)
+        if idx is None:
+            base, S = segment_base(self, kind)
+            idx = kept[kind] = build_segment_index(base, S)
+        return idx
+
 
 FIELDS = tuple(f.name for f in dataclasses.fields(SnapshotTensors))
 
@@ -171,15 +186,92 @@ def to_device(arr, device: torch.device | str, name: str = "") -> torch.Tensor:
 # segment reductions (float64 accumulation, see the precision rule above)
 # ---------------------------------------------------------------------------
 
+#: base id vector of each segment index → the snapshot fields it reads
+SEGMENT_BASES = {
+    "job": ("task_job",),
+    "queue": ("task_job", "job_queue"),
+    "ns": ("task_ns",),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentIndex:
+    """The rows of a snapshot in the stable order of one base id vector:
+    segment s holds rows order[offsets[s] : offsets[s + 1]], ascending.
+    Rows whose base lies outside [0, num_segments) sort after every
+    segment and belong to none.  Every segment sum over this base passes
+    seg = where(mask, base, num_segments), so kernel K7 walks a segment's
+    rows here and skips those masked out, with no sort per call."""
+
+    base: torch.Tensor      # i32[T]
+    order: torch.Tensor     # i32[T]
+    offsets: torch.Tensor   # i32[num_segments + 1]
+    num_segments: int
+
+
+def task_queue_of(snap: SnapshotTensors) -> torch.Tensor:
+    """i32[T]: each task's queue index via its job (padding → 0, masked)."""
+    job = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
+    return torch.clamp(snap.job_queue[job], 0, snap.num_queues - 1)
+
+
+def segment_base(snap: SnapshotTensors, kind: str) -> tuple[torch.Tensor, int]:
+    """(base i32[T], number of segments) of one segment index kind."""
+    if kind == "job":
+        return snap.task_job, snap.num_jobs
+    if kind == "queue":
+        return task_queue_of(snap), snap.num_queues
+    if kind == "ns":
+        # clamped into range: the namespace sums mask out tasks without one
+        S = snap.ns_weight.shape[0]
+        return torch.clamp(snap.task_ns, 0, S - 1), S
+    raise KeyError(f"no segment index {kind!r} (one of {sorted(SEGMENT_BASES)})")
+
+
+def build_segment_index(base: torch.Tensor, num_segments: int) -> SegmentIndex:
+    """The stable sort of the rows by `base`: K8's `sort_by_segment` on
+    the card, torch.sort(stable=True) on the CPU; offsets by searchsorted."""
+    T, dev = base.shape[0], base.device
+    key = torch.where((base >= 0) & (base < num_segments), base,
+                      num_segments).to(torch.int32)
+    if dev.type == "cuda":
+        perm, s_seg = _k8.sort_by_segment(
+            key, torch.arange(T, dtype=torch.int32, device=dev), num_segments)
+    else:
+        s_seg, perm = torch.sort(key, stable=True)
+    bounds = torch.arange(num_segments + 1, dtype=s_seg.dtype, device=dev)
+    offsets = torch.searchsorted(s_seg, bounds, out_int32=True)
+    return SegmentIndex(base.to(torch.int32), perm.to(torch.int32), offsets,
+                        num_segments)
+
+
+def carry_segment_indexes(prev: SnapshotTensors, new: SnapshotTensors,
+                          written) -> None:
+    """Give `new` (the next pack's snapshot) the segment indexes of
+    `prev` whose base fields are not among the fields this pack wrote."""
+    kept = prev.__dict__.get("_segment_index", {})
+    written = set(written)
+    carried = {kind: idx for kind, idx in kept.items()
+               if not written.intersection(SEGMENT_BASES[kind])}
+    new.__dict__["_segment_index"] = carried
+
+
 def segment_sum(
-    values: torch.Tensor, seg: torch.Tensor, num_segments: int
+    values: torch.Tensor, seg: torch.Tensor, num_segments: int,
+    index: SegmentIndex | None = None,
 ) -> torch.Tensor:
     """Sum rows of `values` into `num_segments` segments; rows whose
     `seg` equals `num_segments` are dropped (the padding sentinel).
     Floats accumulate in float64 and return float32; integers and bools
-    return int32 counts.  Kernel K7 on the card, its plain version on the
-    CPU (kernels/segment_sum.py)."""
-    return _k7.segment_sum(values, seg, num_segments)
+    return int32 counts.  Kernel K7 on the card (float sums need the
+    segment `index` of the base `seg` was taken from: seg is, row by row,
+    index.base or num_segments), its plain version on the CPU
+    (kernels/segment_sum.py)."""
+    if not values.is_floating_point():
+        return _k7.segment_count(values, seg, num_segments)
+    if index is None:
+        return _k7.segment_sum(values, seg, num_segments)
+    return _k7.segment_sum(values, seg, num_segments, index.order, index.offsets)
 
 
 # ---------------------------------------------------------------------------
@@ -204,15 +296,16 @@ def count_per_job(snap: SnapshotTensors, task_mask: torch.Tensor) -> torch.Tenso
     """i32[J]: number of masked tasks per job (padding-safe)."""
     m = task_mask & snap.task_mask
     seg = torch.where(m, snap.task_job, snap.num_jobs)
-    return segment_sum(torch.ones_like(seg), seg, snap.num_jobs)
+    return segment_sum(m, seg, snap.num_jobs)
 
 
 def sum_req_per_job(snap: SnapshotTensors, task_mask: torch.Tensor) -> torch.Tensor:
     """f32[J, R]: summed requests of masked tasks per job."""
     m = task_mask & snap.task_mask
-    seg = torch.where(m, snap.task_job, snap.num_jobs)
+    idx = snap.segment_index("job")
+    seg = torch.where(m, idx.base, snap.num_jobs)
     return segment_sum(
-        torch.where(m[:, None], snap.task_req, 0.0), seg, snap.num_jobs
+        torch.where(m[:, None], snap.task_req, 0.0), seg, snap.num_jobs, idx
     )
 
 

@@ -87,6 +87,7 @@ import torch
 from kube_batch_tpu_torch.api.snapshot import (
     NONE_IDX,
     bucket,
+    carry_segment_indexes,
     from_numpy,
     to_device,
 )
@@ -380,7 +381,10 @@ class IncrementalPacker:
             _k9.row_patch([getattr(self._snap, f) for f in fields],
                           rows_l, vals_l)
         uploaded = {f: to_device(arr, self.device) for f, arr in whole.items()}
-        self._snap = dataclasses.replace(self._snap, **uploaded)
+        prev = self._snap
+        self._snap = dataclasses.replace(prev, **uploaded)
+        # the segment indexes of K7 stay valid while their base fields do
+        carry_segment_indexes(prev, self._snap, changed.fields)
         self.last_h2d_bytes = nbytes
         return bool(patch)
 

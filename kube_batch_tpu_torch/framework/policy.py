@@ -20,7 +20,7 @@ from typing import Callable
 
 import torch
 
-from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
+from kube_batch_tpu_torch.api.snapshot import SnapshotTensors, task_queue_of
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels import lex_rank
 from kube_batch_tpu_torch.kernels.propose import ScoreSpec
@@ -55,12 +55,6 @@ def virtual_start_times(
     perm, s_seg = sort_by_segment(segk, base_rank, num_segs)
     return lex_rank.vtime(perm, s_seg, req, valid, alloc_seg, denom_seg,
                           num_segs)
-
-
-def task_queue_of(snap: SnapshotTensors) -> torch.Tensor:
-    """i32[T]: each task's queue index via its job (padding → 0, masked)."""
-    job = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
-    return torch.clamp(snap.job_queue[job], 0, snap.num_queues - 1)
 
 
 class TensorPolicy:

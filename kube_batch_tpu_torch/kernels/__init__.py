@@ -8,7 +8,7 @@
 | K4 | failure_counts.failure_counts | Triton | framework/fit_errors.py · failure_counts |
 | K5 | victim_prefix.victim_prefix | CUDA C++ | ops/preemption.py · _min_victims_per_node, choose_node |
 | K6 | preempt_scan.preempt_open, preempt_scan.preempt_continue | CUDA C++ | ops/preemption.py · preemption_rounds (the step's scans) |
-| K7 | segment_sum.segment_sum, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
+| K7 | segment_sum.segment_sum, segment_sum.segment_count, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
 | K8 | lex_rank.lex_push, lex_rank.sort_by_segment, lex_rank.vtime | CUDA C++ | framework/policy.py · rank_fn, virtual_start_times; ops/assignment.py · rank_from_keys |
 | K9 | row_patch.row_patch | CUDA C++ | cache/incremental.py · _row_patch |
 | K10 | affinity.affinity_mask, affinity.affinity_row | CUDA C++ | plugins/predicates.py · _topo_feasibility, _affinity_candidate_ok, pod_affinity_predicate, pod_affinity_row |
@@ -49,6 +49,7 @@ def wrappers() -> dict:
         "preempt_open": preempt_scan.preempt_open,
         "preempt_continue": preempt_scan.preempt_continue,
         "segment_sum": segment_sum.segment_sum,
+        "segment_count": segment_sum.segment_count,
         "waterfill": segment_sum.waterfill,
         "lex_push": lex_rank.lex_push,
         "sort_by_segment": lex_rank.sort_by_segment,

@@ -21,17 +21,45 @@
 // test only matters when no plan is open.  So each step launches one of
 // the two kernels, once.
 //
-// One block each.  Each thread folds its strided rows into a packed 64-bit
-// key (value << 32 | index), so the minimum key is the argmin with the
-// lowest index on ties; warp shuffles and one shared-memory pass finish
-// the reduction.  The direct-fit scan gives each thread whole eligible
-// rows and stops every thread once any cell fits (a shared flag).  Nothing
-// is summed, so the result does not depend on scheduling.
+// preempt_open uses the whole card.  The earlier design ran one block of
+// 1,024 threads (one SM of 132) in which each thread walked whole
+// eligible rows against every ready node, reading FutureIdle from global
+// memory in the inner loop; most opening steps find no fit and scan every
+// cell, so it took about 1.1 ms at T = 8,192, N = 512, slower than the
+// plain torch version.  Now a grid of persistent blocks (up to 8 per SM)
+// shares the work:
+//   * the [T] part — each thread folds its grid-strided rows into a
+//     packed key (rank << 32 | t), whose minimum is the argmin with the
+//     lowest index on ties, and an OR of the victim test; a block reduces
+//     them with warp shuffles and makes one 64-bit atomicMax on the
+//     complement of the key (an atomicMin of the key on a word that
+//     starts at zero) and one atomicOr;
+//   * the [T, N] part — tiles of 64 task rows × 256 nodes.  A block takes
+//     tiles in turn; per tile it stages the tile's eligible rows
+//     (compacted by a warp ballot) with their requests and "below eps"
+//     bits in shared memory, and each thread holds one node's FutureIdle
+//     in registers and tests it against every staged row (a broadcast
+//     read).  A tile without eligible rows costs one 64-byte read.  A
+//     global `found` word in device memory is polled before every tile
+//     and set on the first fit, so a step with a fit stops early
+//     everywhere;
+//   * the last block to finish (a ticket after a __threadfence) writes
+//     the four outputs.
+// The scratch words (key, found, possible, ticket) follow the outputs in
+// one buffer the wrapper allocates per call; kb_preempt_open zeroes them
+// with a cudaMemsetAsync on the same stream before the launch, so a call
+// is a memset and one launch; the host reads the outputs with the step's
+// other flags: no extra host sync.  Every
+// output is a minimum or an OR, so none depends on the order in which the
+// blocks run.
 //
 // Bound on this card: bytes when a direct fit is found early (each [T]
 // input read once, the eligible rows' requests and the [N, R] FutureIdle);
 // operations (2·R compares per cell) when no cell fits and every eligible
-// row meets every ready node.
+// row meets every ready node; at the preempt path's shapes, launch
+// latency.
+//
+// preempt_continue stays one block: it reads [T] vectors once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,18 +88,40 @@ __device__ unsigned long long block_min(unsigned long long v, unsigned long long
   return b;
 }
 
-__global__ void preempt_open_kernel(
-    int T, int N, int R, const int32_t* __restrict__ rank,
+// int32 words of the scratch, zeroed before each launch
+constexpr int KEY = 0;        // u64: ~(least key), 0 while none is eligible
+constexpr int FOUND = 2;
+constexpr int POSSIBLE = 3;
+constexpr int TICKET = 4;
+constexpr int SCRATCH_WORDS = 6;
+constexpr int OPEN_THREADS = 256;
+constexpr int TILE_ROWS = 64;
+constexpr int TILE_NODES = OPEN_THREADS;   // one node per thread
+constexpr int BLOCKS_PER_SM = 8;
+
+template <int R>
+__global__ void __launch_bounds__(OPEN_THREADS) preempt_open_kernel(
+    int T, int N, const int32_t* __restrict__ rank,
     const uint8_t* __restrict__ elig, const int32_t* __restrict__ snap_state,
     const int32_t* __restrict__ live_state, const uint8_t* __restrict__ task_mask,
     const uint8_t* __restrict__ prov, const float* __restrict__ req,
     const float* __restrict__ future, const uint8_t* __restrict__ node_ok,
-    const float* __restrict__ eps, int32_t* __restrict__ out) {
-  __shared__ unsigned long long warp_min[THREADS / 32];
-  __shared__ int found;
+    const float* __restrict__ eps, int32_t* __restrict__ out,
+    int32_t* __restrict__ scratch) {
+  __shared__ unsigned long long warp_min[OPEN_THREADS / 32];
+  __shared__ float rows[TILE_ROWS][R];
+  __shared__ uint32_t small[TILE_ROWS];
+  __shared__ int n_rows;
+  __shared__ int stop;
+  unsigned long long* key_word = reinterpret_cast<unsigned long long*>(scratch + KEY);
+  volatile int* found = scratch + FOUND;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // -- the [T] part: argmin of rank over eligible rows, victim test ----
   unsigned long long key = NONE;
   int possible = 0;
-  for (int t = threadIdx.x; t < T; t += THREADS) {
+  for (int t = blockIdx.x * OPEN_THREADS + threadIdx.x; t < T;
+       t += gridDim.x * OPEN_THREADS) {
     if (elig[t]) {
       const unsigned long long k = ((unsigned long long)(uint32_t)rank[t] << 32) | (uint32_t)t;
       key = k < key ? k : key;
@@ -79,33 +129,114 @@ __global__ void preempt_open_kernel(
     possible |= allocated(snap_state[t]) && allocated(live_state[t]) &&
                 task_mask[t] && !prov[t];
   }
-  const unsigned long long p = block_min(key, warp_min);
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_down_sync(0xffffffffu, key, off);
+    key = o < key ? o : key;
+  }
+  if (lane == 0) warp_min[warp] = key;
   const int any_possible = __syncthreads_or(possible);
-  if (threadIdx.x == 0) found = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < T; t += THREADS) {
-    if (!elig[t]) continue;
-    if (*(volatile int*)&found) break;
-    for (int m = 0; m < N; ++m) {
-      if (!node_ok[m]) continue;
-      bool ok = true;
-      for (int r = 0; r < R; ++r) {
-        const float q = req[(int64_t)t * R + r];
-        ok = ok && ((q <= future[(int64_t)m * R + r]) || (q < eps[r]));
+  if (threadIdx.x == 0) {
+    unsigned long long b = NONE;
+    for (int w = 0; w < OPEN_THREADS / 32; ++w) b = warp_min[w] < b ? warp_min[w] : b;
+    if (b != NONE) atomicMax(key_word, ~b);
+    if (any_possible) atomicOr(scratch + POSSIBLE, 1);
+  }
+
+  // -- the [T, N] part: tiles of TILE_ROWS rows × TILE_NODES nodes ------
+  float lim[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) lim[r] = eps[r];
+  const int row_tiles = (T + TILE_ROWS - 1) / TILE_ROWS;
+  const int node_tiles = (N + TILE_NODES - 1) / TILE_NODES;
+  const long long tiles = (long long)row_tiles * node_tiles;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int t0 = (int)(tile / node_tiles) * TILE_ROWS;
+    const int n0 = (int)(tile % node_tiles) * TILE_NODES;
+    if (warp == 0) {
+      // stage the tile's eligible rows, compacted in row order, by warp 0
+      int base = 0;
+      for (int half = 0; half < TILE_ROWS; half += 32) {
+        const int t = t0 + half + lane;
+        const bool e = t < T && elig[t];
+        const unsigned bal = __ballot_sync(0xffffffffu, e);
+        if (e) {
+          const int i = base + __popc(bal & ((1u << lane) - 1));
+          uint32_t bits = 0;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float q = req[(int64_t)t * R + r];
+            rows[i][r] = q;
+            bits |= (q < lim[r] ? 1u : 0u) << r;
+          }
+          small[i] = bits;
+        }
+        base += __popc(bal);
       }
-      if (ok) {
-        *(volatile int*)&found = 1;
-        break;
+      if (lane == 0) {
+        n_rows = base;
+        stop = *found;
       }
     }
+    __syncthreads();
+    const int n = n_rows;
+    if (stop) break;
+    const int m = n0 + threadIdx.x;
+    if (n > 0 && m < N && node_ok[m]) {
+      float f[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) f[r] = future[(int64_t)m * R + r];
+      for (int i = 0; i < n; ++i) {
+        bool ok = true;
+#pragma unroll
+        for (int r = 0; r < R; ++r) ok = ok && ((rows[i][r] <= f[r]) || ((small[i] >> r) & 1u));
+        if (ok) {
+          *found = 1;
+          break;
+        }
+      }
+    }
+    __syncthreads();   // the staged rows are rewritten by the next tile
   }
+
+  // -- the last block to finish writes the outputs ----------------------
+  __shared__ bool last;
+  __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    out[0] = p == NONE ? 0 : (int32_t)(p & 0xffffffffu);
-    out[1] = p == NONE ? 0 : 1;
-    out[2] = any_possible ? 1 : 0;
-    out[3] = found;
+    last = atomicAdd(scratch + TICKET, 1) == (int)gridDim.x - 1;
   }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    const unsigned long long k = ~atomicAdd(key_word, 0ull);
+    out[0] = k == NONE ? 0 : (int32_t)(k & 0xffffffffu);
+    out[1] = k == NONE ? 0 : 1;
+    out[2] = atomicAdd(scratch + POSSIBLE, 0) ? 1 : 0;
+    out[3] = *found ? 1 : 0;
+  }
+}
+
+template <int R>
+void launch_open(int blocks, cudaStream_t stream, int T, int N, const int32_t* rank,
+                 const uint8_t* elig, const int32_t* snap_state,
+                 const int32_t* live_state, const uint8_t* task_mask,
+                 const uint8_t* prov, const float* req, const float* future,
+                 const uint8_t* node_ok, const float* eps, int32_t* out,
+                 int32_t* scratch) {
+  preempt_open_kernel<R><<<blocks, OPEN_THREADS, 0, stream>>>(
+      T, N, rank, elig, snap_state, live_state, task_mask, prov, req, future,
+      node_ok, eps, out, scratch);
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+  }
+  return n;
 }
 
 __global__ void preempt_continue_kernel(
@@ -129,17 +260,38 @@ __global__ void preempt_continue_kernel(
 
 }  // namespace
 
-// out: [p_new, any_eligible, any_victim_possible, any_direct_fit]
+// out: i32[4] [p_new, any_eligible, any_victim_possible, any_direct_fit];
+// scratch: i32[SCRATCH_WORDS], 8-byte aligned, zeroed here
 extern "C" int kb_preempt_open(int T, int N, int R, const int32_t* rank,
                                const uint8_t* elig, const int32_t* snap_state,
                                const int32_t* live_state, const uint8_t* task_mask,
                                const uint8_t* prov, const float* req,
                                const float* future, const uint8_t* node_ok,
-                               const float* eps, int32_t* out, cudaStream_t stream) {
-  if (R > MAX_R) return -1;
-  preempt_open_kernel<<<1, THREADS, 0, stream>>>(
-      T, N, R, rank, elig, snap_state, live_state, task_mask, prov, req, future,
-      node_ok, eps, out);
+                               const float* eps, int32_t* out, int32_t* scratch,
+                               cudaStream_t stream) {
+  if (R < 1 || R > MAX_R) return -1;
+  const cudaError_t err =
+      cudaMemsetAsync(scratch, 0, sizeof(int32_t) * SCRATCH_WORDS, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long row_tiles = (T + TILE_ROWS - 1) / TILE_ROWS;
+  const long long node_tiles = (N + TILE_NODES - 1) / TILE_NODES;
+  const long long cap = (long long)BLOCKS_PER_SM * sm_count();
+  long long want = row_tiles * node_tiles;
+  const long long rows_blocks = (T + OPEN_THREADS - 1) / OPEN_THREADS;
+  if (want < rows_blocks) want = rows_blocks;
+  const int blocks = (int)(want < 1 ? 1 : want < cap ? want : cap);
+  switch (R) {
+#define KB_OPEN_CASE(RR)                                                        \
+    case RR:                                                                    \
+      launch_open<RR>(blocks, stream, T, N, rank, elig, snap_state, live_state, \
+                      task_mask, prov, req, future, node_ok, eps, out, scratch); \
+      break;
+    KB_OPEN_CASE(1) KB_OPEN_CASE(2) KB_OPEN_CASE(3) KB_OPEN_CASE(4)
+    KB_OPEN_CASE(5) KB_OPEN_CASE(6) KB_OPEN_CASE(7) KB_OPEN_CASE(8)
+#undef KB_OPEN_CASE
+    default:
+      return -1;
+  }
   return (int)cudaGetLastError();
 }
 

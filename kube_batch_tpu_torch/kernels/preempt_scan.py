@@ -17,6 +17,13 @@ the card and its design are noted in the source.
 The direct-fit test is a boolean any() over elementwise fp32 compares,
 with no accumulation, so it is exact in any order.
 
+`preempt_open` launches a grid over the whole card (tiles of eligible
+rows × ready nodes, a global found flag that stops every block after the
+first fit, the argmin as a 64-bit atomic on the packed key rank·2³² + t,
+the last block writing the outputs): a memset of its scratch words, which
+share one allocation with the outputs, and one launch per call;
+`preempt_continue` is one block.  The ctypes functions are bound once.
+
 Each wrapper runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other.
 """
@@ -31,9 +38,18 @@ from kube_batch_tpu_torch.kernels import build
 
 INT32_MAX = 2**31 - 1
 MAX_R = 8
+SCRATCH_WORDS = 6        # preempt_open's scratch: key (2 words), found, possible, ticket
 _ALLOCATED = (1, 3, 4, 5)   # api/types.py · ALLOCATED_STATUSES
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "kb_preempt_open": [_I, _I, _I] + [_P] * 10 + [_P, _P, _P],
+    "kb_preempt_continue": [_I, _P, _P, _P, _I, _P, _P],
+}
+
+
+def _fn(name: str):
+    return build.function("preempt_scan", name, _SIGNATURES[name])
 
 
 def _allocated(state):
@@ -79,24 +95,28 @@ def _on_card(t, what: str) -> bool:
 def preempt_open(rank, elig, snap_state, live_state, task_mask, prov,
                  task_req, future, node_ok, eps):
     """i32[4] — see the module docstring."""
-    if not _on_card(rank, "preempt_open"):
+    if not rank.is_cuda:
+        _on_card(rank, "preempt_open")    # raises for another device than the CPU
         return preempt_open_plain(rank, elig, snap_state, live_state, task_mask,
                                   prov, task_req, future, node_ok, eps)
     T = rank.shape[0]
     N, R = future.shape
     if R > MAX_R:
         raise ValueError(f"preempt_open: at most {MAX_R} resource dims, got {R}")
-    c = [x.contiguous() for x in (rank, elig, snap_state, live_state, task_mask,
-                                  prov, task_req, future, node_ok, eps)]
-    out = torch.empty(4, dtype=torch.int32, device=rank.device)
-    fn = build.library("preempt_scan").kb_preempt_open
-    fn.argtypes = [_I, _I, _I] + [_P] * 10 + [_P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(T, N, R, *(build.ptr(x) for x in c), build.ptr(out),
-             build.stream_handle(rank.device))
+    # the contiguous tensors are kept (not only their pointers) until the
+    # launch is queued
+    c = [x if x.is_contiguous() else x.contiguous()
+         for x in (rank, elig, snap_state, live_state, task_mask, prov, task_req,
+                   future, node_ok, eps)]
+    # the four outputs, then the scratch words (zeroed by kb_preempt_open),
+    # 8-byte aligned for the 64-bit key
+    buf = rank.new_empty(4 + SCRATCH_WORDS, dtype=torch.int32)
+    ptr = buf.data_ptr()
+    err = _fn("kb_preempt_open")(T, N, R, *(x.data_ptr() for x in c), ptr, ptr + 16,
+                                 build.stream_handle(rank.device))
     build.check(err, "preempt_open")
     preempt_open.launches += 1
-    return out
+    return buf[:4]
 
 
 def preempt_continue(rank, victims, task_node, n: int):
@@ -105,11 +125,9 @@ def preempt_continue(rank, victims, task_node, n: int):
         return preempt_continue_plain(rank, victims, task_node, n)
     c = [x.contiguous() for x in (rank, victims, task_node)]
     out = torch.empty(2, dtype=torch.int32, device=rank.device)
-    fn = build.library("preempt_scan").kb_preempt_continue
-    fn.argtypes = [_I, _P, _P, _P, _I, _P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(rank.shape[0], *(build.ptr(x) for x in c), int(n), build.ptr(out),
-             build.stream_handle(rank.device))
+    err = _fn("kb_preempt_continue")(rank.shape[0], *(build.ptr(x) for x in c),
+                                     int(n), build.ptr(out),
+                                     build.stream_handle(rank.device))
     build.check(err, "preempt_continue")
     preempt_continue.launches += 1
     return out

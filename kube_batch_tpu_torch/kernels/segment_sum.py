@@ -1,5 +1,5 @@
-"""K7 · segment sums and the water-fill of queue shares (CUDA C++,
-`csrc/segment_sum.cu`), two entry points.
+"""K7 · segment sums, segment counts and the water-fill of queue shares
+(CUDA C++, `csrc/segment_sum.cu`), three entry points.
 
 Replaces the segment sums of kube_batch_tpu (api/snapshot.py ·
 count_per_job / sum_req_per_job and the jax.ops.segment_sum calls of
@@ -7,11 +7,17 @@ plugins/drf.py, proportion.py and predicates.py; the port's single site is
 api/snapshot.py · segment_sum) and ops/waterfill.py · waterfill_deserved.
 What bounds it on the card and its design are noted in the source.
 
-`segment_sum` sorts the segment ids (stable torch.sort) and launches one
-block per segment; floats accumulate in float64 and are rounded once to
-float32, integers and bools accumulate in int64 and return int32 counts.
-The result does not depend on the order of summation: each segment's rows
-are added in a fixed order by a fixed-shape tree.
+`segment_sum` (float32 values) takes the segment index of the ids'
+base (api/snapshot.py · SegmentIndex: `order` and `offsets`, built once
+per pack) and launches one block per segment, which walks its rows in
+that order and skips the rows whose `seg` is not the segment; the sums
+are float64, rounded once to float32, in a fixed partition and a fixed
+combine tree, so two runs are bitwise equal.  A call on the card without
+an index raises: nothing sorts per call.  A call is one launch, after a
+memset of the tickets when long segments are split into runs (their
+float64 partials and tickets share one allocation with the output).  `segment_count` (int32 or bool
+values) needs no index: one launch of warp-aggregated integer atomics
+into an output zeroed in the same stream.
 
 Each wrapper runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other.
@@ -20,6 +26,7 @@ kernel for CUDA tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -28,6 +35,29 @@ from kube_batch_tpu_torch.kernels import build
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 MAX_R = 32
+_SIGNATURES = {
+    "kb_segment_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "kb_segment_count": [_P, _P, _I, _L, _I, _I, _P, _P],
+    "kb_waterfill": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+}
+
+
+def _fn(name: str):
+    return build.function("segment_sum", name, _SIGNATURES[name])
+
+
+@functools.lru_cache(maxsize=256)
+def sum_shape(T: int, S: int) -> tuple[int, int]:
+    """(threads per block, runs per segment) of a float sum of T rows into
+    S segments, from the shapes alone: threads a power of two from 32 to
+    256 near the mean segment T / S, and runs so that a segment of the
+    mean length gives each thread about one position (a long segment a
+    few), at most 64."""
+    mean = T / max(S, 1)
+    threads = 32
+    while threads < 256 and threads < mean:
+        threads *= 2
+    return threads, max(1, min(64, -(-T // (max(S, 1) * threads))))
 
 
 def _cuda(t, what: str) -> bool:
@@ -51,37 +81,93 @@ def segment_sum_plain(values, seg, num_segments: int) -> torch.Tensor:
     return acc[:num_segments].int()
 
 
-def segment_sum(values: torch.Tensor, seg: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Sum rows of `values` ([T] or [T, ...]) into `num_segments`
-    segments by `seg` (i32/i64[T], in [0, num_segments]); rows whose
-    `seg` equals `num_segments` are dropped (the padding sentinel).
-    float32 values return float32 sums, integer and bool values int32
-    counts."""
-    if not _cuda(values, "segment_sum"):
+def _seg32(seg: torch.Tensor, T: int, what: str) -> torch.Tensor:
+    if seg.shape[0] != T:
+        raise ValueError(f"{what}: values and seg differ in rows")
+    if seg.dtype != torch.int32:
+        return seg.to(torch.int32)
+    return seg if seg.is_contiguous() else seg.contiguous()
+
+
+def segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
+                order: torch.Tensor | None = None,
+                offsets: torch.Tensor | None = None) -> torch.Tensor:
+    """f32: the rows of float32 `values` ([T] or [T, ...]) summed into
+    `num_segments` segments by `seg` (i32[T], in [0, num_segments]);
+    rows whose `seg` equals `num_segments` are dropped (the padding
+    sentinel).  On the card `order` i32[T] and `offsets`
+    i32[num_segments + 1] must be the stable order of the rows by a base
+    id vector with seg in {base, num_segments} row by row (api/snapshot.py
+    · SegmentIndex); the CPU ignores them."""
+    if not values.is_cuda:
+        _cuda(values, "segment_sum")      # raises for another device than the CPU
+        return segment_sum_plain(values, seg, num_segments)
+    if values.dtype != torch.float32:
+        raise ValueError(f"segment_sum takes float32 values, got {values.dtype}"
+                         " (segment_count takes counts)")
+    if order is None or offsets is None:
+        raise ValueError("segment_sum on the card needs the segment index of "
+                         "its base (SnapshotTensors.segment_index)")
+    T = values.shape[0]
+    seg32 = _seg32(seg, T, "segment_sum")
+    if (order.shape[0] != T or offsets.shape[0] != num_segments + 1
+            or order.dtype != torch.int32 or offsets.dtype != torch.int32):
+        raise ValueError("segment_sum: the index does not match the rows or segments")
+    vals = values if values.is_contiguous() else values.contiguous()
+    C = math.prod(vals.shape[1:])
+    S = num_segments
+    shape = (S,) + tuple(vals.shape[1:])
+    if S == 0 or C == 0:
+        return vals.new_empty(shape)
+    threads, runs = sum_shape(T, S)
+    ticket = partial = None
+    if runs > 1:
+        # one allocation: the sums f32[S, C] (padded to 8 bytes), the
+        # float64 partials f64[S, runs, C], the tickets i32[S] (zeroed by
+        # kb_segment_sum)
+        head = S * C + (S * C & 1)
+        buf = vals.new_empty(head + 2 * S * runs * C + S)
+        out = buf[:S * C].view(shape)
+        partial = buf.data_ptr() + 4 * head
+        ticket = partial + 8 * S * runs * C
+    else:
+        out = vals.new_empty(shape)
+    err = _fn("kb_segment_sum")(
+        order.data_ptr(), offsets.data_ptr(), seg32.data_ptr(), vals.data_ptr(), C,
+        S, threads, runs, out.data_ptr(), partial, ticket,
+        build.stream_handle(vals.device))
+    build.check(err, "segment_sum")
+    segment_sum.launches += 1
+    return out
+
+
+def segment_count(values: torch.Tensor, seg: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """i32: the rows of integer or bool `values` ([T] or [T, ...]) added
+    into `num_segments` segments by `seg`, as `segment_sum` does for
+    floats; no index is needed."""
+    if not values.is_cuda:
+        _cuda(values, "segment_count")    # raises for another device than the CPU
         return segment_sum_plain(values, seg, num_segments)
     if values.is_floating_point():
-        if values.dtype != torch.float32:
-            raise ValueError(f"segment_sum takes float32 values, got {values.dtype}")
-        vals, dtype, out_dtype = values.contiguous(), 0, torch.float32
+        raise ValueError("segment_count takes integer or bool values")
+    T = values.shape[0]
+    seg32 = _seg32(seg, T, "segment_count")
+    if values.dtype == torch.bool:
+        vals, dtype = values, 2
     else:
-        vals, dtype, out_dtype = values.to(torch.int32).contiguous(), 1, torch.int32
-    T = seg.shape[0]
-    if vals.shape[0] != T:
-        raise ValueError("segment_sum: values and seg differ in rows")
+        vals, dtype = values.to(torch.int32), 1
+    vals = vals if vals.is_contiguous() else vals.contiguous()
     C = math.prod(vals.shape[1:])
-    out = torch.empty((num_segments,) + tuple(vals.shape[1:]), dtype=out_dtype,
+    out = torch.empty((num_segments,) + tuple(vals.shape[1:]), dtype=torch.int32,
                       device=vals.device)
     if num_segments == 0 or C == 0:
         return out
-    s_seg, perm = torch.sort(seg.to(torch.int32), stable=True)
-    fn = build.library("segment_sum").kb_segment_sum
-    fn.argtypes = [_P, _P, _P, _I, _L, _I, _I, _P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(build.ptr(s_seg), build.ptr(perm), build.ptr(vals), dtype, T, C,
-             num_segments, build.ptr(out), build.stream_handle(vals.device))
-    build.check(err, "segment_sum")
-    segment_sum.launches += 1
+    err = _fn("kb_segment_count")(
+        seg32.data_ptr(), vals.data_ptr(), dtype, T, C, num_segments,
+        out.data_ptr(), build.stream_handle(vals.device))
+    build.check(err, "segment_count")
+    segment_count.launches += 1
     return out
 
 
@@ -131,10 +217,7 @@ def waterfill(weights: torch.Tensor, request: torch.Tensor, total: torch.Tensor,
                                   queue_mask.to(torch.bool))]
     unsat = torch.empty((Q, R), dtype=torch.bool, device=weights.device)
     deserved = torch.empty((Q, R), dtype=torch.float32, device=weights.device)
-    fn = build.library("segment_sum").kb_waterfill
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(*(build.ptr(x) for x in c), Q, R, build.ptr(unsat),
+    err = _fn("kb_waterfill")(*(build.ptr(x) for x in c), Q, R, build.ptr(unsat),
              build.ptr(deserved), build.stream_handle(weights.device))
     build.check(err, "waterfill")
     waterfill.launches += 1
@@ -142,4 +225,5 @@ def waterfill(weights: torch.Tensor, request: torch.Tensor, total: torch.Tensor,
 
 
 segment_sum.launches = 0
+segment_count.launches = 0
 waterfill.launches = 0

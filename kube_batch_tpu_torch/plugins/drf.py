@@ -51,8 +51,9 @@ def ns_allocated(snap, state) -> torch.Tensor:
     """f32[S, R]: resources currently held per namespace."""
     held = _held(state) & snap.task_mask & (snap.task_ns >= 0)
     S = snap.ns_weight.shape[0]
-    seg = torch.where(held, torch.clamp(snap.task_ns, 0, S - 1), S)
-    return segment_sum(torch.where(held[:, None], snap.task_req, 0.0), seg, S)
+    idx = snap.segment_index("ns")
+    seg = torch.where(held, idx.base, S)
+    return segment_sum(torch.where(held[:, None], snap.task_req, 0.0), seg, S, idx)
 
 
 def ns_share(snap, state) -> torch.Tensor:

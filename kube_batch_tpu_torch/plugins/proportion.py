@@ -35,18 +35,20 @@ def queue_allocated(snap, state) -> torch.Tensor:
         allocated_mask(state.task_state)
         | status_is(state.task_state, TaskStatus.PIPELINED)
     ) & snap.task_mask & (snap.task_job >= 0)
-    seg = torch.where(held, task_queue_of(snap), snap.num_queues)
+    idx = snap.segment_index("queue")
+    seg = torch.where(held, idx.base, snap.num_queues)
     return segment_sum(
-        torch.where(held[:, None], snap.task_req, 0.0), seg, snap.num_queues
+        torch.where(held[:, None], snap.task_req, 0.0), seg, snap.num_queues, idx
     )
 
 
 def queue_request(snap) -> torch.Tensor:
     """f32[Q, R]: total request of every task in the queue's jobs."""
     valid = snap.task_mask & (snap.task_job >= 0)
-    seg = torch.where(valid, task_queue_of(snap), snap.num_queues)
+    idx = snap.segment_index("queue")
+    seg = torch.where(valid, idx.base, snap.num_queues)
     return segment_sum(
-        torch.where(valid[:, None], snap.task_req, 0.0), seg, snap.num_queues
+        torch.where(valid[:, None], snap.task_req, 0.0), seg, snap.num_queues, idx
     )
 
 
