@@ -14,7 +14,13 @@ and `triton`.  Phases (any failure exits non-zero):
    non-integer values — two runs bitwise equal, the plain version equal,
    within K7_REL_TOL on the non-integer values; K6's preempt_open:
    nothing eligible, a fit only at the last cell, a fit at the first
-   cell, no ready node, and T = 65,536 with N = 8,192, timed);
+   cell, no ready node, and T = 65,536 with N = 8,192, timed); K8's
+   lex_push_many and sort_by_segment on keys of T = 1, 8,192, 16,384,
+   16,385 and 65,536 rows with NaN, ±0.0 and ±inf, all-equal keys and 40
+   keys, and segment keys of 1, 3, 512 and 70,000 segments; K10's
+   affinity_words and K2's words form on seeded affinity terms (words =
+   plain, K2 given the words = K2 given K10's mask = plain) and on a
+   world with no terms (= K2 given no predicate);
 2. slice parity — config 3, config 4 (oversubscribed), a mid-size
    config 5 (500 nodes, 5,000 pods) and a feature world that turns on
    every kernel option of the default conf (affinity terms, preferences,
@@ -64,13 +70,15 @@ and `triton`.  Phases (any failure exits non-zero):
    required `rack:team` term, TF workers with soft rack / zone
    preferences), 2 cycles through `Scheduler.run_once` with 15,000 pods
    arriving after cycle 1.  K10 and K11 counters are set to 0 before and
-   read after, and both must have launched; capacity, gang and predicate
+   read after, and both must have launched, the mask at most once a
+   cycle (the auction rounds take K10's words); capacity, gang and predicate
    invariants, no node with two `role=ps` residents, and every resident
    MPI worker backed by a team-mate in its rack (resident when the cycle
    began, or placed in it with no required term) or by its team's one
    bootstrap rack, open only while the team had no resident (a sanity
    check: `_check_affinity` says what it cannot see).  Per cycle: pack,
-   solve, dispatch and wall ms, rounds, binds, K10 / K11 launches;
+   solve, dispatch and wall ms, rounds, the acceptances each round step
+   cancelled, binds, K10 / K11 launches;
 7. the joint path — the preempt path's world and wave with
    `joint_solve=True` on the card, JOINT_CYCLES cycles: every cycle must
    report `last_stats["cycle"] == "joint"`, cycle 2 must evict, K12 must
@@ -85,9 +93,12 @@ and `triton`.  Phases (any failure exits non-zero):
    path, K5–K7 on every input the preempt path gave them in cycles 2 and
    3 (segment sums and counts sampled), timed on cycle 2's; K8 on every 10th call
    of the main path and every 25th of the preempt path, timed at both
-   paths' widths (T = 65,536 and 8,192); K9 on every call of the host
-   cycle, timed on the largest; K11 and K10 on every 8th / 4th call of
-   the affinity path and K10's row form on every call of the
+   paths' widths (T = 65,536 and 8,192), with K8's launches on both
+   paths and per preemption step; K9 on every call of the host
+   cycle, timed on the largest; K11 on every 8th call of the affinity
+   path, K10's mask on each of its calls, K10's words with K2's two
+   passes every 300th round (K2 given the words against K2 given K10's
+   mask, both timed), and K10's row form on every call of the
    config5_affinity_mid card run under examples/scheduler.conf, K12 on
    every 10th call of the joint path, each timed on cycle 2's inputs.
    Outputs exactly equal; kernel / plain / library times (median of
@@ -100,7 +111,9 @@ features_preempt and config5_affinity_mid under examples/scheduler.conf
 with the joint solve; every K10, K11 and K12 call of their card runs is
 held against its plain version.
 
-The line before the `kernels` line gives the script's seconds.
+The line before the `kernels` line gives the script's seconds, and the
+one before it the order a redesign should take the kernels in, those
+already redesigned marked.
 The last two lines are the `kernels` JSON object and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -154,8 +167,8 @@ KERNELS = {
                       "kube_batch_tpu/api/snapshot.py:203"),
     "waterfill": ("cuda", "kube_batch_tpu_torch/kernels/csrc/segment_sum.cu",
                   "kube_batch_tpu/ops/waterfill.py:24"),
-    "lex_push": ("cuda", "kube_batch_tpu_torch/kernels/csrc/lex_rank.cu",
-                 "kube_batch_tpu/framework/policy.py:359"),
+    "lex_push_many": ("cuda", "kube_batch_tpu_torch/kernels/csrc/lex_rank.cu",
+                      "kube_batch_tpu/framework/policy.py:359"),
     "sort_by_segment": ("cuda", "kube_batch_tpu_torch/kernels/csrc/lex_rank.cu",
                         "kube_batch_tpu/ops/assignment.py:196"),
     "vtime": ("cuda", "kube_batch_tpu_torch/kernels/csrc/lex_rank.cu",
@@ -168,18 +181,20 @@ KERNELS = {
                       "kube_batch_tpu/plugins/predicates.py:299"),
     "affinity_row": ("cuda", "kube_batch_tpu_torch/kernels/csrc/affinity_mask.cu",
                      "kube_batch_tpu/plugins/predicates.py:330"),
+    "affinity_words": ("cuda", "kube_batch_tpu_torch/kernels/csrc/affinity_mask.cu",
+                       "kube_batch_tpu/plugins/predicates.py:263"),
     "tier_control": ("cuda", "kube_batch_tpu_torch/kernels/csrc/joint_tier.cu",
                      "kube_batch_tpu/ops/joint.py:200"),
 }
 PREEMPT_KERNELS = ("victim_prefix", "preempt_open", "preempt_continue",
                    "segment_sum", "segment_count", "waterfill")
 EVICTING_ONLY = ("victim_prefix", "preempt_open", "preempt_continue")
-RANK_KERNELS = ("lex_push", "sort_by_segment", "vtime")
+RANK_KERNELS = ("lex_push_many", "sort_by_segment", "vtime")
 # launched where a steady cycle row-patches; required on the host cycle
 HOST_CYCLE_ONLY = ("row_patch",)
 # launched only on worlds with inter-pod affinity terms (the affinity
 # path; the row form where such a world preempts) and by the joint solve
-AFFINITY_KERNELS = ("resident_tables", "affinity_mask")
+AFFINITY_KERNELS = ("resident_tables", "affinity_mask", "affinity_words")
 AFFINITY_ROW = ("affinity_row",)
 JOINT_ONLY = ("tier_control",)
 NOT_ON_MAIN_PATH = (EVICTING_ONLY + HOST_CYCLE_ONLY + AFFINITY_KERNELS
@@ -208,9 +223,11 @@ HOST_CYCLES = 4
 HOST_DONE_EVERY = 100        # every 100th running pod completes or is deleted
 HOST_ARRIVAL_PODS = 300      # pods arriving into existing jobs' shapes
 HOST_EVICTED = 20            # pods evicted after the cycle without arrivals
-# the affinity path records every 8th K11 and every 4th K10 call and no
-# other kernel's; the joint path every 10th K12 call
-AFFINITY_EVERY = {"resident_tables": 8, "affinity_mask": 4}
+# the affinity path records every 8th K11 call, every K10 mask call (one a
+# cycle, for the failure tallies), and K10's words with the K2 calls of
+# the same round every 300th round; the joint path every 10th K12 call
+AFFINITY_EVERY = {"resident_tables": 8, "affinity_mask": 1, "affinity_words": 300,
+                  "propose_best": 300, "propose_pick": 300}
 JOINT_EVERY = {"tier_control": 10}
 JOINT_CYCLES = 3
 # the parity world whose card run gives K10's row form its launches
@@ -456,6 +473,198 @@ def phase_edge_inputs(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# edge inputs of K8, and of K2's words form with K10's words
+# ---------------------------------------------------------------------------
+
+SPECIAL_KEYS = (0.0, -0.0, float("nan"), -1.0, 1e30, -1e30, float("inf"),
+                float("-inf"), 2.5, -2.5)
+
+
+def k8_edge_inputs(device, seed: int = 0):
+    """(lex cases: name → (perm i64[T] or None, keys), segment cases: name
+    → (seg, rank, S)) at T = 1, 8,192, 16,384 (the one-block limit),
+    16,385 and 65,536: keys of small integers with NaN, ±0.0 and ±inf
+    mixed in, one of unique values, all-equal keys (every pass skipped),
+    40 keys (more than one launch holds), and segment keys of 1, 3 and
+    512 segments, and one too wide for 32 bits."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def keys(T, m):
+        out = []
+        for i in range(m):
+            k = rng.integers(-3, 4, T).astype(np.float32)
+            special = rng.random(T) < 0.3
+            k[special] = rng.choice(np.array(SPECIAL_KEYS, np.float32), int(special.sum()))
+            if i == m - 1:
+                k = rng.permutation(T).astype(np.float32)
+            out.append(on(k))
+        return out
+
+    lex = {}
+    for T in (1, 8192, 16384, 16385, 65536):
+        lex[f"mixed_{T}"] = (on(rng.permutation(T).astype(np.int64)), keys(T, 5))
+        lex[f"identity_{T}"] = (None, keys(T, 3))
+    lex["all_equal_8192"] = (None, [on(np.zeros(8192, np.float32))] * 2)
+    lex["zeros_and_nans_16384"] = (None, [on(rng.choice(
+        np.array([0.0, -0.0, np.nan], np.float32), 16384))])
+    lex["forty_keys_8192"] = (on(rng.permutation(8192).astype(np.int64)), keys(8192, 40))
+    seg = {}
+    for T, S in ((1, 1), (8192, 1), (8192, 3), (8192, 512), (16384, 512), (16385, 3),
+                 (65536, 3), (65536, 512), (65536, 70000)):
+        rank = rng.permutation(T).astype(np.int32)
+        rank[rng.random(T) < 0.2] = 0   # ties in both keys
+        seg[f"S{S}_{T}"] = (on(rng.integers(0, S + 1, T).astype(np.int32)), on(rank), S)
+    return lex, seg
+
+
+def phase_k8_edge(device) -> dict:
+    """K8's lex_push_many and sort_by_segment on their edge inputs: two
+    runs equal and equal to the plain version.  Returns {name:
+    max_abs_err}."""
+    from kube_batch_tpu_torch.kernels import lex_rank as k8
+
+    lex, seg = k8_edge_inputs(device)
+    errs = {"lex_push_many": 0.0, "sort_by_segment": 0.0}
+    for name, (perm, keys) in lex.items():
+        a, b = k8.lex_push_many(perm, keys), k8.lex_push_many(perm, keys)
+        want = k8.lex_push_many_plain(perm, keys)
+        errs["lex_push_many"] = max(errs["lex_push_many"], require_equal(
+            f"lex_push_many edge {name}", list(zip(a, want)) + list(zip(b, want))))
+        log(json.dumps({"phase": "k8-edge", "name": "lex_push_many", "case": name,
+                        "rows": keys[0].numel(), "keys": len(keys)}))
+    for name, (s, r, S) in seg.items():
+        a = k8.sort_by_segment(s, r, S)
+        want = k8.sort_by_segment_plain(s, r, S)
+        errs["sort_by_segment"] = max(errs["sort_by_segment"], require_equal(
+            f"sort_by_segment edge {name}", list(zip(a, want))))
+        log(json.dumps({"phase": "k8-edge", "name": "sort_by_segment", "case": name,
+                        "rows": s.numel(), "segments": S,
+                        "plan": list(k8.sort_plan(s.numel(), S))}))
+    return errs
+
+
+def k2_words_inputs(device, T: int = 4096, N: int = 1024, K: int = 40, K2: int = 36,
+                    seed: int = 0):
+    """(propose_best's arguments with dyn None, the affinity fields and the
+    resident tables of both orientations): seeded requests against node
+    capacity, a feasibility mask of about 70 %, both score terms and a
+    quantum, and affinity terms as tests/test_torch_affinity.py makes
+    them (padded columns, a dead domain)."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.kernels import resident as k11
+    from kube_batch_tpu_torch.kernels.propose import ScoreSpec
+
+    rng = np.random.default_rng(seed)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    R, TK, D = 4, 3, 16
+    cap = rng.integers(4, 9, (N, R)).astype(np.float32) * 1000
+    future = (cap * rng.random((N, R))).round().astype(np.float32)
+    req = rng.integers(0, 3, (T, R)).astype(np.float32) * 500
+    pred = rng.random((T, N)) < 0.7
+    args = [on(pred), None, on(req), on(future), on(np.full(R, 1e-3, np.float32)),
+            on(rng.random(N) < 0.95), on(rng.random(T) < 0.8), on(future), on(cap),
+            ScoreSpec(w_lr=1.0, w_bal=1.0), [], 0.5]
+
+    def hot(shape, p):
+        m = (rng.random(shape) < p).astype(np.float32)
+        m[T - 8:] = 0.0
+        return m
+
+    labels, aff, anti = hot((T, K), 0.15), hot((T, K), 0.01), hot((T, K), 0.005)
+    labels[:, K - 5:] = 0.0
+    aff_topo, anti_topo = hot((T, K2), 0.01), hot((T, K2), 0.005)
+    term_key = rng.integers(0, 2, K2).astype(np.int32)
+    term_label = rng.integers(0, K - 5, K2).astype(np.int32)
+    nkd = np.full((N, TK), D - 1, np.int32)
+    nkd[:N - 4, 0] = rng.integers(0, 6, N - 4)
+    nkd[:N - 4, 1] = rng.integers(6, 10, N - 4)
+    state = rng.integers(0, 10, T).astype(np.int32)
+    node = rng.integers(-1, N - 4, T).astype(np.int32)
+    fields = [on(x) for x in (aff, anti, labels, aff_topo, anti_topo, term_key,
+                              term_label, nkd)]
+    task_mask = on(np.arange(T) < T - 8)
+    tables = {rel: k11.resident_tables_plain(
+        fields[2], fields[1], fields[4], on(node), on(state), task_mask, fields[7],
+        fields[5], fields[6], N, D, rel) for rel in (False, True)}
+    Hb, Ab, Hd, Ad = tables[False]
+    Hbn, Abn, Hdn, Adn = tables[True]
+    return args, fields, (Hb, Hbn, Abn, Hd, Hdn, Adn)
+
+
+def phase_words_edge(device) -> dict:
+    """K10's affinity_words and K2's words form on seeded inputs: the
+    words equal the plain version's (built and kept task words); K2's
+    two passes given the words equal their plain versions and K2 given
+    the mask K10 makes from the same tables; and, on a world with no
+    terms (every word 0), K2 given the words equals K2 given no
+    predicate.  Returns {name: max_abs_err}."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import propose as k2
+
+    args, fields, tables = k2_words_inputs(device)
+    errs = {"affinity_words": 0.0, "propose_best": 0.0, "propose_pick": 0.0}
+
+    def words_equal(name, got, want):
+        return require_equal(name, [(got.node_words, want.node_words),
+                                    (got.task_words, want.task_words),
+                                    (got.thr, want.thr)])
+
+    built = k10.affinity_words(*fields, *tables, None)
+    want = k10.affinity_words_plain(*fields, *tables, None)
+    kept = k10.affinity_words(*fields, *tables, built.task_words)
+    errs["affinity_words"] = max(words_equal("affinity_words edge built", built, want),
+                                 words_equal("affinity_words edge kept", kept, want))
+    mask = k10.affinity_mask(*fields, *tables)
+    require_equal("affinity words against mask", [(k10.affinity_cells_plain(want), mask)])
+    no_terms = [torch.zeros_like(x) for x in fields[:5]] + fields[5:]
+    empty = k10.affinity_words(*no_terms, *tables, None)
+    if bool(empty.task_words.any()):
+        fail("affinity_words edge: a world with no terms has task words")
+
+    def pick_args(best_args, best):
+        b, ties, active = best
+        k = torch.remainder(torch.arange(ties.numel(), device=device, dtype=torch.int32),
+                            torch.clamp(ties, min=1))
+        return best_args + [b, active, k]
+
+    cases = {"words": built, "no_terms": empty}
+    for name, dyn in cases.items():
+        a = list(args)
+        a[1] = dyn
+        best = k2.propose_best(*a)
+        errs["propose_best"] = max(errs["propose_best"], require_equal(
+            f"propose_best edge {name}", list(zip(best, k2.propose_best_plain(*a)))))
+        ref = list(args)
+        ref[1] = mask if name == "words" else None
+        errs["propose_best"] = max(errs["propose_best"], require_equal(
+            f"propose_best edge {name} against the mask form",
+            list(zip(best, k2.propose_best(*ref)))))
+        pa = pick_args(a, best)
+        prop = k2.propose_pick(*pa)
+        errs["propose_pick"] = max(errs["propose_pick"], require_equal(
+            f"propose_pick edge {name}", [(prop, k2.propose_pick_plain(*pa)),
+                                          (prop, k2.propose_pick(*pick_args(ref, best)))]))
+        log(json.dumps({"phase": "k2-words-edge", "case": name,
+                        "tasks": a[2].shape[0], "nodes": a[3].shape[0],
+                        "active": int(best[2].sum()),
+                        "vetoed_cells": int((~mask).sum()) if name == "words" else 0}))
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # worlds
 # ---------------------------------------------------------------------------
 
@@ -667,13 +876,14 @@ _MUTATED = {
     "segment_sum": (),
     "segment_count": (),
     "waterfill": (),
-    "lex_push": (0, 1),
+    "lex_push_many": (0, 1),
     "sort_by_segment": (0, 1),
     "vtime": (0, 1, 2, 3),
     "row_patch": (0,),           # the device buffers, written in place
     "resident_tables": (3, 4),   # task_node, task_state
     "affinity_mask": (),
     "affinity_row": (),
+    "affinity_words": (),
     "tier_control": (5, 11, 12, 13, 15, 16, 17),   # written in place
 }
 # Arguments that are snapshot fields, constant within a cycle but
@@ -683,6 +893,7 @@ _SNAPSHOT_ARGS = {
     "resident_tables": (0, 1, 2, 5, 6, 7, 8),
     "affinity_mask": tuple(range(8)),
     "affinity_row": tuple(range(8)),
+    "affinity_words": tuple(range(8)),
     "tier_control": (6, 7, 10, 14),
 }
 
@@ -739,7 +950,7 @@ class Recorder:
             (segment_sum, "segment_sum", "segment_sum"),
             (segment_sum, "segment_count", "segment_count"),
             (segment_sum, "waterfill", "waterfill"),
-            (lex_rank, "lex_push", "lex_push"),
+            (lex_rank, "lex_push_many", "lex_push_many"),
             (lex_rank, "sort_by_segment", "sort_by_segment"),
             (lex_rank, "vtime", "vtime"),
             (row_patch, "row_patch", "row_patch"),
@@ -750,6 +961,7 @@ class Recorder:
             (resident, "resident_tables", "resident_tables"),
             (affinity, "affinity_mask", "affinity_mask"),
             (affinity, "affinity_row", "affinity_row"),
+            (affinity, "affinity_words", "affinity_words"),
             (joint_tier, "tier_control", "tier_control"),
         ]
         self.calls = {name: [] for name in _MUTATED}
@@ -889,11 +1101,11 @@ def check_call(name: str, args):
         err = require_equal(name, [(a_k[i], a_p[i]) for i in (4, 5, 8, 9)])
         return err, {"accepted": int(args[2].sum()),
                      "rows_changed": int((a_k[8] != args[8]).sum())}
-    if name == "lex_push":
-        perm, rank = k8.lex_push(*args)
-        err = require_equal(name, list(zip((perm, rank), k8.lex_push_plain(*args))))
-        ks = args[1][perm]
-        return err, {"rows": int(perm.numel()),
+    if name == "lex_push_many":
+        perm, rank = k8.lex_push_many(*args)
+        err = require_equal(name, list(zip((perm, rank), k8.lex_push_many_plain(*args))))
+        ks = args[1][-1][perm]
+        return err, {"rows": int(perm.numel()), "keys": len(args[1]),
                      "tied_rows": int((ks[1:] == ks[:-1]).sum())}
     if name == "sort_by_segment":
         out = k8.sort_by_segment(*args)
@@ -922,6 +1134,15 @@ def check_call(name: str, args):
         return err, {"present_cells": int(out[0].sum()),
                      "releasing_calls": int(bool(args[11])),
                      "domain_cells": 0 if out[2] is None else int(out[2].sum())}
+    if name == "affinity_words":
+        from kube_batch_tpu_torch.kernels import affinity as k10
+
+        got, want = k10.affinity_words(*args), k10.affinity_words_plain(*args)
+        err = require_equal(name, [(got.node_words, want.node_words),
+                                   (got.task_words, want.task_words),
+                                   (got.thr, want.thr)])
+        return err, {"task_words_kept": int(args[14] is not None),
+                     "rows_with_terms": int(got.task_words.any(dim=1).sum())}
     if name in ("affinity_mask", "affinity_row"):
         from kube_batch_tpu_torch.kernels import affinity as k10
 
@@ -1144,12 +1365,13 @@ def phase_parity(cpu_runs):
     for key in (("predicate_mask", "vetoed_cells"), ("propose_best", "multi_tie_rows"),
                 ("propose_pick", "picked_past_first_tie"), ("resolve", "rejected"),
                 ("apply", "rows_changed"), ("failure_counts", "rows_predicate_failed"),
-                ("failure_counts", "rows_insufficient"), ("lex_push", "tied_rows"),
+                ("failure_counts", "rows_insufficient"), ("lex_push_many", "tied_rows"),
                 ("sort_by_segment", "segments"), ("vtime", "valid_rows"),
                 ("resident_tables", "present_cells"),
                 ("resident_tables", "releasing_calls"),
                 ("resident_tables", "domain_cells"),
                 ("affinity_mask", "vetoed_cells"), ("affinity_row", "vetoed_cells"),
+                ("affinity_words", "rows_with_terms"),
                 ("tier_control", "done"), ("tier_control", "not_done")):
         if seen.get(key, 0) <= 0:
             fail(f"parity worlds never gave {key[0]} a case with {key[1]} > 0")
@@ -1932,10 +2154,11 @@ def main_timing_input(rec: Recorder):
 
 def _rank_timings(rec: Recorder, label: str) -> dict:
     """Time K8's three entry points on the widest recorded call of each
-    (rows T), beside the plain version, the library form (for lex_push the
-    gather, a stable torch.argsort, the permutation and the dense-rank
-    scatter, the whole function; a stable torch.sort of the int64 segment
-    key; none for vtime) and the bound."""
+    (rows T; lex_push_many: the most keys among those), beside the plain
+    version, the library form (for lex_push_many the same function in
+    library calls: per key the gather, a stable torch.argsort and the
+    permutation, then the dense-rank scatter; a stable torch.sort of the
+    int64 segment key; none for vtime) and the bound."""
     import torch
 
     from kube_batch_tpu_torch.kernels import lex_rank as k8
@@ -1943,38 +2166,43 @@ def _rank_timings(rec: Recorder, label: str) -> dict:
     out = {}
 
     def widest(name):
+        if name == "lex_push_many":
+            return max((a for _c, _r, a in rec.calls[name]),
+                       key=lambda a: (a[1][0].numel(), len(a[1])))
         return max((a for _c, _r, a in rec.calls[name]), key=lambda a: a[0].numel())
 
-    perm, key = widest("lex_push")
-    T = perm.numel()
-    positions = torch.arange(T, dtype=torch.int32, device=perm.device)
-    dense = torch.empty(T, dtype=torch.int32, device=perm.device)
+    perm, keys = widest("lex_push_many")
+    T, m = keys[0].numel(), len(keys)
+    positions = torch.arange(T, dtype=torch.int32, device=keys[0].device)
+    dense = torch.empty(T, dtype=torch.int32, device=keys[0].device)
 
     def library():
-        # the same function in library calls: the gather, a stable
-        # argsort, the permutation and the dense rank
-        order = perm[torch.argsort(key[perm], stable=True)]
+        order = torch.arange(T, device=keys[0].device) if perm is None else perm
+        for key in keys:
+            order = order[torch.argsort(key[order], stable=True)]
         dense[order] = positions
         return order, dense
 
-    out["lex_push"] = (
-        time_ms(lambda: k8.lex_push(perm, key)),
-        time_ms(lambda: k8.lex_push_plain(perm, key)),
+    out["lex_push_many"] = (
+        time_ms(lambda: k8.lex_push_many(perm, keys)),
+        time_ms(lambda: k8.lex_push_many_plain(perm, keys)),
         time_ms(library),
-        bound(T * (key.element_size() + 8 + 8 + 4), T * 4 * 4),
+        # the keys and the order in, the order and rank out; 4 byte
+        # digits of a few operations each per key
+        bound(T * (4 * m + (0 if perm is None else 8) + 8 + 4), T * 4 * 4 * m),
     )
     seg, rank, S = widest("sort_by_segment")
     T = seg.numel()
     key64 = seg.long() * T + rank.long()
+    passes = k8.sort_plan(T, S)[2]
     out["sort_by_segment"] = (
         time_ms(lambda: k8.sort_by_segment(seg, rank, S)),
         time_ms(lambda: k8.sort_by_segment_plain(seg, rank, S)),
         time_ms(lambda: torch.sort(key64, stable=True)),
-        bound(T * (seg.element_size() + rank.element_size() + 16),
-              T * 4 * k8.sort_passes(T, S)),
+        bound(T * (seg.element_size() + rank.element_size() + 16), T * 4 * passes),
     )
     args = widest("vtime")
-    perm, s_seg, req, valid, alloc, denom, S = args
+    perm_v, s_seg, req, valid, alloc, denom, S = args
     T, R = req.shape
     out["vtime"] = (
         time_ms(lambda: k8.vtime(*args)),
@@ -1983,20 +2211,37 @@ def _rank_timings(rec: Recorder, label: str) -> dict:
         bound(T * (8 + 8 + 1 + 4) + int(valid.sum()) * R * 4 + 2 * alloc.numel() * 4,
               T * R * 4, F64_OPS_PER_S),
     )
+    notes = {"lex_push_many": {"rows": keys[0].numel(), "keys": m},
+             "sort_by_segment": {"rows": seg.numel(), "segments": S,
+                                 "plan": list(k8.sort_plan(seg.numel(), S))},
+             "vtime": {"rows": req.shape[0]}}
     for name, (ms, plain_ms, library_ms, b) in out.items():
-        log(json.dumps({"phase": f"kernel-{label}", "name": name,
-                        "rows": int(widest(name)[0].numel()), "ms": round(ms, 4),
-                        "plain_ms": round(plain_ms, 4),
+        log(json.dumps({"phase": f"kernel-{label}", "name": name, **notes[name],
+                        "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
                         "library_ms": None if library_ms is None else round(library_ms, 4),
                         "bound_ms": round(b[0], 6), "bound_by": b[1]}))
     return out
 
 
-def phase_rank_kernels(main_rec: Recorder, preempt_rec: Recorder) -> dict:
+def _path_steps(cycles) -> int:
+    """Preemption-loop steps of a run of the preempt path, all cycles."""
+    return sum(loop["steps"] for c in cycles for key in ("preempt_steps", "reclaim_steps")
+               for loop in c["rounds"].get(key, []))
+
+
+def phase_rank_kernels(main_rec: Recorder, preempt_rec: Recorder, main_counts,
+                       preempt_counts, preempt_cycles) -> dict:
     """K8 on every recorded call of the main path (every 10th) and the
     preempt path (every 25th) against its plain version; timed at both
     paths' shapes (T = 65,536 and 8,192); the kernels line takes the main
-    path's."""
+    path's.  Logs K8's launches on both paths and per preemption step."""
+    steps = _path_steps(preempt_cycles)
+    log(json.dumps({"phase": "k8-launches",
+                    "main_path": {k: main_counts[k] for k in RANK_KERNELS},
+                    "preempt_path": {k: preempt_counts[k] for k in RANK_KERNELS},
+                    "preempt_steps": steps,
+                    "preempt_per_step": {k: round(preempt_counts[k] / max(steps, 1), 3)
+                                         for k in RANK_KERNELS}}))
     seen = {}
     errs = {}
     for label, rec in (("main-path", main_rec), ("preempt-path", preempt_rec)):
@@ -2006,7 +2251,7 @@ def phase_rank_kernels(main_rec: Recorder, preempt_rec: Recorder) -> dict:
             errs[name] = max(errs.get(name, 0.0), acc["max_abs_err"])
             for k, v in acc.items():
                 seen[(name, k)] = seen.get((name, k), 0) + v
-    for key in (("lex_push", "calls"), ("lex_push", "tied_rows"),
+    for key in (("lex_push_many", "calls"), ("lex_push_many", "tied_rows"),
                 ("sort_by_segment", "calls"), ("vtime", "valid_rows")):
         if seen.get(key, 0) <= 0:
             fail(f"K8: {key[0]} never met a case with {key[1]} > 0")
@@ -2154,7 +2399,11 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
                     "wall_ms": round(wall_ms, 3),
                     **{k: round(v, 3) for k, v in t.items()},
                     **{k: v for k, v in sched.last_stats.items() if k.endswith("rounds")},
+                    **{k: v for k, v in sched.last_stats.items() if k.endswith("cancelled")},
                     **{f"{k}_launches": now[k] - before[k] for k in AFFINITY_KERNELS}}
+            if now["affinity_mask"] - before["affinity_mask"] > 1:
+                fail(f"affinity path: cycle {cycle + 1} launched affinity_mask "
+                     f"{now['affinity_mask'] - before['affinity_mask']} times (at most once)")
             before = now
             _check_binds_allowed(ssn)
             line.update(_check_affinity(ssn, cache))
@@ -2169,6 +2418,11 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     for name in AFFINITY_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the affinity path")
+    # every auction round builds its words once, then proposes: the n-th
+    # recorded words and K2 calls are one round's
+    if rec.seen["affinity_words"] != rec.seen["propose_best"]:
+        fail(f"affinity path: {rec.seen['affinity_words']} affinity_words calls for "
+             f"{rec.seen['propose_best']} auction rounds")
     if not sessions[0][1] or not sessions[1][1]:
         fail("an affinity-path cycle bound nothing")
     _check_invariants(cache)
@@ -2261,19 +2515,25 @@ def phase_joint_path(device, seq_cycles, n_cycles: int = JOINT_CYCLES):
     return counts, rec, cycles
 
 
-def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder) -> dict:
-    """K10 and K11 on every recorded call of the affinity path (every
-    4th / 8th), K10's row form on every call of ROW_WORLD's card run, K12
-    on every 10th call of the joint path, each against its plain version;
-    timed on cycle 2's inputs of their paths."""
+def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
+    """K11 on every 8th recorded call of the affinity path, K10's mask on
+    each of its calls (one a cycle), K10's words and K2 on every 300th
+    round, K10's row form on every call of ROW_WORLD's card run, K12 on
+    every 10th call of the joint path, each against its plain version;
+    timed on cycle 2's inputs of their paths, and K2 given the words
+    against K2 given K10's mask of the same tables (outputs equal, both
+    timed).  Returns (kernel records, {K2 pass: max abs err on the
+    affinity path})."""
     import torch
 
     from kube_batch_tpu_torch.kernels import affinity as k10
     from kube_batch_tpu_torch.kernels import joint_tier as k12
+    from kube_batch_tpu_torch.kernels import propose as k2
     from kube_batch_tpu_torch.kernels import resident as k11
 
     checks = {}
     for label, rec, names in (("affinity-path", arec, AFFINITY_KERNELS),
+                              ("affinity-path-k2", arec, ("propose_best", "propose_pick")),
                               ("row-world", row_rec, AFFINITY_ROW),
                               ("joint-path", jrec, JOINT_ONLY)):
         got = check_all(rec, names)
@@ -2307,13 +2567,13 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder) ->
                  + 2 * N * K + 2 * D * K, 0),
            residents=held, tasks=T, nodes=N, domains=D)
 
-    # K10's mask: cycle 2's first call (an Idle-pass round)
+    # K10's mask: cycle 2's call (the failure tallies, Idle orientation)
     args = second_cycle(arec, "affinity_mask")[0]
     fields, tables = args[:8], args[8:]
     T, N = fields[0].shape[0], tables[0].shape[0]
     KW, K2W = (K + 31) // 32, (K2 + 31) // 32
-    in_bytes = sum(x.numel() * x.element_size() for x in fields) + sum(
-        x.numel() for x in tables if x is not None)
+    table_bytes = sum(x.numel() for x in tables if x is not None)
+    in_bytes = sum(x.numel() * x.element_size() for x in fields) + table_bytes
     record("affinity_mask", time_ms(lambda: k10.affinity_mask(*args)),
            time_ms(lambda: k10.affinity_mask_plain(*args), warmup=1, runs=3),
            bound(in_bytes + T * N, T * N * (5 * KW + 4 * K2W)),
@@ -2321,6 +2581,53 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder) ->
            # PyTorch form of this function
            time_ms(lambda: k10.affinity_mask_plain(*args), warmup=1, runs=3),
            cells=T * N, live_words=[KW, K2W])
+
+    # K10's words and K2's words form: the last recorded round (cycle 2)
+    wargs = arec.calls["affinity_words"][-1][2]
+    bargs = arec.calls["propose_best"][-1][2]
+    pargs = arec.calls["propose_pick"][-1][2]
+    words = bargs[1]
+    fields, tables, kept = wargs[:8], wargs[8:14], wargs[14]
+    nw = words.node_words.shape[1]
+    nkd_bytes = fields[7].numel() * 4
+    # kept task words and each distinct table in; node words and
+    # thresholds out
+    distinct = {x.data_ptr(): x for x in tables if x is not None}.values()
+    words_bytes = (sum(x.numel() for x in distinct) + nkd_bytes
+                   + fields[6].numel() * 4 + T * nw * 4 + N * nw * 4 + T * 8)
+    record("affinity_words", time_ms(lambda: k10.affinity_words(*wargs)),
+           time_ms(lambda: k10.affinity_words_plain(*wargs)),
+           bound(words_bytes, N * nw * 32 + T * (KW + K2W) * 32),
+           task_words_kept=kept is not None, tasks=T, nodes=N, words=nw)
+    mask = k10.affinity_mask(*fields, *tables)
+    margs = (bargs[0], mask) + tuple(bargs[2:])
+    mpargs = (pargs[0], mask) + tuple(pargs[2:])
+    best_w = require_equal("propose_best words against mask form", list(zip(
+        k2.propose_best(*bargs), k2.propose_best(*margs))))
+    pick_w = require_equal("propose_pick words against mask form", [
+        (k2.propose_pick(*pargs), k2.propose_pick(*mpargs))])
+    best_ms, best_mask_ms = (time_ms(lambda: k2.propose_best(*bargs)),
+                             time_ms(lambda: k2.propose_best(*margs)))
+    pick_ms, pick_mask_ms = (time_ms(lambda: k2.propose_pick(*pargs)),
+                             time_ms(lambda: k2.propose_pick(*mpargs)))
+    mask_ms = time_ms(lambda: k10.affinity_mask(*fields, *tables))
+    words_ms = out["affinity_words"]["ms"]
+    log(json.dumps({
+        "phase": "k2-words-form", "tasks": T, "nodes": N, "words": nw,
+        "eligible": int(bargs[6].sum()),
+        "propose_best_ms": round(best_ms, 4),
+        "propose_best_mask_form_ms": round(best_mask_ms, 4),
+        "propose_pick_ms": round(pick_ms, 4),
+        "propose_pick_mask_form_ms": round(pick_mask_ms, 4),
+        "affinity_words_ms": round(words_ms, 4), "affinity_mask_ms": round(mask_ms, 4),
+        "round_words_ms": round(words_ms + best_ms + pick_ms, 4),
+        "round_mask_ms": round(mask_ms + best_mask_ms + pick_mask_ms, 4),
+        "max_abs_err": max(best_w, pick_w),
+        # pass 1 reads the predicate mask and the words instead of a mask
+        "propose_best_bound_ms": round(bound(T * N + T * nw * 4 + T * 8 + N * nw * 4
+                                             + len(bargs[10]) * 4 * T * N, 0)[0], 6),
+        "propose_best_mask_form_bound_ms": round(bound(2 * T * N + len(bargs[10]) * 4
+                                                       * T * N, 0)[0], 6)}))
 
     # K10's row form: a call of ROW_WORLD's cycle 2
     args = second_cycle(row_rec, "affinity_row")[0]
@@ -2352,7 +2659,8 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder) ->
            kind="evict" if args[0] == k12.EVICT else "auction",
            tasks=args[5].shape[0], done=done)
     torch.cuda.synchronize()
-    return out
+    return out, {name: max(checks[name]["max_abs_err"], err) for name, err in
+                 (("propose_best", best_w), ("propose_pick", pick_w))}
 
 
 def _tier_control_bytes(args, done: bool) -> int:
@@ -2380,21 +2688,33 @@ def _tier_control_bytes(args, done: bool) -> int:
     return n
 
 
-def redesign_order(kernels_line) -> list:
+# kernels redesigned for this card, and by which change; a later redesign
+# takes the next unmarked kernel of the order
+REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "PR 5",
+              "lex_push_many": "PR 6", "sort_by_segment": "PR 6",
+              "affinity_mask": "PR 6", "affinity_words": "PR 6"}
+
+
+def redesign_order(kernels_line) -> tuple[list, str | None]:
     """The kernels in the order a redesign should take them: first those
     slower than their library form, largest factor first; then the rest
     by launches × (ms − bound_ms), the card time above the bound over
-    the path's launches."""
+    the path's launches.  Kernels already redesigned are marked; the
+    second value names the first that is not."""
     slower = sorted((k for k in kernels_line
                      if k["library_ms"] is not None and k["ms"] > k["library_ms"]),
                     key=lambda k: -k["ms"] / k["library_ms"])
     rest = sorted((k for k in kernels_line if k not in slower),
                   key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
-    return ([{"name": k["name"], "library_factor": round(k["ms"] / k["library_ms"], 3)}
-             for k in slower]
-            + [{"name": k["name"],
-                "excess_ms": round(k["launches"] * (k["ms"] - k["bound_ms"]), 1)}
-               for k in rest])
+    order = ([{"name": k["name"], "library_factor": round(k["ms"] / k["library_ms"], 3)}
+              for k in slower]
+             + [{"name": k["name"],
+                 "excess_ms": round(k["launches"] * (k["ms"] - k["bound_ms"]), 1)}
+                for k in rest])
+    for k in order:
+        if k["name"] in REDESIGNED:
+            k["redesigned"] = REDESIGNED[k["name"]]
+    return order, next((k["name"] for k in order if "redesigned" not in k), None)
 
 
 def main() -> int:
@@ -2424,6 +2744,8 @@ def main() -> int:
                       for w in PARITY_WORLDS}
         phase_card_and_build()
         edge_errs = phase_edge_inputs(device)
+        edge_errs.update(phase_k8_edge(device))
+        edge_errs.update(phase_words_edge(device))
         row_counts, row_rec = phase_parity(cpu_parity)
         ppool.close()
         ppool.join()
@@ -2435,10 +2757,11 @@ def main() -> int:
         affinity_counts, arec = phase_affinity_path(device)
         preempt_counts, prec, pcycles = phase_preempt_path(cpu_preempt)
         records.update(phase_preempt_kernels(prec, pcycles))
-        records.update(phase_rank_kernels(rec, prec))
+        records.update(phase_rank_kernels(rec, prec, counts, preempt_counts, pcycles))
         del rec, prec
         joint_counts, jrec, _ = phase_joint_path(device, pcycles)
-        records.update(phase_affinity_kernels(arec, row_rec, jrec))
+        affinity_records, k2_errs = phase_affinity_kernels(arec, row_rec, jrec)
+        records.update(affinity_records)
         del arec, row_rec, jrec
         pool.close()
         pool.join()
@@ -2446,7 +2769,7 @@ def main() -> int:
         pool.terminate()
         ppool.terminate()
 
-    for name, err in edge_errs.items():
+    for name, err in list(edge_errs.items()) + list(k2_errs.items()):
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     kernels_line = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2464,7 +2787,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
-    log(json.dumps({"phase": "redesign-order", "kernels": redesign_order(kernels_line)}))
+    order, pick = redesign_order(kernels_line)
+    log(json.dumps({"phase": "redesign-order", "kernels": order, "next": pick}))
     log(json.dumps({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,9 @@ def make_allocate_solver(policy, max_rounds: int | None = None):
     `max_rounds` bounds auction rounds per pass (None → the policy's
     `allocate.max_rounds`, failing that the number of tasks).
     `pred` is the cycle's static predicate mask when the caller already
-    has it; `stats["allocate_rounds"]` receives the rounds of each pass."""
+    has it; `stats["allocate_rounds"]` receives the rounds of each pass
+    and `stats["allocate_cancelled"]` the acceptances each serialize step
+    cancelled in it (ops/assignment.py · CANCEL_STEPS)."""
     from kube_batch_tpu_torch.actions.backfill import non_besteffort_eligible
 
     if max_rounds is None:
@@ -38,7 +40,7 @@ def make_allocate_solver(policy, max_rounds: int | None = None):
         if pred is None:
             pred = policy.predicate_mask(snap)
         serialize = policy.serialize_mask(snap, state)
-        rounds = []
+        rounds, cancelled = [], []
         for use_future in (False, True):
             st: dict = {}
             state = allocate_rounds(
@@ -46,15 +48,17 @@ def make_allocate_solver(policy, max_rounds: int | None = None):
                 use_future=use_future,
                 max_rounds=max_rounds,
                 score_quantum=policy.score_quantum,
-                dyn_predicate_fn=policy.dynamic_predicate_fn,
+                dyn_predicate_fn=policy.auction_dyn_predicate,
                 global_serialize_fn=policy.global_serialize_fn,
                 domain_serialize_fn=policy.domain_serialize_fn,
                 serialize_mask=serialize,
                 stats=st,
             )
             rounds.append(st["rounds"])
+            cancelled.append(st["cancelled"])
         if stats is not None:
             stats["allocate_rounds"] = rounds
+            stats["allocate_cancelled"] = cancelled
         return state
 
     return solve

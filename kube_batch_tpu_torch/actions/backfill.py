@@ -48,7 +48,7 @@ def make_backfill_solver(policy, max_rounds: int | None = None):
             snap, state, pred, ZERO_SCORE, policy.rank_fn, backfill_eligible,
             snap.eps,
             max_rounds=max_rounds,
-            dyn_predicate_fn=policy.dynamic_predicate_fn,
+            dyn_predicate_fn=policy.auction_dyn_predicate,
             global_serialize_fn=policy.global_serialize_fn,
             domain_serialize_fn=policy.domain_serialize_fn,
             serialize_mask=policy.serialize_mask(snap, state),
@@ -56,6 +56,7 @@ def make_backfill_solver(policy, max_rounds: int | None = None):
         )
         if stats is not None:
             stats["backfill_rounds"] = [st["rounds"]]
+            stats["backfill_cancelled"] = [st["cancelled"]]
         return state
 
     return solve

@@ -166,7 +166,7 @@ def make_joint_cycle(policy, action_names: Sequence[str]):
         pred = policy.predicate_mask(snap)
         state, evict_code = joint_rounds(
             snap, state, phases, pred, policy.rank_fn, snap.eps,
-            dyn_predicate_fn=policy.dynamic_predicate_fn,
+            dyn_predicate_fn=policy.auction_dyn_predicate,
             dyn_predicate_row_fn=policy.dyn_predicate_row,
             global_serialize_fn=policy.global_serialize_fn,
             domain_serialize_fn=policy.domain_serialize_fn,

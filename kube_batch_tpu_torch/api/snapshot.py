@@ -141,6 +141,16 @@ class SnapshotTensors:
     def num_resources(self) -> int:
         return self.task_req.shape[1]
 
+    def affinity_task_words(self) -> "torch.Tensor | None":
+        """The inter-pod affinity task words of kernel K10
+        (`kernels/affinity.py · affinity_words`) once a call built them
+        for this snapshot; carried to the next pack's snapshot as the
+        segment indexes are (`TASK_WORDS_FIELDS`)."""
+        return self.__dict__.get("_affinity_task_words")
+
+    def keep_affinity_task_words(self, task_words: torch.Tensor) -> None:
+        self.__dict__["_affinity_task_words"] = task_words
+
     def segment_index(self, kind: str) -> "SegmentIndex":
         """The segment index of one base id vector ("job", "queue" or
         "ns", see `SEGMENT_BASES`), built at its first use after a pack
@@ -192,6 +202,11 @@ SEGMENT_BASES = {
     "queue": ("task_job", "job_queue"),
     "ns": ("task_ns",),
 }
+
+
+#: the snapshot fields kernel K10's task words read
+TASK_WORDS_FIELDS = ("task_aff", "task_anti", "task_podlabels", "task_aff_topo",
+                     "task_anti_topo")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,12 +263,17 @@ def build_segment_index(base: torch.Tensor, num_segments: int) -> SegmentIndex:
 def carry_segment_indexes(prev: SnapshotTensors, new: SnapshotTensors,
                           written) -> None:
     """Give `new` (the next pack's snapshot) the segment indexes of
-    `prev` whose base fields are not among the fields this pack wrote."""
+    `prev` whose base fields are not among the fields this pack wrote,
+    and its affinity task words when the pack wrote none of
+    `TASK_WORDS_FIELDS`."""
     kept = prev.__dict__.get("_segment_index", {})
     written = set(written)
     carried = {kind: idx for kind, idx in kept.items()
                if not written.intersection(SEGMENT_BASES[kind])}
     new.__dict__["_segment_index"] = carried
+    words = prev.affinity_task_words()
+    if words is not None and not written.intersection(TASK_WORDS_FIELDS):
+        new.keep_affinity_task_words(words)
 
 
 def segment_sum(

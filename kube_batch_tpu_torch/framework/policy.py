@@ -74,6 +74,9 @@ class TensorPolicy:
         # Their single-task row forms (snap, state, p) -> bool[N] | None,
         # evaluated once per preemption step.
         self.dynamic_predicate_rows: list[Callable] = []
+        # Their words forms (snap, state, immediate) -> AffinityWords |
+        # None, or None where a predicate has none.
+        self.dynamic_predicate_words: list[Callable | None] = []
         self.global_serialize: list[Callable] = []
         self.domain_serialize: list[Callable] = []
         # Per-node anti-affinity serialization set, snapshot-static:
@@ -115,9 +118,10 @@ class TensorPolicy:
     def add_predicate_fn(self, fn) -> None:
         self.predicates.append(fn)
 
-    def add_dynamic_predicate_fn(self, fn, row_fn) -> None:
+    def add_dynamic_predicate_fn(self, fn, row_fn, words_fn=None) -> None:
         self.dynamic_predicates.append(fn)
         self.dynamic_predicate_rows.append(row_fn)
+        self.dynamic_predicate_words.append(words_fn)
 
     def add_global_serialize_fn(self, fn) -> None:
         self.global_serialize.append(fn)
@@ -193,6 +197,23 @@ class TensorPolicy:
             if part is not None:
                 m = part if m is None else m & part
         return m
+
+    def dyn_predicate_words(self, snap, state, immediate: bool = False):
+        """The dynamic predicates in the words form kernel K2 tests itself
+        (`kernels/affinity.py · AffinityWords`) when the only one
+        registered is inter-pod affinity; None otherwise, and when it
+        does not constrain this snapshot."""
+        if len(self.dynamic_predicate_words) != 1:
+            return None
+        words_fn = self.dynamic_predicate_words[0]
+        return None if words_fn is None else words_fn(snap, state, immediate)
+
+    def auction_dyn_predicate(self, snap, state, immediate: bool = False):
+        """What an auction round hands kernel K2: the words form when the
+        policy has one, else the mask of `dynamic_predicate_fn`, or None."""
+        words = self.dyn_predicate_words(snap, state, immediate)
+        return words if words is not None else self.dynamic_predicate_fn(
+            snap, state, immediate)
 
     @property
     def dyn_predicate_row(self):

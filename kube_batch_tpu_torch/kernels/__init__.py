@@ -9,9 +9,9 @@
 | K5 | victim_prefix.victim_prefix | CUDA C++ | ops/preemption.py · _min_victims_per_node, choose_node |
 | K6 | preempt_scan.preempt_open, preempt_scan.preempt_continue | CUDA C++ | ops/preemption.py · preemption_rounds (the step's scans) |
 | K7 | segment_sum.segment_sum, segment_sum.segment_count, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
-| K8 | lex_rank.lex_push, lex_rank.sort_by_segment, lex_rank.vtime | CUDA C++ | framework/policy.py · rank_fn, virtual_start_times; ops/assignment.py · rank_from_keys |
+| K8 | lex_rank.lex_push_many, lex_rank.sort_by_segment, lex_rank.vtime | CUDA C++ | framework/policy.py · rank_fn, virtual_start_times; ops/assignment.py · rank_from_keys |
 | K9 | row_patch.row_patch | CUDA C++ | cache/incremental.py · _row_patch |
-| K10 | affinity.affinity_mask, affinity.affinity_row | CUDA C++ | plugins/predicates.py · _topo_feasibility, _affinity_candidate_ok, pod_affinity_predicate, pod_affinity_row |
+| K10 | affinity.affinity_words (tested in K2's tiles), affinity.affinity_mask, affinity.affinity_row | CUDA C++ | plugins/predicates.py · _topo_feasibility, _affinity_candidate_ok, pod_affinity_predicate, pod_affinity_row |
 | K11 | resident.resident_tables | CUDA C++ | plugins/predicates.py · resident_podlabels, _resident_mask, resident_domain_labels |
 | K12 | joint_tier.tier_control | CUDA C++ | ops/joint.py · _haswork_fn, advance (the tier_done test) |
 
@@ -51,12 +51,13 @@ def wrappers() -> dict:
         "segment_sum": segment_sum.segment_sum,
         "segment_count": segment_sum.segment_count,
         "waterfill": segment_sum.waterfill,
-        "lex_push": lex_rank.lex_push,
+        "lex_push_many": lex_rank.lex_push_many,
         "sort_by_segment": lex_rank.sort_by_segment,
         "vtime": lex_rank.vtime,
         "row_patch": row_patch.row_patch,
         "affinity_mask": affinity.affinity_mask,
         "affinity_row": affinity.affinity_row,
+        "affinity_words": affinity.affinity_words,
         "resident_tables": resident.resident_tables,
         "tier_control": joint_tier.tier_control,
     }

@@ -32,6 +32,15 @@
 // Padded vocabulary columns are zero on the task side, so they never
 // count; padded nodes and padded topology-key columns (the dead domain)
 // are evaluated by the same formula as the plain version.
+//
+// kb_affinity_words is the form the auction rounds take: passes 1 and 2
+// only, nothing written per cell.  Kernel K2 (propose.cu) applies pass
+// 3's cell test inside its own tiles.  The task words read nothing but
+// the snapshot, so the caller keeps them for the snapshot's life and a
+// round builds only the node words and the thresholds
+// (affinity_thresholds_kernel, from the kept words and the term-exists
+// words): at the flagship shapes 160 KB of node words and 512 KB of
+// thresholds a round, where the mask was 0.54 GB.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -143,6 +152,39 @@ __global__ void affinity_tasks_kernel(
   }
   thr[2 * i] = need - boot;
   thr[2 * i + 1] = need2 - boot2;
+}
+
+// thresholds from kept task words: the same need - bootstrap as
+// affinity_tasks_kernel, the labels read from the task's label words
+__global__ void affinity_thresholds_kernel(Dims d, const uint32_t* __restrict__ task_words,
+                                           const int32_t* __restrict__ term_label,
+                                           const uint32_t* __restrict__ exists,
+                                           int32_t* __restrict__ thr) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= d.T) return;
+  const uint32_t* tw = task_words + (size_t)t * d.nw();
+  int need = 0, boot = 0;
+  for (int w = 0; w < d.KW; ++w) {
+    const uint32_t a = tw[w];
+    need += __popc(a);
+    boot += __popc(a & tw[2 * d.KW + w] & ~exists[w]);
+  }
+  int need2 = 0, boot2 = 0;
+  for (int w = 0; w < d.K2W; ++w) {
+    const uint32_t a = tw[3 * d.KW + w];
+    uint32_t own = 0, gone = 0;
+    for (int b = 0; b < 32; ++b) {
+      const int j = w * 32 + b;
+      if (j >= d.K2) break;
+      const int lab = term_label[j];
+      if ((tw[2 * d.KW + (lab >> 5)] >> (lab & 31)) & 1u) own |= 1u << b;
+      if (!((exists[lab >> 5] >> (lab & 31)) & 1u)) gone |= 1u << b;
+    }
+    need2 += __popc(a);
+    boot2 += __popc(a & own & gone);
+  }
+  thr[2 * t] = need - boot;
+  thr[2 * t + 1] = need2 - boot2;
 }
 
 __device__ __forceinline__ bool cell(const Dims& d, const uint32_t* tw, const int32_t* th,
@@ -268,5 +310,32 @@ extern "C" int kb_affinity_row(
   if (err) return err;
   affinity_row_kernel<<<(N + 127) / 128, 128, 0, stream>>>(d, task_words, thr, node_words,
                                                           out);
+  return (int)cudaGetLastError();
+}
+
+// The words form: node_words u32[N, NW] and thr i32[T, 2] of this round,
+// and task_words u32[T, NW], built here when build_task_words is set and
+// read (kept from an earlier call on the same snapshot) otherwise.
+// exists u32[KW] is scratch, zeroed here.
+extern "C" int kb_affinity_words(
+    const float* aff, const float* anti, const float* labels, const float* aff_topo,
+    const float* anti_topo, const int32_t* term_key, const int32_t* term_label,
+    const int32_t* nkd, const uint8_t* Hb, const uint8_t* Hba, const uint8_t* Aba,
+    const uint8_t* Hd, const uint8_t* Hd_now, const uint8_t* Ad_now, int T, int N, int K,
+    int K2, int TK, int build_task_words, uint32_t* node_words, uint32_t* exists,
+    uint32_t* task_words, int32_t* thr, cudaStream_t stream) {
+  if (T == 0 || N == 0) return 0;
+  Dims d = make_dims(T, N, K, K2, TK);
+  if (d.KW > MAXW || d.K2W > MAXW) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaMemsetAsync(exists, 0, sizeof(uint32_t) * (d.KW ? d.KW : 1), stream);
+  if (err) return err;
+  if (build_task_words)
+    return prepare(d, Hb, Hba, Aba, Hd, Hd_now, Ad_now, nkd, term_key, term_label, aff,
+                   anti, labels, aff_topo, anti_topo, nullptr, node_words, exists,
+                   task_words, thr, stream);
+  affinity_nodes_kernel<<<(d.N + 127) / 128, 128, 0, stream>>>(
+      d, Hb, Hba, Aba, Hd, Hd_now, Ad_now, nkd, term_key, term_label, node_words, exists);
+  affinity_thresholds_kernel<<<(d.T + 127) / 128, 128, 0, stream>>>(d, task_words,
+                                                                     term_label, exists, thr);
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,18 @@
 // L2 instead of T times.  Pass 2 uses one warp per row and stops at the
 // chosen tie, reading on average half a row.
 //
+// The inter-pod affinity predicate comes as a bool[T, N] mask (`dyn`) or,
+// as the auction rounds give it, as words (kernel K10's
+// kb_affinity_words): each block stages its 8 task rows' words and
+// thresholds in shared memory (a warp of pass 2 its row's, in registers),
+// each thread holds its node's words in registers, and a cell is tested
+// as K10's pass 3 tests it: popcount(aff & Hb) >= thr0, anti & Hb_anti,
+// labels & sym and anti_topo & present_now all 0, popcount(aff_topo &
+// present) >= thr1.  A row with no word set passes every cell and skips
+// the test.  Kernels are instantiated per word count W (words a
+// vocabulary takes, 1, 2 or 8; 0 without words), so the words stay in
+// registers.
+//
 // Ties decide placements, so the score must be bit-identical to the
 // plain version and to the reference: every multiply, add and divide is
 // an explicitly rounded intrinsic, in the reference's order (terms
@@ -56,6 +68,10 @@ struct Args {
   const float* cap;         // f32[N, R]
   const float* extra0;      // f32[T, N] or null (already weighted)
   const float* extra1;      // f32[T, N] or null
+  const uint32_t* tw;       // u32[T, NW] affinity task words or null
+  const int32_t* thr;       // i32[T, 2] their thresholds
+  const uint32_t* nwd;      // u32[N, NW] affinity node words
+  int KW, K2W;              // words of the two vocabularies
   int T, N, R;
   int has_lr, has_bal, d0, d1;
   float w_lr, w_bal, inv_q;  // inv_q == 0: no quantum floor
@@ -66,6 +82,47 @@ struct NodeRow {
   bool mask;
 };
 
+// Affinity words of one node or task row, groups [0..5) of W words each
+// (node: Hb, Hb_anti, sym, present, present_now; task: aff, anti,
+// labels, aff_topo, anti_topo), zero past the vocabulary's words.
+template <int W>
+struct Words {
+  uint32_t v[W > 0 ? 5 * W : 1];
+};
+
+template <int W>
+__device__ __forceinline__ uint32_t word_at(const Args& a, const uint32_t* row, int g, int w) {
+  const bool topo = g >= 3;
+  if (w >= (topo ? a.K2W : a.KW)) return 0u;
+  return row[topo ? 3 * a.KW + (g - 3) * a.K2W + w : g * a.KW + w];
+}
+
+template <int W>
+__device__ __forceinline__ void load_words(const Args& a, const uint32_t* base, int row,
+                                           Words<W>& out) {
+  const uint32_t* p = base + (size_t)row * (3 * a.KW + 2 * a.K2W);
+#pragma unroll
+  for (int g = 0; g < 5; ++g)
+#pragma unroll
+    for (int w = 0; w < W; ++w) out.v[g * W + w] = word_at<W>(a, p, g, w);
+}
+
+// K10's cell test on a task row's words `tw` (5·W) and its thresholds.
+template <int W>
+__device__ __forceinline__ bool words_ok(const uint32_t* tw, int thr0, int thr1,
+                                         const Words<W>& nw) {
+  int have = 0, have2 = 0;
+  uint32_t hit = 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    have += __popc(tw[w] & nw.v[w]);
+    hit |= (tw[W + w] & nw.v[W + w]) | (tw[2 * W + w] & nw.v[2 * W + w])
+         | (tw[4 * W + w] & nw.v[4 * W + w]);
+    have2 += __popc(tw[3 * W + w] & nw.v[3 * W + w]);
+  }
+  return hit == 0 && have >= thr0 && have2 >= thr1;
+}
+
 __device__ __forceinline__ void load_node(const Args& a, int n, NodeRow& nr) {
   for (int r = 0; r < a.R; ++r) {
     nr.avail[r] = a.avail[(size_t)n * a.R + r];
@@ -75,12 +132,17 @@ __device__ __forceinline__ void load_node(const Args& a, int n, NodeRow& nr) {
   nr.mask = a.node_mask[n] != 0;
 }
 
-// Masked, quantized score of (t, n); sets feas.
+// Masked, quantized score of (t, n); sets feas.  `tw` (5·W words), thr0
+// and thr1 are row t's affinity words and thresholds (tw null: no test).
+template <int W>
 __device__ __forceinline__ float masked_score(const Args& a, int t, int n,
                                               const float* req, bool elig,
-                                              const NodeRow& nr, bool& feas) {
+                                              const NodeRow& nr, const uint32_t* tw,
+                                              int thr0, int thr1, const Words<W>& nw,
+                                              bool& feas) {
   feas = elig && nr.mask && a.pred[(size_t)t * a.N + n];
   if (feas && a.dyn) feas = a.dyn[(size_t)t * a.N + n] != 0;
+  if (W > 0 && feas && tw) feas = words_ok<W>(tw, thr0, thr1, nw);
   if (feas) {
     for (int r = 0; r < a.R; ++r)
       feas = feas && ((req[r] <= nr.avail[r]) || (req[r] < a.eps[r]));
@@ -127,11 +189,15 @@ __device__ __forceinline__ void combine(float& m, int& c, float m2, int c2) {
   else if (m2 == m) { c += c2; }
 }
 
+template <int W>
 __global__ void __launch_bounds__(THREADS) propose_best_kernel(
     Args a, float* __restrict__ best, int32_t* __restrict__ ties,
     uint8_t* __restrict__ active) {
   __shared__ float s_req[ROWS][MAX_R];
   __shared__ bool s_elig[ROWS];
+  __shared__ uint32_t s_tw[ROWS][W > 0 ? 5 * W : 1];
+  __shared__ int32_t s_thr[ROWS][2];
+  __shared__ bool s_test[ROWS];   // the row has an affinity word set
   __shared__ float s_m[THREADS / 32][ROWS];
   __shared__ int s_c[THREADS / 32][ROWS];
   __shared__ int s_inf[THREADS / 32][ROWS];
@@ -142,7 +208,26 @@ __global__ void __launch_bounds__(THREADS) propose_best_kernel(
     s_elig[tid] = t < a.T && a.eligible[t];
     for (int r = 0; r < a.R; ++r) s_req[tid][r] = t < a.T ? a.req[(size_t)t * a.R + r] : 0.f;
   }
+  if (W > 0 && a.tw) {
+    const int stride = 3 * a.KW + 2 * a.K2W;
+    for (int i = tid; i < ROWS * 5 * W; i += THREADS) {
+      const int r = i / (5 * W), g = (i / W) % 5, w = i % W;
+      const int t = t0 + r;
+      s_tw[r][g * W + w] = t < a.T ? word_at<W>(a, a.tw + (size_t)t * stride, g, w) : 0u;
+    }
+    if (tid < 2 * ROWS) {
+      const int t = t0 + tid / 2;
+      s_thr[tid / 2][tid % 2] = t < a.T ? a.thr[(size_t)t * 2 + tid % 2] : 0;
+    }
+    __syncthreads();
+    if (tid < ROWS) {
+      uint32_t any = 0;
+      for (int j = 0; j < 5 * W; ++j) any |= s_tw[tid][j];
+      s_test[tid] = any != 0;
+    }
+  }
   __syncthreads();
+  const bool words = W > 0 && a.tw;
 
   float m[ROWS];
   int c[ROWS], infeas[ROWS];
@@ -152,12 +237,16 @@ __global__ void __launch_bounds__(THREADS) propose_best_kernel(
   for (int n = tid; n < a.N; n += THREADS) {
     NodeRow nr;
     load_node(a, n, nr);
+    Words<W> nw;
+    if (words) load_words<W>(a, a.nwd, n, nw);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
       int t = t0 + i;
       if (t >= a.T) continue;
       bool feas;
-      float s = masked_score(a, t, n, s_req[i], s_elig[i], nr, feas);
+      float s = masked_score<W>(a, t, n, s_req[i], s_elig[i], nr,
+                                words && s_test[i] ? s_tw[i] : nullptr, s_thr[i][0],
+                                s_thr[i][1], nw, feas);
       if (feas) combine(m[i], c[i], s, 1);
       else infeas[i] = 1;
     }
@@ -194,6 +283,7 @@ __global__ void __launch_bounds__(THREADS) propose_best_kernel(
   }
 }
 
+template <int W>
 __global__ void __launch_bounds__(THREADS) propose_pick_kernel(
     Args a, const float* __restrict__ best, const uint8_t* __restrict__ active,
     const int32_t* __restrict__ kth, int32_t* __restrict__ prop) {
@@ -208,6 +298,22 @@ __global__ void __launch_bounds__(THREADS) propose_pick_kernel(
   for (int r = 0; r < a.R; ++r) req[r] = a.req[(size_t)t * a.R + r];
   const bool elig = a.eligible[t] != 0;
   const float b = best[t];
+  // the row's affinity words, staged in shared memory for the warp
+  __shared__ uint32_t s_tw[THREADS / 32][W > 0 ? 5 * W : 1];
+  uint32_t* tw = s_tw[threadIdx.x >> 5];
+  int thr0 = 0, thr1 = 0;
+  bool test = false;
+  if (W > 0 && a.tw) {
+    const int stride = 3 * a.KW + 2 * a.K2W;
+    for (int j = lane; j < 5 * W; j += 32)
+      tw[j] = word_at<W>(a, a.tw + (size_t)t * stride, j / W, j % W);
+    __syncwarp();
+    thr0 = a.thr[(size_t)t * 2];
+    thr1 = a.thr[(size_t)t * 2 + 1];
+    uint32_t any = 0;
+    for (int j = 0; j < 5 * W; ++j) any |= tw[j];
+    test = any != 0;
+  }
   int target = kth[t];
   int chosen = 0;
   for (int n0 = 0; n0 < a.N; n0 += 32) {
@@ -216,8 +322,11 @@ __global__ void __launch_bounds__(THREADS) propose_pick_kernel(
     if (n < a.N) {
       NodeRow nr;
       load_node(a, n, nr);
+      Words<W> nw;
+      if (test) load_words<W>(a, a.nwd, n, nw);
       bool feas;
-      float s = masked_score(a, t, n, req, elig, nr, feas);
+      float s = masked_score<W>(a, t, n, req, elig, nr, test ? tw : nullptr, thr0, thr1,
+                                nw, feas);
       tied = feas && s >= b;
     }
     unsigned mask = __ballot_sync(0xffffffffu, tied);
@@ -235,10 +344,12 @@ __global__ void __launch_bounds__(THREADS) propose_pick_kernel(
 Args make_args(const uint8_t* pred, const uint8_t* dyn, const float* req,
                const float* avail, const float* eps, const uint8_t* node_mask,
                const uint8_t* eligible, const float* future, const float* cap,
-               const float* extra0, const float* extra1, int T, int N, int R,
-               int has_lr, float w_lr, int has_bal, float w_bal, int d0, int d1,
+               const float* extra0, const float* extra1, const uint32_t* tw,
+               const int32_t* thr, const uint32_t* nwd, int KW, int K2W, int T, int N,
+               int R, int has_lr, float w_lr, int has_bal, float w_bal, int d0, int d1,
                float inv_q) {
   Args a;
+  a.tw = tw; a.thr = thr; a.nwd = nwd; a.KW = KW; a.K2W = K2W;
   a.pred = pred; a.dyn = dyn; a.req = req; a.avail = avail; a.eps = eps;
   a.node_mask = node_mask; a.eligible = eligible; a.future = future; a.cap = cap;
   a.extra0 = extra0; a.extra1 = extra1; a.T = T; a.N = N; a.R = R;
@@ -247,21 +358,35 @@ Args make_args(const uint8_t* pred, const uint8_t* dyn, const float* req,
   return a;
 }
 
+// Word count W of the instantiation a call takes (0: no words).
+int words_case(const Args& a) {
+  if (!a.tw) return 0;
+  const int w = a.KW > a.K2W ? a.KW : a.K2W;
+  return w <= 1 ? 1 : (w <= 2 ? 2 : 8);
+}
+
 }  // namespace
 
 extern "C" int kb_propose_best(
     const uint8_t* pred, const uint8_t* dyn, const float* req, const float* avail,
     const float* eps, const uint8_t* node_mask, const uint8_t* eligible,
     const float* future, const float* cap, const float* extra0, const float* extra1,
+    const uint32_t* tw, const int32_t* thr, const uint32_t* nwd, int KW, int K2W,
     int T, int N, int R, int has_lr, float w_lr, int has_bal, float w_bal, int d0,
     int d1, float inv_q, float* best, int32_t* ties, uint8_t* active,
     cudaStream_t stream) {
-  if (R > MAX_R) return -1;
+  if (R > MAX_R || KW > 8 || K2W > 8) return -1;
   if (T == 0) return 0;
   Args a = make_args(pred, dyn, req, avail, eps, node_mask, eligible, future, cap,
-                     extra0, extra1, T, N, R, has_lr, w_lr, has_bal, w_bal, d0, d1,
-                     inv_q);
-  propose_best_kernel<<<(T + ROWS - 1) / ROWS, THREADS, 0, stream>>>(a, best, ties, active);
+                     extra0, extra1, tw, thr, nwd, KW, K2W, T, N, R, has_lr, w_lr,
+                     has_bal, w_bal, d0, d1, inv_q);
+  const unsigned blocks = (T + ROWS - 1) / ROWS;
+  switch (words_case(a)) {
+    case 0: propose_best_kernel<0><<<blocks, THREADS, 0, stream>>>(a, best, ties, active); break;
+    case 1: propose_best_kernel<1><<<blocks, THREADS, 0, stream>>>(a, best, ties, active); break;
+    case 2: propose_best_kernel<2><<<blocks, THREADS, 0, stream>>>(a, best, ties, active); break;
+    default: propose_best_kernel<8><<<blocks, THREADS, 0, stream>>>(a, best, ties, active);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -269,16 +394,22 @@ extern "C" int kb_propose_pick(
     const uint8_t* pred, const uint8_t* dyn, const float* req, const float* avail,
     const float* eps, const uint8_t* node_mask, const uint8_t* eligible,
     const float* future, const float* cap, const float* extra0, const float* extra1,
+    const uint32_t* tw, const int32_t* thr, const uint32_t* nwd, int KW, int K2W,
     int T, int N, int R, int has_lr, float w_lr, int has_bal, float w_bal, int d0,
     int d1, float inv_q, const float* best, const uint8_t* active, const int32_t* kth,
     int32_t* prop, cudaStream_t stream) {
-  if (R > MAX_R) return -1;
+  if (R > MAX_R || KW > 8 || K2W > 8) return -1;
   if (T == 0) return 0;
   Args a = make_args(pred, dyn, req, avail, eps, node_mask, eligible, future, cap,
-                     extra0, extra1, T, N, R, has_lr, w_lr, has_bal, w_bal, d0, d1,
-                     inv_q);
+                     extra0, extra1, tw, thr, nwd, KW, K2W, T, N, R, has_lr, w_lr,
+                     has_bal, w_bal, d0, d1, inv_q);
   const int rows_per_block = THREADS / 32;
-  propose_pick_kernel<<<(T + rows_per_block - 1) / rows_per_block, THREADS, 0, stream>>>(
-      a, best, active, kth, prop);
+  const unsigned blocks = (T + rows_per_block - 1) / rows_per_block;
+  switch (words_case(a)) {
+    case 0: propose_pick_kernel<0><<<blocks, THREADS, 0, stream>>>(a, best, active, kth, prop); break;
+    case 1: propose_pick_kernel<1><<<blocks, THREADS, 0, stream>>>(a, best, active, kth, prop); break;
+    case 2: propose_pick_kernel<2><<<blocks, THREADS, 0, stream>>>(a, best, active, kth, prop); break;
+    default: propose_pick_kernel<8><<<blocks, THREADS, 0, stream>>>(a, best, active, kth, prop);
+  }
   return (int)cudaGetLastError();
 }

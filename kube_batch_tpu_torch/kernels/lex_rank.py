@@ -8,13 +8,16 @@ ops/assignment.py · rank_from_keys and the (segment, rank) sort of
 _segment_prefix as vtime uses it.  What bounds the kernels and their
 design are noted in the source.
 
-* `lex_push(perm, key)` — one more key of a least-significant-first
-  chain: returns (perm[argsort(key[perm], stable)], its dense rank).
-  Keys are float32 (-0.0 == +0.0, NaN last, as a stable torch.argsort
-  and jnp.lexsort order them), as every order key of the policy is.
+* `lex_push_many(perm, keys)` — m more keys of a least-significant-first
+  chain, in one call: the result of m successive stable sorts
+  perm ← perm[argsort(key[perm], stable)], and its dense rank.  Keys are
+  float32 (-0.0 == +0.0, NaN last, as a stable torch.argsort and
+  jnp.lexsort order them), as every order key of the policy is.  Up to
+  16,384 rows every pass of every key is one launch.
 * `sort_by_segment(seg, rank, num_segments)` — the stable sort by the
-  int64 key seg·T + rank over the bits that key needs (seg in
+  key seg·T + rank over the bits that key needs (seg in
   [0, num_segments], rank in [0, T)): returns (perm, sorted seg ids).
+  One launch up to 16,384 rows.
 * `vtime(perm, s_seg, req, valid, alloc_seg, denom_seg, num_segs)` —
   over rows sorted by (segment, base rank): the float64 within-segment
   prefix of the valid requests, the start times and their ratio to the
@@ -34,10 +37,21 @@ from kube_batch_tpu_torch.kernels import build
 from kube_batch_tpu_torch.kernels.resolve import segment_exclusive_prefix
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-TILE = 2048      # rows per block of a radix pass
-VT_TILE = 1024   # rows per block of the vtime prefix
+_SIGNATURES = {
+    "kb_lex_push_many": [_P, _I, _P, _L, _P, _P, _P, _P],
+    "kb_sort_by_segment": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
+    "kb_vtime": [_P, _P, _P, _P, _L, _I, _P, _P, _I, _P, _P, _P, _P],
+}
+CTA_MAX_T = 16384   # rows a one-block sort holds in shared memory
+TILE = 2048         # rows per block of a wide pass
+MAX_RADIX = 512     # counters per pass of a wide sort (digits of up to 9 bits)
+VT_TILE = 1024      # rows per block of the vtime prefix
 MAX_R = 8
 BIG_VTIME = 1e30
+
+
+def _fn(name: str):
+    return build.function("lex_rank", name, _SIGNATURES[name])
 
 
 def _cuda(t, what: str) -> bool:
@@ -55,39 +69,63 @@ def _dense_rank(perm: torch.Tensor) -> torch.Tensor:
     return rank
 
 
-def lex_push_plain(perm, key):
-    out = perm[torch.argsort(key[perm], stable=True)]
-    return out, _dense_rank(out)
+def wide_scratch_bytes(T: int, code_bytes: int, passes: int) -> int:
+    """Scratch of a sort above CTA_MAX_T rows (csrc/lex_rank.cu ·
+    wide_layout): codes and row ids double-buffered, then per pass the
+    digit counts, each tile's published counts and a ticket."""
+    def align(n):
+        return (n + 255) // 256 * 256
+
+    tiles = -(-T // TILE)
+    return (align(2 * T * code_bytes) + align(2 * T * 4)
+            + 4 * (passes * MAX_RADIX * (1 + tiles) + passes))
 
 
-def lex_push(perm: torch.Tensor, key: torch.Tensor):
-    """(perm i64[T], rank i32[T]): `perm` re-sorted stably by key[perm],
-    and the dense rank of the result (rank[perm_out[i]] = i)."""
-    if not _cuda(perm, "lex_push"):
-        return lex_push_plain(perm, key)
-    if key.dtype != torch.float32:
-        raise ValueError(f"lex_push takes float32 keys, got {key.dtype}")
-    T = perm.shape[0]
-    perm = perm.long().contiguous()
-    key = key.contiguous()
-    dev = perm.device
+def lex_push_many_plain(perm, keys):
+    if perm is None:
+        perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for key in keys:
+        perm = perm[torch.argsort(key[perm], stable=True)]
+    return perm, _dense_rank(perm)
+
+
+def lex_push_many(perm: torch.Tensor | None, keys):
+    """(perm i64[T], rank i32[T]): `perm` (None: the identity) re-sorted
+    stably by each key of `keys` in turn, least significant first — m
+    `lex_push` calls in one — and the dense rank of the result
+    (rank[perm_out[i]] = i)."""
+    if not keys:
+        raise ValueError("lex_push_many needs at least one key")
+    if not _cuda(keys[0], "lex_push_many"):
+        return lex_push_many_plain(perm, keys)
+    dev = keys[0].device
+    T = keys[0].shape[0]
+    keys = [k.contiguous() for k in keys]
+    for k in keys:
+        if k.dtype != torch.float32 or k.shape != (T,) or k.device != dev:
+            raise ValueError(f"lex_push_many takes float32 keys of {T} rows on {dev}, "
+                             f"got {k.dtype} {tuple(k.shape)} on {k.device}")
+    if perm is not None:
+        if perm.dtype != torch.int64 or perm.shape != (T,):
+            raise ValueError("lex_push_many: perm must be int64 of the keys' rows")
+        perm = perm.contiguous()
     out = torch.empty(T, dtype=torch.int64, device=dev)
     rank = torch.empty(T, dtype=torch.int32, device=dev)
     if T == 0:
         return out, rank
-    n_tiles = -(-T // TILE)
-    codes = torch.empty(2 * T, dtype=torch.int32, device=dev)
-    tmp = torch.empty(T, dtype=torch.int64, device=dev)
-    hist = torch.empty(256 * n_tiles, dtype=torch.int32, device=dev)
-    fn = build.library("lex_rank").kb_lex_push
-    fn.argtypes = [_P, _P, _L, _P, _P, _P, _P, _P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(build.ptr(key), build.ptr(perm), T,
-             build.ptr(codes), build.ptr(tmp), build.ptr(hist), build.ptr(out),
-             build.ptr(rank), build.stream_handle(dev))
-    build.check(err, "lex_push")
-    lex_push.launches += 1
+    scratch = (torch.empty(wide_scratch_bytes(T, 4, 4), dtype=torch.uint8, device=dev)
+               if T > CTA_MAX_T else None)
+    ptrs = (ctypes.c_void_p * len(keys))(*(k.data_ptr() for k in keys))
+    err = _fn("kb_lex_push_many")(ptrs, len(keys), build.ptr(perm), T, build.ptr(scratch),
+                                  build.ptr(out), build.ptr(rank), build.stream_handle(dev))
+    build.check(err, "lex_push_many")
+    lex_push_many.launches += 1
     return out, rank
+
+
+def lex_push(perm: torch.Tensor, key: torch.Tensor):
+    """One key: `lex_push_many(perm, [key])`."""
+    return lex_push_many(perm, [key])
 
 
 def sort_by_segment_plain(seg, rank, num_segments: int):
@@ -102,6 +140,19 @@ def sort_passes(T: int, num_segments: int) -> int:
     return max(1, -(-((num_segments + 1) * T - 1).bit_length() // 8))
 
 
+def sort_plan(T: int, num_segments: int) -> tuple[int, int, int]:
+    """(code bytes, digit bits, passes) of the sort of seg·T + rank: one
+    block of 8-bit passes up to CTA_MAX_T rows when the key fits 32 bits;
+    else digits of at most 9 bits, as few passes as the key needs (a key
+    below 2^18 takes two 9-bit passes)."""
+    key_bits = max(1, ((num_segments + 1) * T - 1).bit_length())
+    code_bytes = 4 if key_bits <= 32 else 8
+    if T <= CTA_MAX_T and code_bytes == 4:
+        return code_bytes, 8, sort_passes(T, num_segments)
+    passes = -(-key_bits // 9)
+    return code_bytes, -(-key_bits // passes), passes
+
+
 def sort_by_segment(seg: torch.Tensor, rank: torch.Tensor, num_segments: int):
     """(perm i64[T], sorted segment ids i64[T]): the stable sort by
     (seg, rank), seg in [0, num_segments] and rank in [0, T)."""
@@ -113,18 +164,15 @@ def sort_by_segment(seg: torch.Tensor, rank: torch.Tensor, num_segments: int):
     s_seg = torch.empty(T, dtype=torch.int64, device=dev)
     if T == 0:
         return perm, s_seg
-    n_tiles = -(-T // TILE)
     seg32 = seg.to(torch.int32).contiguous()
     rank32 = rank.to(torch.int32).contiguous()
-    codes = torch.empty(2 * T, dtype=torch.int64, device=dev)
-    tmp = torch.empty(T, dtype=torch.int64, device=dev)
-    hist = torch.empty(256 * n_tiles, dtype=torch.int32, device=dev)
-    fn = build.library("lex_rank").kb_sort_by_segment
-    fn.argtypes = [_P, _P, _L, _I, _P, _P, _P, _P, _P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(build.ptr(seg32), build.ptr(rank32), T, sort_passes(T, num_segments),
-             build.ptr(codes), build.ptr(tmp), build.ptr(hist), build.ptr(perm),
-             build.ptr(s_seg), build.stream_handle(dev))
+    code_bytes, bits, passes = sort_plan(T, num_segments)
+    scratch = (None if T <= CTA_MAX_T and code_bytes == 4 else
+               torch.empty(wide_scratch_bytes(T, code_bytes, passes), dtype=torch.uint8,
+                           device=dev))
+    err = _fn("kb_sort_by_segment")(
+        build.ptr(seg32), build.ptr(rank32), T, code_bytes, bits, passes,
+        build.ptr(scratch), build.ptr(perm), build.ptr(s_seg), build.stream_handle(dev))
     build.check(err, "sort_by_segment")
     sort_by_segment.launches += 1
     return perm, s_seg
@@ -165,19 +213,17 @@ def vtime(perm: torch.Tensor, s_seg: torch.Tensor, req: torch.Tensor,
                                   valid.to(torch.bool))]
     alloc = alloc_seg.float().contiguous()
     denom = denom_seg.float().contiguous()
-    tile_sum = torch.empty((-(-T // VT_TILE), R), dtype=torch.float64, device=dev)
-    excl = torch.empty((T, R), dtype=torch.float64, device=dev)
-    fn = build.library("lex_rank").kb_vtime
-    fn.argtypes = [_P, _P, _P, _P, _L, _I, _P, _P, _I, _P, _P, _P, _P]
-    fn.restype = ctypes.c_int
-    err = fn(*(build.ptr(x) for x in c), T, R, build.ptr(alloc), build.ptr(denom),
-             num_segs, build.ptr(tile_sum), build.ptr(excl), build.ptr(out),
-             build.stream_handle(dev))
+    tiles = -(-T // VT_TILE)
+    scratch = torch.empty((tiles + T) * R, dtype=torch.float64, device=dev)
+    err = _fn("kb_vtime")(*(build.ptr(x) for x in c), T, R, build.ptr(alloc),
+                          build.ptr(denom), num_segs, build.ptr(scratch),
+                          build.ptr(scratch[tiles * R:]), build.ptr(out),
+                          build.stream_handle(dev))
     build.check(err, "vtime")
     vtime.launches += 1
     return out
 
 
-lex_push.launches = 0
+lex_push_many.launches = 0
 sort_by_segment.launches = 0
 vtime.launches = 0

@@ -11,6 +11,10 @@ does about that is noted in the source.
 * `propose_pick` (pass 2): per active row, the (k+1)-th tied node in node
   order; 0 for inactive rows.
 
+`dyn`, the dynamic predicate, is None, a bool[T, N] mask, or the inter-pod
+affinity predicate as `kernels/affinity.py · AffinityWords`, whose cells
+the kernel tests itself (K10's cell test, in K2's tiles).
+
 The score is `((0 + w_lr·lr) + w_bal·bal) + extra0 + extra1`, where the
 two node-order terms are computed on the fly and the extras are
 precomputed, already weighted [T, N] terms (node affinity, pod-affinity
@@ -31,6 +35,11 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch.kernels import build
+from kube_batch_tpu_torch.kernels.affinity import (
+    AffinityWords,
+    affinity_cells_plain,
+    words,
+)
 
 NEG_INF = -1e30
 MAX_SCORE = 10.0
@@ -82,7 +91,9 @@ def masked_scores_plain(
     dev = req.device
     R = req.shape[1]
     feas = pred & node_mask[None, :] & eligible[:, None]
-    if dyn is not None:
+    if isinstance(dyn, AffinityWords):
+        feas = feas & affinity_cells_plain(dyn)
+    elif dyn is not None:
         feas = feas & dyn
     for r in range(R):
         feas = feas & ((req[:, None, r] <= avail[None, :, r])
@@ -124,10 +135,11 @@ def _row_chunks(T: int):
 
 
 def _chunk_args(rows, pred, dyn, req, eligible, extras):
-    return (
-        pred[rows], None if dyn is None else dyn[rows], req[rows],
-        eligible[rows], [e[rows] for e in extras],
-    )
+    if isinstance(dyn, AffinityWords):
+        dyn = dyn.rows(rows)
+    elif dyn is not None:
+        dyn = dyn[rows]
+    return pred[rows], dyn, req[rows], eligible[rows], [e[rows] for e in extras]
 
 
 def propose_best_plain(pred, dyn, req, avail, eps, node_mask, eligible,
@@ -180,19 +192,38 @@ def _launch_args(pred, dyn, req, avail, eps, node_mask, eligible, future,
                                   future, cap)]
     T, R = req.shape
     N = avail.shape[0]
+    if isinstance(dyn, AffinityWords):
+        w = [dyn.task_words.contiguous(), dyn.thr.contiguous(),
+             dyn.node_words.contiguous()]
+        if w[0].shape[0] != T or w[2].shape[0] != N:
+            raise ValueError("propose: affinity words of another shape")
+        mask, kw, k2w = None, words(dyn.K), words(dyn.K2)
+    else:
+        w, mask, kw, k2w = [None, None, None], dyn, 0, 0
+        if mask is not None:
+            mask = mask.contiguous()
     return [
-        build.ptr(t[0]), build.ptr(None if dyn is None else dyn.contiguous()),
+        build.ptr(t[0]), build.ptr(mask),
         build.ptr(t[1]), build.ptr(t[2]), build.ptr(t[3]), build.ptr(t[4]),
         build.ptr(t[5]), build.ptr(t[6]), build.ptr(t[7]),
-        build.ptr(x[0]), build.ptr(x[1]), T, N, R,
+        build.ptr(x[0]), build.ptr(x[1]),
+        build.ptr(w[0]), build.ptr(w[1]), build.ptr(w[2]), kw, k2w, T, N, R,
         int(spec.w_lr is not None), float(spec.w_lr or 0.0),
         int(spec.w_bal is not None), float(spec.w_bal or 0.0),
         spec.d0, spec.d1, quantum_scale(score_quantum),
-    ], (t, x, dyn)
+    ], (t, x, w, mask)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_COMMON = [_P] * 11 + [_I, _I, _I, _I, _F, _I, _F, _I, _I, _F]
+_COMMON = [_P] * 14 + [_I] * 6 + [_F, _I, _F, _I, _I, _F]
+_SIGNATURES = {
+    "kb_propose_best": _COMMON + [_P, _P, _P, _P],
+    "kb_propose_pick": _COMMON + [_P, _P, _P, _P, _P],
+}
+
+
+def _fn(name: str):
+    return build.function("propose", name, _SIGNATURES[name])
 
 
 def _check_device(req) -> bool:
@@ -211,9 +242,7 @@ def propose_best(pred, dyn, req, avail, eps, node_mask, eligible, future,
         return propose_best_plain(pred, dyn, req, avail, eps, node_mask,
                                   eligible, future, cap, spec, extras,
                                   score_quantum)
-    fn = build.library("propose").kb_propose_best
-    fn.argtypes = _COMMON + [_P, _P, _P, _P]
-    fn.restype = ctypes.c_int
+    fn = _fn("kb_propose_best")
     args, _keep = _launch_args(pred, dyn, req, avail, eps, node_mask,
                                eligible, future, cap, spec, extras,
                                score_quantum)
@@ -236,9 +265,7 @@ def propose_pick(pred, dyn, req, avail, eps, node_mask, eligible, future,
         return propose_pick_plain(pred, dyn, req, avail, eps, node_mask,
                                   eligible, future, cap, spec, extras,
                                   score_quantum, best, active, k)
-    fn = build.library("propose").kb_propose_pick
-    fn.argtypes = _COMMON + [_P, _P, _P, _P, _P]
-    fn.restype = ctypes.c_int
+    fn = _fn("kb_propose_pick")
     args, _keep = _launch_args(pred, dyn, req, avail, eps, node_mask,
                                eligible, future, cap, spec, extras,
                                score_quantum)

@@ -44,6 +44,14 @@ from kube_batch_tpu_torch.kernels import lex_rank, propose, resolve
 
 NEG_INF = -1e30
 INT32_MAX = 2**31 - 1
+#: the steps of a round that cancel acceptances, in `stats["cancelled"]`
+CANCEL_STEPS = ("resolve_watermark", "domain_serialize", "global_serialize")
+
+
+def _count_cancelled(cancelled, step: int, before, after) -> None:
+    """Add the acceptances `step` cancelled to the device counter."""
+    if cancelled is not None:
+        cancelled.narrow(0, step, 1).add_(torch.count_nonzero(before & ~after))
 
 
 @dataclasses.dataclass
@@ -83,23 +91,41 @@ class LexOrder:
     them (the LAST key is the primary), full ties kept in index order.
     Pushing one more key continues the same chain, so a caller that
     needs the rank of a prefix of its keys (rank_fn's vtime keys) sorts
-    each key once.  Each push is one stable radix sort, kernel K8
-    (`kernels/lex_rank.py · lex_push`), which also yields the rank."""
+    each key once.  `push` queues a key; `rank()` (and `perm`) apply the
+    queued run of keys in one call of kernel K8
+    (`kernels/lex_rank.py · lex_push_many`), which also yields the rank."""
 
     def __init__(self, num: int, device) -> None:
-        self.perm = torch.arange(num, device=device)
-        self._rank = torch.arange(num, dtype=torch.int32, device=device)
+        self.num, self.device = num, device
+        self._perm: torch.Tensor | None = None   # None: the identity
+        self._rank: torch.Tensor | None = None
+        self._queue: list[torch.Tensor] = []
 
     def push(self, key: torch.Tensor) -> None:
-        self.perm, self._rank = lex_rank.lex_push(self.perm, key)
+        self._queue.append(key)
+
+    def _flush(self) -> None:
+        if self._queue:
+            self._perm, self._rank = lex_rank.lex_push_many(self._perm, self._queue)
+            self._queue = []
+
+    @property
+    def perm(self) -> torch.Tensor:
+        self._flush()
+        if self._perm is None:
+            self._perm = torch.arange(self.num, device=self.device)
+        return self._perm
 
     def rank(self) -> torch.Tensor:
+        self._flush()
+        if self._rank is None:
+            self._rank = torch.arange(self.num, dtype=torch.int32, device=self.device)
         return self._rank
 
 
 def rank_from_keys(keys: list[torch.Tensor], num: int) -> torch.Tensor:
     """Tiered lexicographic keys (least significant first) → dense ranks
-    (i32[num], 0 = first)."""
+    (i32[num], 0 = first), in one K8 call."""
     order = LexOrder(num, keys[0].device)
     for k in keys:
         order.push(k)
@@ -139,6 +165,7 @@ def resolve_conflicts(
     eps: torch.Tensor,         # f32[R]
     one_per_node: bool = False,
     serialize_mask: torch.Tensor | None = None,  # bool[T]
+    cancelled: torch.Tensor | None = None,       # i64[len(CANCEL_STEPS)]
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """bool[T]: which proposals are accepted this round, plus the
     (perm, sorted node ids) of the (node, rank) sort for the apply step.
@@ -160,7 +187,9 @@ def resolve_conflicts(
     )
     rejected = active & ~accept
     watermark = torch.where(rejected, rank, INT32_MAX).amin()
-    return accept & (rank < watermark), perm, s_node
+    kept = accept & (rank < watermark)
+    _count_cancelled(cancelled, 0, accept, kept)
+    return kept, perm, s_node
 
 
 def auction_round(
@@ -178,11 +207,15 @@ def auction_round(
     global_serialize_fn=None,
     domain_serialize_fn=None,
     serialize_mask: torch.Tensor | None = None,
+    cancelled: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One auction round up to its apply: every eligible pending task
     proposes (K2), nodes resolve conflicts (K3 resolve), the serialize
-    steps trim the accepted set.  Returns (accept bool[T], perm, sorted
-    node ids) for `apply_round`; nothing is read on the host."""
+    steps trim the accepted set.  `dyn_predicate_fn` gives K2 a bool[T, N]
+    mask or the affinity words (`TensorPolicy.auction_dyn_predicate`).
+    Returns (accept bool[T], perm, sorted node ids) for `apply_round`;
+    nothing is read on the host.  `cancelled` (i64[3], on the device)
+    gains the acceptances each step of CANCEL_STEPS cancelled."""
     avail = state.node_future if use_future else state.node_idle
     pending = (state.task_state == int(TaskStatus.PENDING)) & snap.task_mask
     eligible = pending & eligible_fn(snap, state)
@@ -206,15 +239,20 @@ def auction_round(
     accept, perm, s_node = resolve_conflicts(
         prop_node, active, rank, snap.task_req, avail, eps,
         one_per_node=one_per_node, serialize_mask=serialize_mask,
+        cancelled=cancelled,
     )
     if domain_serialize_fn is not None and snap.node_key_domain.shape[1]:
-        accept = _domain_serialize(
+        kept = _domain_serialize(
             snap, state, accept, prop_node, rank, domain_serialize_fn
         )
+        _count_cancelled(cancelled, 1, accept, kept)
+        accept = kept
     if global_serialize_fn is not None:
         gmask = global_serialize_fn(snap, state)
         if gmask is not None:
-            accept = _global_serialize(accept, rank, gmask)
+            kept = _global_serialize(accept, rank, gmask)
+            _count_cancelled(cancelled, 2, accept, kept)
+            accept = kept
     return accept, perm, s_node
 
 
@@ -257,22 +295,27 @@ def allocate_rounds(
     the argmax, so near-equal nodes tie and round-robin dealing spreads
     proposals across them.  `serialize_mask` is the anti-affinity
     per-node serialization set (None when the snapshot has no such
-    terms).  `stats["rounds"]` receives the number of rounds run."""
+    terms).  `stats["rounds"]` receives the number of rounds run and
+    `stats["cancelled"]` the acceptances each step of CANCEL_STEPS
+    cancelled over them (counted on the device, read once)."""
     if max_rounds is None:
         max_rounds = snap.num_tasks
+    cancelled = (None if stats is None else
+                 torch.zeros(len(CANCEL_STEPS), dtype=torch.int64, device=snap.device))
     rounds = 0
     for _ in range(max_rounds):
         rounds += 1
         accept, perm, s_node = auction_round(
             snap, state, predicate_mask, score_spec, rank_fn, eligible_fn,
             eps, use_future, one_per_node, score_quantum, dyn_predicate_fn,
-            global_serialize_fn, domain_serialize_fn, serialize_mask,
+            global_serialize_fn, domain_serialize_fn, serialize_mask, cancelled,
         )
         if not bool(accept.any()):
             break
         apply_round(snap, state, accept, perm, s_node, use_future)
     if stats is not None:
         stats["rounds"] = rounds
+        stats["cancelled"] = dict(zip(CANCEL_STEPS, cancelled.tolist()))
     return state
 
 

@@ -13,9 +13,12 @@ Inter-pod affinity is a DYNAMIC predicate — placements earlier in the
 same cycle change feasibility — re-evaluated every auction round (and,
 as a row, every preemption step): kernel K11 (kernels/resident.py)
 builds the resident label tables per node and per topology domain,
-kernel K10 (kernels/affinity.py) the bool[T, N] mask or the one task's
-bool[N] row against them.  The per-task serialize sets stay torch: they
-are [T] reductions over snapshot-static columns.  When no task of the
+kernel K10 (kernels/affinity.py) the predicate against them: as words
+for the auction rounds (kernel K2 tests the cells itself;
+`pod_affinity_words`, the task words kept for the snapshot's life), as
+the bool[T, N] mask for the cycle's failure tallies, or as the one
+task's bool[N] row for a preemption step.  The per-task serialize sets
+stay torch: they are [T] reductions over snapshot-static columns.  When no task of the
 snapshot carries a required affinity or anti-affinity term, the
 predicate is all-true, the serialize sets are empty and neither kernel
 launches (`affinity_active`).
@@ -71,7 +74,8 @@ class PredicatesPlugin(Plugin):
         if self.args.get_bool("predicate.PodAffinityEnable", True):
             policy.add_cycle_setup_fn(AFFINITY_AUX, _affinity_terms_present)
             policy.add_dynamic_predicate_fn(
-                pod_affinity_predicate, row_fn=pod_affinity_row
+                pod_affinity_predicate, row_fn=pod_affinity_row,
+                words_fn=pod_affinity_words,
             )
             policy.add_node_serialize_fn(anti_serialize_mask)
             policy.add_global_serialize_fn(bootstrap_mask)
@@ -115,6 +119,17 @@ def _fields(snap):
             snap.topo_term_label, snap.node_key_domain)
 
 
+def _predicate_tables(snap, state, immediate: bool):
+    """(Hb, Hb_now, Ab_now, Hd, Hd_now, Ad_now): the future-oriented
+    tables, and the anti / symmetry side's, which also see Releasing
+    residents in the Idle pass (`immediate`)."""
+    Hb, Ab, Hd, Ad = resident_tables(snap, state)
+    if not immediate:
+        return Hb, Hb, Ab, Hd, Hd, Ad
+    Hb_now, Ab_now, Hd_now, Ad_now = resident_tables(snap, state, include_releasing=True)
+    return Hb, Hb_now, Ab_now, Hd, Hd_now, Ad_now
+
+
 def pod_affinity_predicate(snap, state, immediate: bool = False):
     """bool[T, N] inter-pod affinity/anti-affinity feasibility, or None
     when no task carries such a term (≙ kube_batch_tpu
@@ -131,14 +146,21 @@ def pod_affinity_predicate(snap, state, immediate: bool = False):
     kernel K10 (kernels/affinity.py)."""
     if not affinity_active(snap, state):
         return None
-    Hb, Ab, Hd, Ad = resident_tables(snap, state)
-    if immediate:
-        Hb_now, Ab_now, Hd_now, Ad_now = resident_tables(
-            snap, state, include_releasing=True)
-    else:
-        Hb_now, Ab_now, Hd_now, Ad_now = Hb, Ab, Hd, Ad
-    return _k10.affinity_mask(*_fields(snap), Hb, Hb_now, Ab_now, Hd, Hd_now,
-                              Ad_now)
+    return _k10.affinity_mask(*_fields(snap), *_predicate_tables(snap, state, immediate))
+
+
+def pod_affinity_words(snap, state, immediate: bool = False):
+    """pod_affinity_predicate as `kernels/affinity.py · AffinityWords`, for
+    kernel K2 to test in its own tiles: the same tables, the node words
+    and thresholds of this state, the task words built at the snapshot's
+    first call and kept on it (`SnapshotTensors.affinity_task_words`).
+    None when no task carries such a term."""
+    if not affinity_active(snap, state):
+        return None
+    w = _k10.affinity_words(*_fields(snap), *_predicate_tables(snap, state, immediate),
+                            snap.affinity_task_words())
+    snap.keep_affinity_task_words(w.task_words)
+    return w
 
 
 def pod_affinity_row(snap, state, p):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's preempt path, its joint path and kernels K7 and K6 in
-two or more checkouts, in turns, on one card.
+"""Time the port's preempt path, its joint path, its affinity path and
+kernels K7 and K6 in two or more checkouts, in turns, on one card.
 
     python3 scripts/ab_torch_preempt_path.py PARENT CHANGE CHANGE PARENT
 
@@ -23,12 +23,16 @@ drives, on the card with that checkout's own kernels (built into its own
     examples/scheduler.conf for 3 cycles, the preemption wave after
     cycle 1;
   * the same world and wave with `joint_solve=True`, 3 cycles;
+  * the affinity path: full-size config 5 with inter-pod affinity terms
+    (`chip_smoke.config5_affinity`) under the default conf, 2 cycles,
+    chip_smoke's second wave of MAIN_WAVE_PODS pods after cycle 1;
   * K7's segment_sum on both recorded sums and K6's preempt_open on the
     recorded step (median of 7 CUDA-event runs after 2 warm-ups; a
     checkout whose segment_sum takes no index is called without one),
     each output held against the plain version.
 One JSON line per run gives each cycle's solve ms, binds, evictions and
-each loop's or joint tier's steps and ms per step, and the kernel times;
+each loop's or joint tier's steps and ms per step (the affinity path:
+auction rounds and solve ms per round), and the kernel times;
 a last line says whether every run made the same decisions (binds,
 evictions and ready jobs of every cycle, as sets).  Runs in one call
 share one card, so the checkouts compare; calls on different machines
@@ -110,6 +114,23 @@ for cycle in range(3):
     if cycle == 0:
         chip_smoke.preempt_wave(sim)
 paths["joint"] = joint
+cache, sim = chip_smoke.config5_affinity()
+sched = Scheduler(cache, device="cuda")
+affinity = []
+for cycle in range(2):
+    ssn = sched.run_once()
+    st = sched.last_stats
+    rounds = sum(st.get("allocate_rounds", [])) + sum(st.get("backfill_rounds", []))
+    affinity.append({"solve_ms": sched.last_timings["solve_ms"], "binds": list(ssn.bound),
+                     "evicted": [], "ready": ready(ssn, ssn.job_ready),
+                     "loops": [{"loop": "auction", "steps": rounds,
+                                "ms_per_step": sched.last_timings["solve_ms"]
+                                / max(rounds, 1)}]})
+    sim.tick()
+    if cycle == 0:
+        chip_smoke.arrivals(cache, sim, chip_smoke.MAIN_WAVE_PODS)
+paths["affinity"] = affinity
+del cache, sim, sched, ssn
 paths_s = time.perf_counter() - t0
 
 inputs = torch.load(sys.argv[1])

@@ -16,6 +16,14 @@ versions on the CPU) against the reference package's, exactly.
 * The plain K10 / K11 against the arithmetic of the kernels themselves
   (popcounts of 0/1 words, presence as an OR), on numpy-seeded tables
   with padded vocabulary columns and a dead-domain row.
+* K10's words form (`affinity_words`, the cells K2 tests itself) against
+  the reference's `pod_affinity_predicate` on the same worlds and
+  states, task words built or kept; K2's two passes given the words
+  against the same passes given K10's mask; the policy's choice of the
+  words form (only when inter-pod affinity is the one dynamic predicate
+  and constrains the snapshot); and the acceptances each serialize step
+  cancels, as counted on the device, against the acceptances the round
+  lost.
 """
 
 from __future__ import annotations
@@ -40,10 +48,18 @@ from kube_batch_tpu_torch.framework.conf import default_conf
 from kube_batch_tpu_torch.framework.session import build_policy
 from kube_batch_tpu_torch.kernels import affinity as k10
 from kube_batch_tpu_torch.kernels import resident as k11
-from kube_batch_tpu_torch.ops.assignment import allocate_rounds, init_state
+from kube_batch_tpu_torch.kernels import propose as k2
+from kube_batch_tpu_torch.kernels import resolve as k3
+from kube_batch_tpu_torch.ops.assignment import (
+    CANCEL_STEPS,
+    allocate_rounds,
+    auction_round,
+    init_state,
+    tie_ordinal,
+)
 from kube_batch_tpu_torch.plugins import nodeorder, predicates
 from kube_batch_tpu_torch.scheduler import Scheduler
-from test_torch_pack import PACKAGES, build_world
+from test_torch_pack import PACKAGES, build_world, jax_fields
 
 GI = float(1 << 30)
 
@@ -177,6 +193,127 @@ def test_affinity_predicate_and_row_match_reference(world):
         _eq(predicates.bootstrap_mask(snap, st), jax_pred.bootstrap_mask(jsnap, jst),
             f"{label}, bootstrap_mask")
     assert vetoed > 0
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_affinity_words_match_reference(world):
+    """The words' cells equal the reference's predicate in every state
+    and orientation, with the task words built and with them kept."""
+    jsnap, snap, states = _states(_fields(world))
+    kept = None
+    for label, jst, st in states:
+        for immediate in (False, True):
+            words = predicates.pod_affinity_words(snap, st, immediate)
+            assert isinstance(words, k10.AffinityWords)
+            if kept is None:
+                kept = snap.affinity_task_words()
+                assert kept is not None
+            assert snap.affinity_task_words() is kept     # built once per snapshot
+            np.testing.assert_array_equal(
+                words.task_words.numpy(),
+                k10.task_words_plain(*(getattr(snap, f) for f in (
+                    "task_aff", "task_anti", "task_podlabels", "task_aff_topo",
+                    "task_anti_topo"))).numpy())
+            want = jax_pred.pod_affinity_predicate(jsnap, jst, immediate)
+            _eq(k10.affinity_cells_plain(words), want,
+                f"{label}, immediate={immediate}")
+            _eq(k10.affinity_cells_plain(words),
+                predicates.pod_affinity_predicate(snap, st, immediate).numpy(),
+                f"{label}, immediate={immediate}, mask")
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_propose_words_form_matches_mask_form(world):
+    """K2's plain passes given the words equal the same passes given
+    the mask K10 makes from the same tables, on an auction round of the
+    default conf in both passes (Idle and FutureIdle)."""
+    _jsnap, snap, states = _states(_fields(world))
+    policy, _ = build_policy(default_conf())
+    spec = policy.score_spec()
+    pred = policy.predicate_mask(snap)
+    for label, _jst, st in states:
+        st = policy.setup_state(snap, st)
+        for use_future in (False, True):
+            immediate = not use_future
+            avail = st.node_future if use_future else st.node_idle
+            pending = (st.task_state == 0) & snap.task_mask
+            eligible = pending & policy.eligible_fn(snap, st)
+            extras = spec.extra_terms(snap, st)
+            words = policy.dyn_predicate_words(snap, st, immediate)
+            mask = policy.dynamic_predicate_fn(snap, st, immediate)
+            assert isinstance(words, k10.AffinityWords) and mask.dtype == torch.bool
+            common = (snap.task_req, avail, snap.eps, snap.node_mask, eligible,
+                      st.node_future, snap.node_cap, spec, extras, policy.score_quantum)
+            best_w = k2.propose_best(pred, words, *common)
+            best_m = k2.propose_best(pred, mask, *common)
+            for a, b in zip(best_w, best_m):
+                np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=label)
+            k = tie_ordinal(best_w[2], policy.rank_fn(snap, st), best_w[1])
+            pick_w = k2.propose_pick(pred, words, *common, best_w[0], best_w[2], k)
+            pick_m = k2.propose_pick(pred, mask, *common, best_m[0], best_m[2], k)
+            np.testing.assert_array_equal(pick_w.numpy(), pick_m.numpy(), err_msg=label)
+            assert bool(best_w[2].any())
+
+
+def test_policy_takes_words_only_for_affinity_alone():
+    """`auction_dyn_predicate` gives K2 the words when inter-pod affinity
+    is the only dynamic predicate and constrains the snapshot; the mask
+    when another dynamic predicate is registered; None without terms."""
+    _jsnap, snap, states = _states(_fields("affinity"))
+    st = states[0][2]
+    policy, _ = build_policy(default_conf())
+    assert isinstance(policy.auction_dyn_predicate(snap, st, True), k10.AffinityWords)
+    extra = torch.ones((snap.num_tasks, snap.num_nodes), dtype=torch.bool)
+    policy.add_dynamic_predicate_fn(lambda s, state, imm: extra, row_fn=lambda *a: None)
+    assert policy.dyn_predicate_words(snap, st, True) is None
+    got = policy.auction_dyn_predicate(snap, st, True)
+    _eq(got, predicates.pod_affinity_predicate(snap, st, True).numpy(), "mask form")
+
+    plain_snap = from_numpy(jax_fields("config3")[0], "cpu")
+    policy, _ = build_policy(default_conf())
+    st = policy.setup_state(plain_snap, init_state(plain_snap))
+    assert policy.auction_dyn_predicate(plain_snap, st, True) is None
+
+
+@pytest.mark.parametrize("world", ["config5_affinity_small", "releasing"])
+def test_cancelled_acceptances_add_up(world, monkeypatch):
+    """Per round, the acceptances the watermark and the two serialize
+    steps cancel (counted on the device) add up to what K3 accepted less
+    what the round keeps; `allocate_rounds` reports them per solve."""
+    _jsnap, snap, _states_ = _states(_fields(world))
+    policy, _ = build_policy(default_conf())
+    st = policy.setup_state(snap, init_state(snap))
+    k3_accepts = []
+    real = k3.resolve
+
+    def spy(*args):
+        out = real(*args)
+        k3_accepts.append(int(out.sum()))
+        return out
+
+    monkeypatch.setattr(k3, "resolve", spy)
+    stats: dict = {}
+    kept = []
+    real_round = auction_round
+
+    import kube_batch_tpu_torch.ops.assignment as ops
+
+    def round_spy(*args):
+        accept, perm, s_node = real_round(*args)
+        kept.append(int(accept.sum()))
+        return accept, perm, s_node
+
+    monkeypatch.setattr(ops, "auction_round", round_spy)
+    allocate_rounds(snap, st, policy.predicate_mask(snap), policy.score_spec(),
+                    policy.rank_fn, policy.eligible_fn, snap.eps,
+                    dyn_predicate_fn=policy.auction_dyn_predicate,
+                    global_serialize_fn=policy.global_serialize_fn,
+                    domain_serialize_fn=policy.domain_serialize_fn,
+                    serialize_mask=policy.serialize_mask(snap, st), stats=stats)
+    assert set(stats["cancelled"]) == set(CANCEL_STEPS)
+    assert all(v >= 0 for v in stats["cancelled"].values())
+    assert sum(stats["cancelled"].values()) == sum(k3_accepts) - sum(kept)
+    assert len(kept) == stats["rounds"]
 
 
 def _jax_score_term(name):

@@ -7,7 +7,14 @@ version); exact equality throughout:
 * `lex_push` chains (`ops.assignment.rank_from_keys`) against
   `jnp.lexsort` and the reference's `rank_from_keys`, over keys with
   heavy ties, mixed ±0.0, negatives, 1e30 and NaN;
-* `sort_by_segment` against `jnp.lexsort((rank, seg))`;
+* `lex_push_many` (several keys in one call) against the reference's
+  `rank_from_keys` at T = 1, 16,384 and 16,385 (the one-block sort's
+  limit and one row past it), with ±0.0, NaN and all-equal keys, and
+  `LexOrder`'s queue: `rank_fn` and `job_rank` make one K8 call per run
+  of keys between vtime keys;
+* `sort_by_segment` against `jnp.lexsort((rank, seg))`, also at 1, 3
+  and 512 segments on both sides of the one-block limit, and the digit
+  plan of each width;
 * `virtual_start_times` against the reference's, with zero-denominator
   segments, empty segments and invalid rows;
 * `rank_fn` and `job_rank` against the reference's under the default
@@ -94,6 +101,90 @@ def test_lex_push_zeros_and_nans_keep_index_order():
     assert rank.tolist() == [1, 2, 3, 4, 5, 0]
     np.testing.assert_array_equal(
         perm.numpy(), np.asarray(jnp.lexsort((jnp.asarray(key.numpy()),))))
+
+
+def _edge_keys(case: str, T: int, rng) -> list[np.ndarray]:
+    if case == "zeros":
+        return [rng.choice(np.array([0.0, -0.0], np.float32), T)]
+    if case == "nans":
+        k = rng.integers(-2, 3, T).astype(np.float32)
+        k[rng.random(T) < 0.4] = np.nan
+        return [k, rng.choice(np.array([0.0, -0.0, np.nan], np.float32), T)]
+    if case == "all_equal":
+        return [np.full(T, 3.0, np.float32)] * 3
+    return _keys(rng, T, 5)
+
+
+@pytest.mark.parametrize("case", ["zeros", "nans", "all_equal", "mixed"])
+@pytest.mark.parametrize("T", [1, 16384, 16385])
+def test_lex_push_many_matches_reference(T, case):
+    rng = np.random.default_rng(T + len(case))
+    keys = _edge_keys(case, T, rng)
+    want = np.asarray(jax_rank_from_keys([jnp.asarray(k) for k in keys], T))
+    perm, rank = lex_rank.lex_push_many(None, [torch.from_numpy(k) for k in keys])
+    assert rank.dtype == torch.int32 and perm.dtype == torch.int64
+    np.testing.assert_array_equal(rank.numpy(), want)
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jnp.lexsort(tuple(keys))))
+    # from a given order: the same as one push after another
+    start = torch.from_numpy(rng.permutation(T))
+    got = lex_rank.lex_push_many(start, [torch.from_numpy(k) for k in keys])
+    one = start
+    for k in keys:
+        one, one_rank = lex_rank.lex_push(one, torch.from_numpy(k))
+    np.testing.assert_array_equal(got[0].numpy(), one.numpy())
+    np.testing.assert_array_equal(got[1].numpy(), one_rank.numpy())
+
+
+@pytest.mark.parametrize("conf", ["default", "scheduler.conf"])
+def test_rank_fn_flushes_once_per_run_of_keys(conf, monkeypatch):
+    """rank_fn queues its static keys and sorts each run between vtime
+    keys in one lex_push_many call; job_rank in one."""
+    _jconf, tconf = _confs(conf)
+    fields, _ = jax_fields("config3")
+    snap = from_numpy(fields, "cpu")
+    policy, _ = build_policy(tconf)
+    state = policy.setup_state(snap, AllocState(
+        task_state=snap.task_state.clone(), task_node=snap.task_node.clone(),
+        node_idle=snap.node_idle.clone(), node_future=snap.node_idle.clone()))
+    calls = []
+    real = lex_rank.lex_push_many
+
+    def counting(perm, keys):
+        calls.append(len(keys))
+        return real(perm, keys)
+
+    monkeypatch.setattr(lex_rank, "lex_push_many", counting)
+    policy.rank_fn(snap, state)
+    n_vtime = sum(len(fns) for level in (policy.job_vtime, policy.ns_vtime,
+                                         policy.queue_vtime) for fns in level)
+    n_static = 1 + sum(len(fns) for level in (policy.task_order, policy.job_order,
+                                              policy.namespace_order, policy.queue_order)
+                       for fns in level)
+    assert sum(calls) == n_static + n_vtime
+    assert len(calls) <= n_vtime + 1 < sum(calls)
+    calls.clear()
+    policy.job_rank(snap, state)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("S", [1, 3, 512])
+@pytest.mark.parametrize("T", [8192, 16384, 16385, 40000])
+def test_sort_by_segment_widths_match_lexsort(T, S):
+    rng = np.random.default_rng(T * 7 + S)
+    seg = rng.integers(0, S + 1, T).astype(np.int32)
+    rank = rng.permutation(T).astype(np.int32)
+    rank[rng.random(T) < 0.2] = 0
+    perm, s_seg = sort_by_segment(torch.from_numpy(seg), torch.from_numpy(rank), S)
+    want = np.asarray(jnp.lexsort((jnp.asarray(rank), jnp.asarray(seg))))
+    np.testing.assert_array_equal(perm.numpy(), want)
+    np.testing.assert_array_equal(s_seg.numpy(), seg[want])
+    code_bytes, bits, passes = lex_rank.sort_plan(T, S)
+    key_bits = int((S + 1) * T - 1).bit_length()
+    assert bits * passes >= key_bits and bits <= 9 and code_bytes == 4
+    if T <= lex_rank.CTA_MAX_T:
+        assert bits == 8 and passes == lex_rank.sort_passes(T, S)
+    else:
+        assert passes == -(-key_bits // 9)
 
 
 @pytest.mark.parametrize("seed", range(3))

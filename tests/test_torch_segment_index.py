@@ -10,6 +10,11 @@
   snapshot serves equals a fresh build after every pack, and an index is
   carried to the next pack's snapshot only when that pack wrote none of
   its base's fields.
+* The affinity task words of kernel K10 (`SnapshotTensors.
+  affinity_task_words`) through the same churn on the feature world
+  (affinity terms): the words a snapshot serves equal a fresh build from
+  its fields after every pack, carried only by a pack that wrote none of
+  `TASK_WORDS_FIELDS`.
 * The call contract, on scheduler.conf cycles (a 50-node config 4 with a
   wave, sequentially and with the joint solve, and the small config-5
   affinity world): every float segment sum passes the index of its base
@@ -35,12 +40,14 @@ import torch
 import kube_batch_tpu_torch.api.snapshot as snapshot
 from kube_batch_tpu_torch.api.snapshot import (
     SEGMENT_BASES,
+    TASK_WORDS_FIELDS,
     build_segment_index,
     segment_base,
 )
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.cache.incremental import IncrementalPacker
 from kube_batch_tpu_torch.framework.conf import parse_conf
+from kube_batch_tpu_torch.kernels import affinity as k10
 from kube_batch_tpu_torch.kernels import segment_sum as k7
 from kube_batch_tpu_torch.scheduler import Scheduler
 from test_torch_incremental import PACK_WORLDS, Churn, _churn_between_cycles, _make
@@ -132,6 +139,47 @@ def test_index_is_rebuilt_after_packs_that_write_its_base(seed):
                 assert kind not in kept          # a full pack starts afresh
             assert_index_fresh(snap, kind)
     assert modes == {"full", "incremental"}
+    assert carried and rebuilt
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_affinity_task_words_follow_their_fields(seed):
+    """The task words through incremental packs (see the module
+    docstring)."""
+    cache, sim = _make(PACK_WORLDS["feature"], "torch")
+    packer = IncrementalPacker(cache, device="cpu")
+    churn = Churn("torch", cache, sim, random.Random(seed))
+    snap, _ = packer.pack()
+
+    def fresh(s):
+        return k10.task_words_plain(*(getattr(s, f) for f in TASK_WORDS_FIELDS))
+
+    carried = rebuilt = 0
+    for _ in range(30):
+        before = fresh(snap)
+        snap.keep_affinity_task_words(before)
+        written = set()
+        orig = packer._upload
+
+        def upload(changed, _orig=orig):
+            written.update(changed.fields)
+            return _orig(changed)
+
+        packer._upload = upload
+        for _ in range(churn.rng.randint(1, 3)):
+            churn.step()
+        snap, _ = packer.pack()
+        packer._upload = orig
+        kept = snap.affinity_task_words()
+        if packer.last_mode.startswith("incremental:") and not (
+                written & set(TASK_WORDS_FIELDS)):
+            assert kept is before
+            carried += 1
+        else:
+            assert kept is None
+            rebuilt += 1
+        if kept is not None:
+            np.testing.assert_array_equal(kept.numpy(), fresh(snap).numpy())
     assert carried and rebuilt
 
 
