@@ -18,9 +18,11 @@ and `triton`.  Phases (any failure exits non-zero):
    lex_push_many and sort_by_segment on keys of T = 1, 8,192, 16,384,
    16,385 and 65,536 rows with NaN, ±0.0 and ±inf, all-equal keys and 40
    keys, and segment keys of 1, 3, 512 and 70,000 segments; K10's
-   affinity_words and K2's words form on seeded affinity terms (words =
-   plain, K2 given the words = K2 given K10's mask = plain) and on a
-   world with no terms (= K2 given no predicate);
+   affinity_task_words and affinity_words, K11's resident_words (both
+   resident sets and the future set alone) and K2's words form on
+   seeded affinity terms (each = plain, K2 given the words = K2 given
+   K10's mask = plain) and on a world with no terms (= K2 given no
+   predicate);
 2. slice parity — config 3, config 4 (oversubscribed), a mid-size
    config 5 (500 nodes, 5,000 pods) and a feature world that turns on
    every kernel option of the default conf (affinity terms, preferences,
@@ -71,7 +73,8 @@ and `triton`.  Phases (any failure exits non-zero):
    preferences), 2 cycles through `Scheduler.run_once` with 15,000 pods
    arriving after cycle 1.  K10 and K11 counters are set to 0 before and
    read after, and both must have launched, the mask at most once a
-   cycle (the auction rounds take K10's words); capacity, gang and predicate
+   cycle (the auction rounds take K10's words) and K11 at most once an
+   auction round plus once a cycle; capacity, gang and predicate
    invariants, no node with two `role=ps` residents, and every resident
    MPI worker backed by a team-mate in its rack (resident when the cycle
    began, or placed in it with no required term) or by its team's one
@@ -85,7 +88,10 @@ and `triton`.  Phases (any failure exits non-zero):
    launch, the usual invariants hold; binds and evictions are compared
    as sets with phase 5's sequential card run and each difference is
    printed beside the gated admission tier's placements, with per-tier
-   steps and ms per step beside the sequential loops';
+   steps and ms per step beside the sequential loops', and the device
+   operations per joint step by tier kind (`JointWindows`: 40 auction
+   steps of cycle 1 and 40 evict steps of cycle 2 of this run traced by
+   torch.profiler);
 8. kernels — each kernel against its plain PyTorch version on the card:
    K1–K4 on the inputs the main path gave them in cycle 2 (the predicate
    mask and failure tallies of that cycle, and the auction round whose
@@ -95,12 +101,15 @@ and `triton`.  Phases (any failure exits non-zero):
    of the main path and every 25th of the preempt path, timed at both
    paths' widths (T = 65,536 and 8,192), with K8's launches on both
    paths and per preemption step; K9 on every call of the host
-   cycle, timed on the largest; K11 on every 8th call of the affinity
-   path, K10's mask on each of its calls, K10's words with K2's two
-   passes every 300th round (K2 given the words against K2 given K10's
-   mask, both timed), and K10's row form on every call of the
+   cycle, timed on the largest; K11 on every call of the affinity
+   path (timed on an immediate and a FutureIdle round), K10's mask and
+   task words on each of their calls, K10's words with K2's two passes
+   every 300th round (K2 given the words against K2 given K10's mask,
+   both timed), and K10's row form on every call of the
    config5_affinity_mid card run under examples/scheduler.conf, K12 on
-   every 10th call of the joint path, each timed on cycle 2's inputs.
+   every 10th call of the joint path (after auction and evict steps)
+   and on a recorded evict step with a plan open replayed at its step
+   bound (a Discard advance), each timed on cycle 2's inputs.
    Outputs exactly equal; kernel / plain / library times (median of
    CUDA-event timed runs after a warm-up) and the least time the card
    could take.
@@ -109,7 +118,8 @@ The parity worlds (phase 2) also include config5_affinity_mid (500
 nodes, 5,000 pods, a 1,500-pod wave) under both confs, and
 features_preempt and config5_affinity_mid under examples/scheduler.conf
 with the joint solve; every K10, K11 and K12 call of their card runs is
-held against its plain version.
+held against its plain version.  Kernels already redesigned for this
+card (`REDESIGNED`) are marked in the `redesign-order` line.
 
 The line before the `kernels` line gives the script's seconds, and the
 one before it the order a redesign should take the kernels in, those
@@ -175,14 +185,16 @@ KERNELS = {
               "kube_batch_tpu/framework/policy.py:37"),
     "row_patch": ("cuda", "kube_batch_tpu_torch/kernels/csrc/row_patch.cu",
                   "kube_batch_tpu/cache/incremental.py:144"),
-    "resident_tables": ("cuda", "kube_batch_tpu_torch/kernels/csrc/resident_tables.cu",
-                        "kube_batch_tpu/plugins/predicates.py:136"),
+    "resident_words": ("cuda", "kube_batch_tpu_torch/kernels/csrc/resident_tables.cu",
+                       "kube_batch_tpu/plugins/predicates.py:136"),
     "affinity_mask": ("cuda", "kube_batch_tpu_torch/kernels/csrc/affinity_mask.cu",
                       "kube_batch_tpu/plugins/predicates.py:299"),
     "affinity_row": ("cuda", "kube_batch_tpu_torch/kernels/csrc/affinity_mask.cu",
                      "kube_batch_tpu/plugins/predicates.py:330"),
     "affinity_words": ("cuda", "kube_batch_tpu_torch/kernels/csrc/affinity_mask.cu",
                        "kube_batch_tpu/plugins/predicates.py:263"),
+    "affinity_task_words": ("cuda", "kube_batch_tpu_torch/kernels/csrc/affinity_mask.cu",
+                            "kube_batch_tpu/plugins/predicates.py:263"),
     "tier_control": ("cuda", "kube_batch_tpu_torch/kernels/csrc/joint_tier.cu",
                      "kube_batch_tpu/ops/joint.py:200"),
 }
@@ -194,7 +206,8 @@ RANK_KERNELS = ("lex_push_many", "sort_by_segment", "vtime")
 HOST_CYCLE_ONLY = ("row_patch",)
 # launched only on worlds with inter-pod affinity terms (the affinity
 # path; the row form where such a world preempts) and by the joint solve
-AFFINITY_KERNELS = ("resident_tables", "affinity_mask", "affinity_words")
+AFFINITY_KERNELS = ("resident_words", "affinity_mask", "affinity_words",
+                    "affinity_task_words")
 AFFINITY_ROW = ("affinity_row",)
 JOINT_ONLY = ("tier_control",)
 NOT_ON_MAIN_PATH = (EVICTING_ONLY + HOST_CYCLE_ONLY + AFFINITY_KERNELS
@@ -223,11 +236,13 @@ HOST_CYCLES = 4
 HOST_DONE_EVERY = 100        # every 100th running pod completes or is deleted
 HOST_ARRIVAL_PODS = 300      # pods arriving into existing jobs' shapes
 HOST_EVICTED = 20            # pods evicted after the cycle without arrivals
-# the affinity path records every 8th K11 call, every K10 mask call (one a
-# cycle, for the failure tallies), and K10's words with the K2 calls of
-# the same round every 300th round; the joint path every 10th K12 call
-AFFINITY_EVERY = {"resident_tables": 8, "affinity_mask": 1, "affinity_words": 300,
-                  "propose_best": 300, "propose_pick": 300}
+# the affinity path records every K11 call (one a round, so the few
+# FutureIdle rounds are met), every K10 mask call (one a cycle, for the
+# failure tallies) and task-words call (one a snapshot), and K10's words
+# with the K2 calls of the same round every 300th round; the joint path
+# every 10th K12 call
+AFFINITY_EVERY = {"resident_words": 1, "affinity_mask": 1, "affinity_task_words": 1,
+                  "affinity_words": 300, "propose_best": 300, "propose_pick": 300}
 JOINT_EVERY = {"tier_control": 10}
 JOINT_CYCLES = 3
 # the parity world whose card run gives K10's row form its launches
@@ -552,13 +567,15 @@ def phase_k8_edge(device) -> dict:
 def k2_words_inputs(device, T: int = 4096, N: int = 1024, K: int = 40, K2: int = 36,
                     seed: int = 0):
     """(propose_best's arguments with dyn None, the affinity fields and the
-    resident tables of both orientations): seeded requests against node
-    capacity, a feasibility mask of about 70 %, both score terms and a
-    quantum, and affinity terms as tests/test_torch_affinity.py makes
-    them (padded columns, a dead domain)."""
+    resident tables of both resident sets, as the plain K11 builds them):
+    seeded requests against node capacity, a feasibility mask of about
+    70 %, both score terms and a quantum, and affinity terms as
+    tests/test_torch_affinity.py makes them (padded columns, a dead
+    domain)."""
     import numpy as np
     import torch
 
+    from kube_batch_tpu_torch.kernels import affinity as k10
     from kube_batch_tpu_torch.kernels import resident as k11
     from kube_batch_tpu_torch.kernels.propose import ScoreSpec
 
@@ -594,45 +611,64 @@ def k2_words_inputs(device, T: int = 4096, N: int = 1024, K: int = 40, K2: int =
     fields = [on(x) for x in (aff, anti, labels, aff_topo, anti_topo, term_key,
                               term_label, nkd)]
     task_mask = on(np.arange(T) < T - 8)
-    tables = {rel: k11.resident_tables_plain(
-        fields[2], fields[1], fields[4], on(node), on(state), task_mask, fields[7],
-        fields[5], fields[6], N, D, rel) for rel in (False, True)}
-    Hb, Ab, Hd, Ad = tables[False]
-    Hbn, Abn, Hdn, Adn = tables[True]
-    return args, fields, (Hb, Hbn, Abn, Hd, Hdn, Adn)
+    tw = k10.task_words_plain(*fields[:5])
+    resident = k11.resident_words_plain(tw, on(node), on(state), task_mask, fields[7],
+                                        fields[5], fields[6], N, D, K, K2, True)
+    return args, fields, resident
 
 
 def phase_words_edge(device) -> dict:
-    """K10's affinity_words and K2's words form on seeded inputs: the
-    words equal the plain version's (built and kept task words); K2's
-    two passes given the words equal their plain versions and K2 given
-    the mask K10 makes from the same tables; and, on a world with no
-    terms (every word 0), K2 given the words equals K2 given no
-    predicate.  Returns {name: max_abs_err}."""
+    """K10's affinity_task_words and affinity_words, K11 and K2's words
+    form on seeded inputs: the task words and the words equal the plain
+    versions'; K11's tables (both resident sets, and the future set
+    alone) equal its plain version's; K2's two passes given the words
+    equal their plain versions and K2 given the mask K10 makes from the
+    same tables; and, on a world with no terms (every word 0), K2 given
+    the words equals K2 given no predicate.  Returns {name:
+    max_abs_err}."""
     import torch
 
     from kube_batch_tpu_torch.kernels import affinity as k10
     from kube_batch_tpu_torch.kernels import propose as k2
+    from kube_batch_tpu_torch.kernels import resident as k11
 
-    args, fields, tables = k2_words_inputs(device)
-    errs = {"affinity_words": 0.0, "propose_best": 0.0, "propose_pick": 0.0}
+    args, fields, resident = k2_words_inputs(device)
+    errs = {"affinity_words": 0.0, "affinity_task_words": 0.0, "resident_words": 0.0,
+            "propose_best": 0.0, "propose_pick": 0.0}
 
     def words_equal(name, got, want):
         return require_equal(name, [(got.node_words, want.node_words),
                                     (got.task_words, want.task_words),
                                     (got.thr, want.thr)])
 
-    built = k10.affinity_words(*fields, *tables, None)
-    want = k10.affinity_words_plain(*fields, *tables, None)
-    kept = k10.affinity_words(*fields, *tables, built.task_words)
-    errs["affinity_words"] = max(words_equal("affinity_words edge built", built, want),
-                                 words_equal("affinity_words edge kept", kept, want))
-    mask = k10.affinity_mask(*fields, *tables)
+    tw = k10.affinity_task_words(*fields[:5])
+    errs["affinity_task_words"] = require_equal(
+        "affinity_task_words edge", [(tw, k10.task_words_plain(*fields[:5]))])
+    words_args = (tw, fields[5], fields[6], fields[7], resident)
+    built = k10.affinity_words(*words_args)
+    want = k10.affinity_words_plain(*words_args)
+    errs["affinity_words"] = words_equal("affinity_words edge", built, want)
+    mask = k10.affinity_mask(*fields, resident)
     require_equal("affinity words against mask", [(k10.affinity_cells_plain(want), mask)])
     no_terms = [torch.zeros_like(x) for x in fields[:5]] + fields[5:]
-    empty = k10.affinity_words(*no_terms, *tables, None)
-    if bool(empty.task_words.any()):
+    empty_tw = k10.affinity_task_words(*no_terms[:5])
+    if bool(empty_tw.any()):
         fail("affinity_words edge: a world with no terms has task words")
+    empty = k10.affinity_words(empty_tw, *words_args[1:])
+    # K11 on the same rows with the card's kernel: both resident sets, and
+    # the future set alone
+    T, N = tw.shape[0], resident.Hb.shape[0]
+    D, K, K2 = resident.Hd.shape[0], resident.K, resident.K2
+    gen = torch.Generator().manual_seed(1)
+    state = torch.randint(0, 10, (T,), generator=gen, dtype=torch.int32).to(device)
+    node = torch.randint(-1, N - 4, (T,), generator=gen, dtype=torch.int32).to(device)
+    mask_t = torch.arange(T, device=device) < T - 8
+    for now in (True, False):
+        k11_args = (tw, node, state, mask_t, fields[7], fields[5], fields[6], N, D, K, K2,
+                    now)
+        errs["resident_words"] = max(errs["resident_words"], require_equal(
+            f"resident_words edge with_now={now}", resident_pairs(
+                k11.resident_words(*k11_args), k11.resident_words_plain(*k11_args))))
 
     def pick_args(best_args, best):
         b, ties, active = best
@@ -880,20 +916,23 @@ _MUTATED = {
     "sort_by_segment": (0, 1),
     "vtime": (0, 1, 2, 3),
     "row_patch": (0,),           # the device buffers, written in place
-    "resident_tables": (3, 4),   # task_node, task_state
+    "resident_words": (1, 2),    # task_node, task_state
     "affinity_mask": (),
     "affinity_row": (),
     "affinity_words": (),
-    "tier_control": (5, 11, 12, 13, 15, 16, 17),   # written in place
+    "affinity_task_words": (),
+    # task_state, tried, prov, code, node_future, excl, phase, work, read
+    "tier_control": (5, 11, 12, 13, 15, 16, 17, 18, 19),
 }
 # Arguments that are snapshot fields, constant within a cycle but
 # row-patched by the next pack: cloned once per cycle and shared by the
 # calls of that cycle.
 _SNAPSHOT_ARGS = {
-    "resident_tables": (0, 1, 2, 5, 6, 7, 8),
+    "resident_words": (0, 3, 4, 5, 6),
     "affinity_mask": tuple(range(8)),
     "affinity_row": tuple(range(8)),
-    "affinity_words": tuple(range(8)),
+    "affinity_words": tuple(range(4)),
+    "affinity_task_words": tuple(range(5)),
     "tier_control": (6, 7, 10, 14),
 }
 
@@ -922,9 +961,12 @@ class Recorder:
     named in `every`, every `every[name]`-th call.  A cycle starts at its
     predicate-mask call and a round at its propose_best call.  Arguments
     a caller writes in place are cloned per call, snapshot fields once
-    per cycle (the next pack row-patches them)."""
+    per cycle (the next pack row-patches them).  `hooks[name]` (optional)
+    sees the arguments of every call of `name` before it launches; a call
+    for which it returns true is not recorded (its clones would land in
+    a traced window)."""
 
-    def __init__(self, every: dict | None = None) -> None:
+    def __init__(self, every: dict | None = None, hooks: dict | None = None) -> None:
         import kube_batch_tpu_torch.plugins.predicates as plug
         from kube_batch_tpu_torch.kernels import (
             failure_counts,
@@ -958,16 +1000,18 @@ class Recorder:
         from kube_batch_tpu_torch.kernels import affinity, joint_tier, resident
 
         self.sites += [
-            (resident, "resident_tables", "resident_tables"),
+            (resident, "resident_words", "resident_words"),
             (affinity, "affinity_mask", "affinity_mask"),
             (affinity, "affinity_row", "affinity_row"),
             (affinity, "affinity_words", "affinity_words"),
+            (affinity, "affinity_task_words", "affinity_task_words"),
             (joint_tier, "tier_control", "tier_control"),
         ]
         self.calls = {name: [] for name in _MUTATED}
         self.seen = {name: 0 for name in _MUTATED}
         self.cycle = self.round = -1
         self.every = every or {}
+        self.hooks = hooks or {}
         self._saved = []
         self._memo = {}
 
@@ -984,6 +1028,7 @@ class Recorder:
         mutated = _MUTATED[name]
         shared = _SNAPSHOT_ARGS.get(name, ())
         every = self.every.get(name, 1)
+        hook = self.hooks.get(name)
 
         def wrapper(*args):
             if name == "predicate_mask":
@@ -991,7 +1036,8 @@ class Recorder:
             elif name == "propose_best":
                 self.round += 1
             self.seen[name] += 1
-            if self.seen[name] % every == 0:
+            traced = hook is not None and hook(args)
+            if self.seen[name] % every == 0 and not traced:
                 kept = tuple(_keep(a) if i in mutated
                              else self._cycle_clone(a) if i in shared else a
                              for i, a in enumerate(args))
@@ -1025,6 +1071,25 @@ class Recorder:
 def _fresh_apply_args(args):
     return tuple(a.clone() if i in _MUTATED["apply"] else a
                  for i, a in enumerate(args))
+
+
+def _fresh_tier_args(args):
+    return [a.clone() if i in _MUTATED["tier_control"] else a
+            for i, a in enumerate(args)]
+
+
+def resident_pairs(got, want):
+    """(kernel, plain) pairs of every table of two ResidentWords, which
+    must agree in shape and in which tables exist."""
+    pairs = []
+    for f in ("Hb", "Ab", "Hb_now", "Ab_now", "Hd", "Ad", "Hd_now", "Ad_now",
+              "term_exists"):
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None):
+            fail(f"resident_words: table {f} differs in presence from the plain version")
+        if a is not None:
+            pairs.append((a, b))
+    return pairs
 
 
 def check_call(name: str, args):
@@ -1123,17 +1188,16 @@ def check_call(name: str, args):
         k9.row_patch_plain(a_p, rows, vals)
         err = require_equal(name, [(k.cpu(), p) for k, p in zip(a_k, a_p)])
         return err, {"fields": len(bufs), "rows": sum(len(r) for r in rows)}
-    if name == "resident_tables":
+    if name == "resident_words":
         from kube_batch_tpu_torch.kernels import resident as k11
 
-        out = k11.resident_tables(*args)
-        want = k11.resident_tables_plain(*args)
-        err = require_equal(name, [(a, b) for a, b in zip(out, want) if a is not None])
-        if (out[2] is None) != (want[2] is None):
-            fail(f"{name}: domain tables differ in presence from the plain version")
-        return err, {"present_cells": int(out[0].sum()),
-                     "releasing_calls": int(bool(args[11])),
-                     "domain_cells": 0 if out[2] is None else int(out[2].sum())}
+        got, want = k11.resident_words(*args), k11.resident_words_plain(*args)
+        err = require_equal(name, resident_pairs(got, want))
+        return err, {"present_bits": int(k11.unpack(got.Hb, got.K).sum()),
+                     "releasing_calls": int(got.with_now),
+                     "future_calls": int(not got.with_now),
+                     "domain_bits": 0 if got.Hd is None
+                     else int(k11.unpack(got.Hd, got.K).sum())}
     if name == "affinity_words":
         from kube_batch_tpu_torch.kernels import affinity as k10
 
@@ -1141,8 +1205,13 @@ def check_call(name: str, args):
         err = require_equal(name, [(got.node_words, want.node_words),
                                    (got.task_words, want.task_words),
                                    (got.thr, want.thr)])
-        return err, {"task_words_kept": int(args[14] is not None),
-                     "rows_with_terms": int(got.task_words.any(dim=1).sum())}
+        return err, {"rows_with_terms": int(got.task_words.any(dim=1).sum())}
+    if name == "affinity_task_words":
+        from kube_batch_tpu_torch.kernels import affinity as k10
+
+        got = k10.affinity_task_words(*args)
+        err = require_equal(name, [(got, k10.task_words_plain(*args))])
+        return err, {"rows_with_terms": int(got.any(dim=1).sum())}
     if name in ("affinity_mask", "affinity_row"):
         from kube_batch_tpu_torch.kernels import affinity as k10
 
@@ -1152,15 +1221,17 @@ def check_call(name: str, args):
     if name == "tier_control":
         from kube_batch_tpu_torch.kernels import joint_tier as k12
 
-        inplace = _MUTATED[name]
-        a_k = [a.clone() if i in inplace else a for i, a in enumerate(args)]
-        a_p = [a.clone() if i in inplace else a for i, a in enumerate(args)]
-        fk = k12.tier_control(*a_k)
-        fp = k12.tier_control_plain(*a_p)
-        err = require_equal(name, [(fk.cpu(), fp)] + [(a_k[i], a_p[i]) for i in inplace])
-        done, plan_open = int(fk[0]), int(args[4][1])
+        a_k, a_p = _fresh_tier_args(args), _fresh_tier_args(args)
+        k12.tier_control(*a_k)
+        k12.tier_control_plain(*a_p)
+        err = require_equal(name, [(a_k[i], a_p[i]) for i in _MUTATED[name]])
+        read = a_k[19].tolist()
+        done, step_out = read[k12.STEP_FLAGS], args[4]
+        evict = step_out is not None and step_out.dtype != torch.bool
         return err, {"done": done, "not_done": 1 - done,
-                     "discarded_plans": int(done and plan_open)}
+                     "after_auction_step": int(step_out is not None and not evict),
+                     "after_evict_step": int(evict),
+                     "discarded_plans": int(bool(done and evict and read[1]))}
     if name == "failure_counts":
         out = k4.failure_counts(*args)
         err = require_equal(name, list(zip(out, k4.failure_counts_plain(*args))))
@@ -1367,9 +1438,10 @@ def phase_parity(cpu_runs):
                 ("apply", "rows_changed"), ("failure_counts", "rows_predicate_failed"),
                 ("failure_counts", "rows_insufficient"), ("lex_push_many", "tied_rows"),
                 ("sort_by_segment", "segments"), ("vtime", "valid_rows"),
-                ("resident_tables", "present_cells"),
-                ("resident_tables", "releasing_calls"),
-                ("resident_tables", "domain_cells"),
+                ("resident_words", "present_bits"),
+                ("resident_words", "releasing_calls"),
+                ("resident_words", "future_calls"),
+                ("resident_words", "domain_bits"),
                 ("affinity_mask", "vetoed_cells"), ("affinity_row", "vetoed_cells"),
                 ("affinity_words", "rows_with_terms"),
                 ("tier_control", "done"), ("tier_control", "not_done")):
@@ -2373,8 +2445,9 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     """Config 5 with affinity terms (models/workloads.py ·
     config5_affinity_world) at full size under the default conf, 2 cycles
     through `Scheduler.run_once` with a second wave after cycle 1; K10 and
-    K11 launch counters are set to 0 before and read after.  Returns (the
-    counts, the Recorder of the K10 / K11 calls)."""
+    K11 launch counters are set to 0 before and read after, and K11 may
+    launch at most once an auction round plus once a cycle.  Returns
+    (the counts, the Recorder of the K10 / K11 calls)."""
     from kube_batch_tpu_torch import kernels
     from kube_batch_tpu_torch.scheduler import Scheduler
 
@@ -2404,6 +2477,15 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
             if now["affinity_mask"] - before["affinity_mask"] > 1:
                 fail(f"affinity path: cycle {cycle + 1} launched affinity_mask "
                      f"{now['affinity_mask'] - before['affinity_mask']} times (at most once)")
+            # one K11 build per auction round, plus the failure tallies'
+            rounds = (sum(sched.last_stats.get("allocate_rounds", []))
+                      + sum(sched.last_stats.get("backfill_rounds", [])))
+            k11_launches = now["resident_words"] - before["resident_words"]
+            line["resident_words_per_round"] = round(k11_launches / max(rounds, 1), 4)
+            if k11_launches > rounds + 1:
+                fail(f"affinity path: cycle {cycle + 1} launched resident_words "
+                     f"{k11_launches} times in {rounds} rounds (at most one a round "
+                     "plus one a cycle)")
             before = now
             _check_binds_allowed(ssn)
             line.update(_check_affinity(ssn, cache))
@@ -2448,17 +2530,22 @@ def phase_joint_path(device, seq_cycles, n_cycles: int = JOINT_CYCLES):
     capacity, gang and predicate invariants hold; binds and evictions
     are compared as sets with the sequential card run (`seq_cycles`, the
     preempt path's), and each difference is printed beside the gated
-    admission tier's placements.  Returns (launch counts, the Recorder
-    of the K12 calls, the cycles)."""
+    admission tier's placements; `JointWindows` counts the device
+    operations per joint step by tier kind on 2 × 40 of this run's
+    steps (a few tenths of a percent of them, traced).  Returns (launch
+    counts, the Recorder of the K12 calls, the cycles)."""
     from kube_batch_tpu_torch import kernels
     from kube_batch_tpu_torch.scheduler import Scheduler
 
     cache, sim = preempt_world()
     sched = Scheduler(cache, conf=scheduler_conf(), device=device, joint_solve=True)
-    rec = Recorder({**{name: 10**9 for name in _MUTATED}, **JOINT_EVERY})
+    windows = JointWindows()
+    rec = Recorder({**{name: 10**9 for name in _MUTATED}, **JOINT_EVERY},
+                   hooks={"tier_control": windows.hook})
     kernels.reset_counts()
     cycles = []
     for cycle in range(n_cycles):
+        windows.cycle = cycle
         t0 = time.perf_counter()
         with rec:
             ssn = sched.run_once()
@@ -2502,6 +2589,7 @@ def phase_joint_path(device, seq_cycles, n_cycles: int = JOINT_CYCLES):
             preempt_wave(sim)
     counts = kernels.counts()
     log(json.dumps({"phase": "joint-path-launches", **counts}))
+    log(json.dumps({"phase": "joint-launches", **windows.result()}))
     for name in ("tier_control", "preempt_open", "segment_sum", "segment_count"):
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the joint path")
@@ -2515,15 +2603,126 @@ def phase_joint_path(device, seq_cycles, n_cycles: int = JOINT_CYCLES):
     return counts, rec, cycles
 
 
+# calls traced before a window's count starts, for events the tracer
+# misses as it starts
+LAUNCH_WARMUP = 4
+
+
+def _ops_per_step(ops, calls, kind: int) -> dict:
+    """Device operations per iteration of `kind` in one traced window:
+    `ops` the window's device events in time order, `calls` the (kind,
+    step) of the K12 calls it holds.  An iteration is everything from
+    one K12 kernel to the next; iterations that end their tier (the next
+    call starts a tier: step 0) run no step and are left out.  The
+    tracer may miss the first events after it starts: the K12 kernels
+    are matched to the calls from the window's end, and the calls whose
+    kernel is missing are not counted.  None when they do not match."""
+    starts = [i for i, e in enumerate(ops) if "joint_tier" in e.name]
+    lost = len(calls) - len(starts)
+    if not 0 <= lost <= LAUNCH_WARMUP:
+        return None
+    calls = calls[lost:]
+    steps = kernels = copies = 0
+    for i, (k, _step) in enumerate(calls):
+        if k != kind or (i + 1 < len(calls) and calls[i + 1][1] == 0):
+            continue
+        seg = ops[starts[i]:starts[i + 1] if i + 1 < len(starts) else len(ops)]
+        n_copies = sum(1 for e in seg if e.name.startswith(("Memcpy", "Memset")))
+        steps, kernels, copies = steps + 1, kernels + len(seg) - n_copies, copies + n_copies
+    n = max(steps, 1)
+    return {"steps": steps, "kernels_per_step": round(kernels / n, 3),
+            "copies_and_memsets_per_step": round(copies / n, 3),
+            "launches_per_step": round((kernels + copies) / n, 3)}
+
+
+class JointWindows:
+    """Device operations (kernel launches, and the copies and memsets the
+    host issues) per iteration of the joint loop, by tier kind, from two
+    windows of one joint run traced by torch.profiler: `steps`
+    iterations from the first auction step of cycle `cycles[0]` (the
+    cluster filling) and from the first evict step of cycle `cycles[1]`
+    (preemption), plus LAUNCH_WARMUP calls for events the tracer misses
+    as it starts.  An iteration is its K12 launch, the host read, its
+    step and the next iteration's tier masks.  The caller sets `cycle`
+    before each cycle and hands `hook` every K12 call's arguments before
+    it launches (the Recorder's `hooks`, or a wrapper of
+    `tier_control`); `hook` returns true for the calls it traces, and
+    `result()` closes a window still open.  The tracer's first start in
+    a process takes seconds: it is started once here, before the run it
+    counts.  Works on any checkout whose joint loop calls
+    `kernels/joint_tier.py · tier_control(kind, gated, step, ...)` once
+    an iteration."""
+
+    def __init__(self, steps: int = 40, cycles=(0, 1)) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.steps, self.cycles = steps, cycles
+        self.cycle, self.prof, self.kind, self.calls, self.out = 0, None, None, [], {}
+        self.traced_s = 0.0
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+
+    def hook(self, args) -> bool:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from kube_batch_tpu_torch.kernels import joint_tier
+
+        kind, step = int(args[0]), int(args[2])
+        name = "auction" if kind == joint_tier.AUCTION else "evict"
+        if (self.prof is None and name not in self.out and step >= 1
+                and self.cycle == self.cycles[kind != joint_tier.AUCTION]):
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            self.kind, self.calls, self.t0 = kind, [], time.perf_counter()
+        if self.prof is None:
+            return False
+        if sum(1 for k, _s in self.calls if k == self.kind) >= self.steps + LAUNCH_WARMUP:
+            self._close()
+            return False
+        self.calls.append((kind, step))
+        return True
+
+    def _close(self) -> None:
+        import torch
+        from torch.autograd import DeviceType
+
+        from kube_batch_tpu_torch.kernels import joint_tier
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+        ops = sorted((e for e in self.prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        name = "auction" if self.kind == joint_tier.AUCTION else "evict"
+        self.out[name] = _ops_per_step(ops, self.calls, self.kind)
+        self.traced_s += time.perf_counter() - self.t0
+        self.prof = None
+
+    def result(self) -> dict:
+        """{"auction": ..., "evict": ...}: a window the tracer could not
+        match to its calls, or that never opened, is None."""
+        if self.prof is not None:
+            self._close()
+        return {"traced_s": round(self.traced_s, 3),
+                **{k: self.out.get(k) for k in ("auction", "evict")}}
+
+
 def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
-    """K11 on every 8th recorded call of the affinity path, K10's mask on
-    each of its calls (one a cycle), K10's words and K2 on every 300th
-    round, K10's row form on every call of ROW_WORLD's card run, K12 on
-    every 10th call of the joint path, each against its plain version;
-    timed on cycle 2's inputs of their paths, and K2 given the words
-    against K2 given K10's mask of the same tables (outputs equal, both
-    timed).  Returns (kernel records, {K2 pass: max abs err on the
-    affinity path})."""
+    """K11 on every call of the affinity path (immediate and FutureIdle
+    rounds both met), K10's mask and task words on each of
+    their calls (one a cycle), K10's words and K2 on every 300th round,
+    K10's row form on every call of ROW_WORLD's card run, K12 on every
+    10th call of the joint path (after auction and evict steps both
+    met), each against its plain version; K11 timed on an immediate and
+    a FutureIdle round of cycle 2, the rest on cycle 2's inputs of their
+    paths; K2 given the words against K2 given K10's mask of the same
+    tables (outputs equal, both timed); and K12 on a recorded evict step
+    with a plan open, replayed at its step bound (a Discard advance).
+    Returns (kernel records, {K2 pass: max abs err on the affinity
+    path})."""
     import torch
 
     from kube_batch_tpu_torch.kernels import affinity as k10
@@ -2556,24 +2755,47 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
         last = max(c for c, _r, _a in rec.calls[name])
         return [a for c, _r, a in rec.calls[name] if c == last]
 
-    # K11: cycle 2's first future-oriented call
-    args = next(a for a in second_cycle(arec, "resident_tables") if not a[11])
-    podlabels, anti, anti_topo, task_node, task_state, task_mask, nkd = args[:7]
-    (T, K), K2, N, D = podlabels.shape, anti_topo.shape[1], args[9], args[10]
-    held = int(k11.resident_mask(task_state, task_node, task_mask, False).sum())
-    record("resident_tables", time_ms(lambda: k11.resident_tables(*args)),
-           time_ms(lambda: k11.resident_tables_plain(*args)),
-           bound(T * 9 + held * (2 * K + K2) * 4 + nkd.numel() * 4 + 2 * K2 * 4
-                 + 2 * N * K + 2 * D * K, 0),
-           residents=held, tasks=T, nodes=N, domains=D)
+    # the checked calls met both kinds of round (K11) and of step (K12)
+    for name, keys in (("resident_words", ("releasing_calls", "future_calls")),
+                       ("tier_control", ("after_auction_step", "after_evict_step"))):
+        for key in keys:
+            if checks[name].get(key, 0) <= 0:
+                fail(f"no recorded {name} call with {key} was checked")
+
+    # K11: cycle 2's calls, an immediate round (both resident sets, the
+    # line's time) and a FutureIdle round (the future set alone)
+    calls = second_cycle(arec, "resident_words")
+    k11_rounds = {}
+    for now in (True, False):
+        args = next(a for a in calls if bool(a[11]) == now)
+        require_equal(f"resident_words with_now={now}", resident_pairs(
+            k11.resident_words(*args), k11.resident_words_plain(*args)))
+        k11_rounds[now] = (args, time_ms(lambda: k11.resident_words(*args)),
+                           time_ms(lambda: k11.resident_words_plain(*args)),
+                           bound(_resident_words_bytes(args), 0))
+    args, ms, plain_ms, b = k11_rounds[True]
+    tw, T, N, D = args[0], args[0].shape[0], args[7], args[8]
+    record("resident_words", ms, plain_ms, b, tasks=T, nodes=N, domains=D,
+           residents=int(k11.resident_mask(args[2], args[1], args[3], True).sum()),
+           future_round_ms=round(k11_rounds[False][1], 4),
+           future_round_bound_ms=round(k11_rounds[False][3][0], 6))
+
+    # K10's task words: cycle 2's snapshot (one call a snapshot)
+    args = second_cycle(arec, "affinity_task_words")[0]
+    T, K, K2 = args[0].shape[0], args[0].shape[1], args[3].shape[1]
+    nw = 3 * k10.words(K) + 2 * k10.words(K2)
+    record("affinity_task_words", time_ms(lambda: k10.affinity_task_words(*args)),
+           time_ms(lambda: k10.task_words_plain(*args)),
+           bound(T * (3 * K + 2 * K2) * 4 + T * nw * 4, T * (3 * K + 2 * K2)),
+           tasks=T, words=nw)
 
     # K10's mask: cycle 2's call (the failure tallies, Idle orientation)
     args = second_cycle(arec, "affinity_mask")[0]
-    fields, tables = args[:8], args[8:]
-    T, N = fields[0].shape[0], tables[0].shape[0]
-    KW, K2W = (K + 31) // 32, (K2 + 31) // 32
-    table_bytes = sum(x.numel() for x in tables if x is not None)
-    in_bytes = sum(x.numel() * x.element_size() for x in fields) + table_bytes
+    fields, resident = args[:8], args[8]
+    T, N = fields[0].shape[0], resident.Hb.shape[0]
+    KW, K2W = k10.words(K), k10.words(K2)
+    in_bytes = (sum(x.numel() * x.element_size() for x in fields)
+                + _resident_read_bytes(resident, now=True))
     record("affinity_mask", time_ms(lambda: k10.affinity_mask(*args)),
            time_ms(lambda: k10.affinity_mask_plain(*args), warmup=1, runs=3),
            bound(in_bytes + T * N, T * N * (5 * KW + 4 * K2W)),
@@ -2581,25 +2803,25 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
            # PyTorch form of this function
            time_ms(lambda: k10.affinity_mask_plain(*args), warmup=1, runs=3),
            cells=T * N, live_words=[KW, K2W])
+    mask_fields = fields
 
     # K10's words and K2's words form: the last recorded round (cycle 2)
     wargs = arec.calls["affinity_words"][-1][2]
     bargs = arec.calls["propose_best"][-1][2]
     pargs = arec.calls["propose_pick"][-1][2]
     words = bargs[1]
-    fields, tables, kept = wargs[:8], wargs[8:14], wargs[14]
+    tw, term_key, term_label, nkd, resident = wargs
     nw = words.node_words.shape[1]
-    nkd_bytes = fields[7].numel() * 4
-    # kept task words and each distinct table in; node words and
-    # thresholds out
-    distinct = {x.data_ptr(): x for x in tables if x is not None}.values()
-    words_bytes = (sum(x.numel() for x in distinct) + nkd_bytes
-                   + fields[6].numel() * 4 + T * nw * 4 + N * nw * 4 + T * 8)
+    # the kept task words, K11's tables and the term arrays in; node
+    # words and thresholds out
+    words_bytes = (_resident_read_bytes(resident, now=resident.with_now)
+                   + nkd.numel() * 4 + (term_key.numel() + term_label.numel()) * 4
+                   + T * nw * 4 + N * nw * 4 + T * 8)
     record("affinity_words", time_ms(lambda: k10.affinity_words(*wargs)),
            time_ms(lambda: k10.affinity_words_plain(*wargs)),
            bound(words_bytes, N * nw * 32 + T * (KW + K2W) * 32),
-           task_words_kept=kept is not None, tasks=T, nodes=N, words=nw)
-    mask = k10.affinity_mask(*fields, *tables)
+           tasks=T, nodes=N, words=nw, with_now=resident.with_now)
+    mask = k10.affinity_mask(*mask_fields, resident)
     margs = (bargs[0], mask) + tuple(bargs[2:])
     mpargs = (pargs[0], mask) + tuple(pargs[2:])
     best_w = require_equal("propose_best words against mask form", list(zip(
@@ -2610,7 +2832,7 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
                              time_ms(lambda: k2.propose_best(*margs)))
     pick_ms, pick_mask_ms = (time_ms(lambda: k2.propose_pick(*pargs)),
                              time_ms(lambda: k2.propose_pick(*mpargs)))
-    mask_ms = time_ms(lambda: k10.affinity_mask(*fields, *tables))
+    mask_ms = time_ms(lambda: k10.affinity_mask(*mask_fields, resident))
     words_ms = out["affinity_words"]["ms"]
     log(json.dumps({
         "phase": "k2-words-form", "tasks": T, "nodes": N, "words": nw,
@@ -2620,8 +2842,11 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
         "propose_pick_ms": round(pick_ms, 4),
         "propose_pick_mask_form_ms": round(pick_mask_ms, 4),
         "affinity_words_ms": round(words_ms, 4), "affinity_mask_ms": round(mask_ms, 4),
-        "round_words_ms": round(words_ms + best_ms + pick_ms, 4),
-        "round_mask_ms": round(mask_ms + best_mask_ms + pick_mask_ms, 4),
+        "resident_words_ms": round(out["resident_words"]["ms"], 4),
+        "round_words_ms": round(out["resident_words"]["ms"] + words_ms + best_ms
+                                + pick_ms, 4),
+        "round_mask_ms": round(out["resident_words"]["ms"] + mask_ms + best_mask_ms
+                               + pick_mask_ms, 4),
         "max_abs_err": max(best_w, pick_w),
         # pass 1 reads the predicate mask and the words instead of a mask
         "propose_best_bound_ms": round(bound(T * N + T * nw * 4 + T * 8 + N * nw * 4
@@ -2631,58 +2856,118 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
 
     # K10's row form: a call of ROW_WORLD's cycle 2
     args = second_cycle(row_rec, "affinity_row")[0]
-    nkd, tables = args[7], args[8:12]
-    K, K2, N = args[0].shape[1], args[3].shape[1], tables[0].shape[0]
-    KW, K2W = (K + 31) // 32, (K2 + 31) // 32
+    nkd, resident = args[7], args[8]
+    K, K2, N = args[0].shape[1], args[3].shape[1], resident.Hb.shape[0]
+    KW, K2W = k10.words(K), k10.words(K2)
     row_bytes = ((3 * K + 2 * K2) * 4 + 2 * K2 * 4 + nkd.numel() * 4
-                 + sum(x.numel() for x in tables if x is not None) + N)
+                 + _resident_read_bytes(resident, now=False) + N)
     record("affinity_row", time_ms(lambda: k10.affinity_row(*args)),
            time_ms(lambda: k10.affinity_row_plain(*args)),
            bound(row_bytes, N * (5 * KW + 4 * K2W)), nodes=N)
 
-    # K12: cycle 2's calls of the joint path, an evict-tier step that does
-    # not end its tier (the common case; nothing is written in place)
+    # K12: cycle 2's calls of the joint path, an evict-tier step past a
+    # tier's first two (the loop checks its tensors only there) that does
+    # not end its tier (the common case; nothing is written in place but
+    # the work mask and the read)
     calls = second_cycle(jrec, "tier_control")
 
-    def fresh(a):
-        return [x.clone() if i in _MUTATED["tier_control"] else x for i, x in enumerate(a)]
-
     def ends(a):
-        return bool(k12.tier_control_plain(*fresh(a))[0])
+        return k12.tier_control_plain(*_fresh_tier_args(a))[k12.STEP_FLAGS].item() == 1
 
-    args = next((a for a in sorted(calls, key=lambda a: a[0] != k12.EVICT)
+    args = next((a for a in sorted(calls, key=lambda a: (a[0] != k12.EVICT, a[2] <= 1))
                  if not ends(a)), calls[0])
-    done, args = ends(args), fresh(args)
+    done, args = ends(args), _fresh_tier_args(args)
     record("tier_control", time_ms(lambda: k12.tier_control(*args)),
            time_ms(lambda: k12.tier_control_plain(*args)),
            bound(_tier_control_bytes(args, done), 0),
            kind="evict" if args[0] == k12.EVICT else "auction",
            tasks=args[5].shape[0], done=done)
+    # a Discard advance: a recorded evict step with a plan open, replayed
+    # at its tier's step bound, so the tier ends and the plan is discarded
+    open_plan = next((a for _c, _r, a in jrec.calls["tier_control"]
+                      if a[0] == k12.EVICT and a[4] is not None
+                      and a[4].dtype != torch.bool and int(a[4][1]) and int(a[12].sum())),
+                     None)
+    if open_plan is None:
+        fail("joint path: no recorded evict step with a plan open")
+    discard = list(open_plan)
+    discard[3] = discard[2]                     # max_steps = step
+    a_k, a_p = _fresh_tier_args(discard), _fresh_tier_args(discard)
+    k12.tier_control(*a_k)
+    k12.tier_control_plain(*a_p)
+    err = require_equal("tier_control Discard advance",
+                        [(a_k[i], a_p[i]) for i in _MUTATED["tier_control"]])
+    read = a_k[19].tolist()
+    if not (read[k12.STEP_FLAGS] and not bool(a_k[12].any())
+            and not torch.equal(a_k[15], discard[15])):
+        fail("tier_control: the replayed step at its bound did not discard its plan")
+    out["tier_control"]["max_abs_err"] = max(out["tier_control"]["max_abs_err"], err)
+    log(json.dumps({"phase": "k12-discard", "victims_restored": int(discard[12].sum()),
+                    "plan_node": int(discard[4][2]), "read": read, "max_abs_err": err}))
     torch.cuda.synchronize()
     return out, {name: max(checks[name]["max_abs_err"], err) for name, err in
                  (("propose_best", best_w), ("propose_pick", pick_w))}
+
+
+def _resident_read_bytes(resident, now: bool) -> int:
+    """Bytes of the K11 tables a K10 call reads: the future tables and,
+    `now`, the `_now` ones (each distinct table once), and term_exists."""
+    names = ("Hb", "Ab", "Hd", "Ad") + (("Hb_now", "Ab_now", "Hd_now", "Ad_now")
+                                          if now else ())
+    distinct = {getattr(resident, n).data_ptr(): getattr(resident, n) for n in names
+                if getattr(resident, n) is not None}
+    return (sum(x.numel() * 4 for x in distinct.values())
+            + resident.term_exists.numel() * 4)
+
+
+def _resident_words_bytes(args) -> int:
+    """The bytes one K11 launch on `args` must move: every task's state,
+    node and mask; the label, anti and anti-topology words of the
+    residents (each row once); the node_key_domain rows of the nodes
+    holding them and the term arrays (with topology terms); and every
+    table written once."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import resident as k11
+
+    tw, task_node, task_state, task_mask, nkd, term_key, term_label = args[:7]
+    N, D, K, K2, now = args[7:12]
+    T, KW, K2W = tw.shape[0], k11.words(K), k11.words(K2)
+    held = k11.resident_mask(task_state, task_node, task_mask, bool(now))
+    n = T * (4 + 4 + 1) + int(held.sum()) * (2 * KW + K2W) * 4
+    if K2:
+        nodes = int(torch.unique(task_node[held]).numel())
+        n += nodes * nkd.shape[1] * 4 + (term_key.numel() + term_label.numel()) * 4
+    return n + k11._layout(N, D, KW, bool(now), K2 > 0)[2] * 4
 
 
 def _tier_control_bytes(args, done: bool) -> int:
     """The bytes one K12 launch on `args` must move, each read or write
     once: the masks its tier's work test reads (task_state, task_mask,
     elig; an evict tier's task_job, tried and starving; a gated auction
-    tier's codes), the carry, the phase and the flags; and, only when the
-    tier ends, the advance (prov read, tried / prov / excl cleared, and
-    an open plan's victims restored with their request sum)."""
+    tier's codes), the work mask written, the step it follows (an accept
+    mask or seven flags), the phase and the read buffer; and, only when
+    the tier ends, the advance (prov read, tried / prov / excl cleared,
+    and an open plan's victims restored with their request sum)."""
+    import torch
+
     from kube_batch_tpu_torch.kernels import joint_tier as k12
 
-    kind, gated, carry, prov, node_future = args[0], args[1], args[4], args[12], args[15]
+    kind, gated, step_out, prov, node_future = args[0], args[1], args[4], args[12], args[15]
     T, (N, R) = args[5].shape[0], node_future.shape
-    per_task = 4 + 1 + 1
+    per_task = 4 + 1 + 1 + 1
     if kind == k12.EVICT:
         per_task += 4 + 1
     elif gated:
         per_task += 4
-    n = T * per_task + (args[9].shape[0] if kind == k12.EVICT else 0) + 12 + 4 + 12
+    n = T * per_task + (args[9].shape[0] if kind == k12.EVICT else 0) + 4 + 8 * k12.READ
+    plan_open = False
+    if step_out is not None:
+        n += step_out.numel() * step_out.element_size()
+        plan_open = step_out.dtype != torch.bool and bool(int(step_out[1]))
     if done:
         n += T + 2 * T + N + 4
-        if int(carry[1]):
+        if plan_open:
             victims = int(prov.sum())
             n += victims * (4 + 4 + 4 + 4 * R) + 2 * 4 * R
     return n
@@ -2692,7 +2977,9 @@ def _tier_control_bytes(args, done: bool) -> int:
 # takes the next unmarked kernel of the order
 REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "PR 5",
               "lex_push_many": "PR 6", "sort_by_segment": "PR 6",
-              "affinity_mask": "PR 6", "affinity_words": "PR 6"}
+              "affinity_mask": "PR 6", "affinity_words": "PR 6",
+              "tier_control": "PR 7", "resident_words": "PR 7",
+              "affinity_task_words": "PR 7"}
 
 
 def redesign_order(kernels_line) -> tuple[list, str | None]:
@@ -2747,6 +3034,8 @@ def main() -> int:
         edge_errs.update(phase_k8_edge(device))
         edge_errs.update(phase_words_edge(device))
         row_counts, row_rec = phase_parity(cpu_parity)
+        # the full-size paths once the parity workers are done: their
+        # host times are not shared with the CPU twins
         ppool.close()
         ppool.join()
         counts, rec = phase_main_path(device)

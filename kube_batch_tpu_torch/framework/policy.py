@@ -74,9 +74,10 @@ class TensorPolicy:
         # Their single-task row forms (snap, state, p) -> bool[N] | None,
         # evaluated once per preemption step.
         self.dynamic_predicate_rows: list[Callable] = []
-        # Their words forms (snap, state, immediate) -> AffinityWords |
-        # None, or None where a predicate has none.
+        # Their words forms (snap, state, immediate, resident) ->
+        # AffinityWords | None, or None where a predicate has none.
         self.dynamic_predicate_words: list[Callable | None] = []
+        # (snap, state, resident) -> bool[T] | None
         self.global_serialize: list[Callable] = []
         self.domain_serialize: list[Callable] = []
         # Per-node anti-affinity serialization set, snapshot-static:
@@ -137,8 +138,9 @@ class TensorPolicy:
         kind: str | None = None,
     ) -> None:
         """`kind` names a term the propose kernel computes itself
-        (KERNEL_SCORE_KINDS); any other fn returns its unweighted
-        f32[T, N] term, or None when it is exactly zero."""
+        (KERNEL_SCORE_KINDS); any other fn (snap, state, resident)
+        returns its unweighted f32[T, N] term, or None when it is exactly
+        zero."""
         self.node_scores.append((weight, fn, kind))
         if state_dependent and self.score_quantum == 0.0:
             self.score_quantum = 0.5
@@ -188,17 +190,22 @@ class TensorPolicy:
             m = m & fn(snap)
         return m
 
-    def dynamic_predicate_fn(self, snap, state, immediate: bool = False):
+    def dynamic_predicate_fn(self, snap, state, immediate: bool = False,
+                             resident=None):
         """bool[T, N] AND of the state-dependent predicates, or None when
-        none constrains this snapshot (the auction then skips them)."""
+        none constrains this snapshot (the auction then skips them).
+        Every fn, and every score and global-serialize fn, takes
+        `resident`: the auction round's `kernels/resident.py ·
+        RoundResident`, or None outside a round."""
         m = None
         for fn in self.dynamic_predicates:
-            part = fn(snap, state, immediate)
+            part = fn(snap, state, immediate, resident)
             if part is not None:
                 m = part if m is None else m & part
         return m
 
-    def dyn_predicate_words(self, snap, state, immediate: bool = False):
+    def dyn_predicate_words(self, snap, state, immediate: bool = False,
+                            resident=None):
         """The dynamic predicates in the words form kernel K2 tests itself
         (`kernels/affinity.py · AffinityWords`) when the only one
         registered is inter-pod affinity; None otherwise, and when it
@@ -206,14 +213,15 @@ class TensorPolicy:
         if len(self.dynamic_predicate_words) != 1:
             return None
         words_fn = self.dynamic_predicate_words[0]
-        return None if words_fn is None else words_fn(snap, state, immediate)
+        return None if words_fn is None else words_fn(snap, state, immediate, resident)
 
-    def auction_dyn_predicate(self, snap, state, immediate: bool = False):
+    def auction_dyn_predicate(self, snap, state, immediate: bool = False,
+                              resident=None):
         """What an auction round hands kernel K2: the words form when the
         policy has one, else the mask of `dynamic_predicate_fn`, or None."""
-        words = self.dyn_predicate_words(snap, state, immediate)
+        words = self.dyn_predicate_words(snap, state, immediate, resident)
         return words if words is not None else self.dynamic_predicate_fn(
-            snap, state, immediate)
+            snap, state, immediate, resident)
 
     @property
     def dyn_predicate_row(self):
@@ -243,10 +251,10 @@ class TensorPolicy:
             return None
         fns = list(fns_list)
 
-        def mask(snap, state):
+        def mask(snap, state, *args):
             m = None
             for fn in fns:
-                part = fn(snap, state)
+                part = fn(snap, state, *args)
                 if part is not None:
                     m = part if m is None else m | part
             return m
@@ -393,11 +401,11 @@ class TensorPolicy:
 
 
 def _weighted(w: float, fn):
-    """(snap, state) -> w·fn(snap, state) in float32, or None when the
-    term is exactly zero for this snapshot."""
+    """(snap, state, resident) -> w·fn(snap, state, resident) in float32,
+    or None when the term is exactly zero for this snapshot."""
 
-    def term(snap, state):
-        raw = fn(snap, state)
+    def term(snap, state, resident=None):
+        raw = fn(snap, state, resident)
         if raw is None:
             return None
         return torch.tensor(w, dtype=torch.float32, device=raw.device) * raw

@@ -11,9 +11,9 @@
 | K7 | segment_sum.segment_sum, segment_sum.segment_count, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
 | K8 | lex_rank.lex_push_many, lex_rank.sort_by_segment, lex_rank.vtime | CUDA C++ | framework/policy.py · rank_fn, virtual_start_times; ops/assignment.py · rank_from_keys |
 | K9 | row_patch.row_patch | CUDA C++ | cache/incremental.py · _row_patch |
-| K10 | affinity.affinity_words (tested in K2's tiles), affinity.affinity_mask, affinity.affinity_row | CUDA C++ | plugins/predicates.py · _topo_feasibility, _affinity_candidate_ok, pod_affinity_predicate, pod_affinity_row |
-| K11 | resident.resident_tables | CUDA C++ | plugins/predicates.py · resident_podlabels, _resident_mask, resident_domain_labels |
-| K12 | joint_tier.tier_control | CUDA C++ | ops/joint.py · _haswork_fn, advance (the tier_done test) |
+| K10 | affinity.affinity_words (tested in K2's tiles), affinity.affinity_task_words, affinity.affinity_mask, affinity.affinity_row | CUDA C++ | plugins/predicates.py · _topo_feasibility, _affinity_candidate_ok, pod_affinity_predicate, pod_affinity_row |
+| K11 | resident.resident_words | CUDA C++ | plugins/predicates.py · resident_podlabels, _resident_mask, resident_domain_labels, bootstrap_mask's Hb.any(0) |
+| K12 | joint_tier.tier_control | CUDA C++ | ops/joint.py · _haswork_fn, advance (the tier_done test), the step's read |
 
 Every wrapper runs its plain PyTorch version for CPU tensors, launches
 its kernel for CUDA tensors (or raises), and counts its launches in a
@@ -58,7 +58,8 @@ def wrappers() -> dict:
         "affinity_mask": affinity.affinity_mask,
         "affinity_row": affinity.affinity_row,
         "affinity_words": affinity.affinity_words,
-        "resident_tables": resident.resident_tables,
+        "affinity_task_words": affinity.affinity_task_words,
+        "resident_words": resident.resident_words,
         "tier_control": joint_tier.tier_control,
     }
 

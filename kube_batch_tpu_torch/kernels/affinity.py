@@ -1,33 +1,36 @@
 """K10 · the inter-pod affinity predicate against the resident tables
-(CUDA C++, `csrc/affinity_mask.cu`), two entry points.
+(CUDA C++, `csrc/affinity_mask.cu`), four entry points.
 
 Replaces kube_batch_tpu/plugins/predicates.py · _topo_feasibility,
 _affinity_candidate_ok, pod_affinity_predicate (the bool[T, N] mask) and
 pod_affinity_row (one task's bool[N] row).  What bounds it on the card
 and its design are noted in the source.
 
-Both take the snapshot's task-side fields
+The snapshot's task-side fields are
     aff, anti, labels      f32[T, K]   task_aff, task_anti, task_podlabels
     aff_topo, anti_topo    f32[T, K2]  task_aff_topo, task_anti_topo
     term_key, term_label   i32[K2]     topo_term_key, topo_term_label
     node_key_domain        i32[N, TK]
-and the resident tables of kernel K11 (kernels/resident.py):
+and the resident tables come from kernel K11 as `kernels/resident.py ·
+ResidentWords` (word tables and term_exists).  Required affinity reads
+the future-oriented tables (Hb, Hd; the bootstrap waiver reads
+term_exists), anti-affinity and symmetry the `_now` tables — the
+Releasing-inclusive ones when the build was asked for them (the Idle
+pass), the same tables otherwise:
 
-* `affinity_mask(..., Hb, Hb_anti, Ab_anti, Hd, Hd_now, Ad_now)` →
-  bool[T, N]: required affinity against the future-oriented tables (Hb,
-  Hd; the bootstrap waiver reads Hb.any(0)), anti-affinity and symmetry
-  against the `_anti` / `_now` tables (the Releasing-inclusive ones in
-  the Idle pass, the same tables otherwise);
-* `affinity_row(..., Hb, Ab, Hd, Ad, p)` → bool[N]: the same for task `p`
-  (an int or a 0-dim device tensor, never read on the host) against one
-  table set;
-* `affinity_words(..., Hb, Hb_anti, Ab_anti, Hd, Hd_now, Ad_now,
-  task_words)` → `AffinityWords`: the mask's operands as 32-bit words and
+* `affinity_task_words(aff, anti, labels, aff_topo, anti_topo)` →
+  i32[T, NW]: the task words [aff | anti | labels | aff_topo |
+  anti_topo] as bits.  They read only the snapshot: built once per
+  snapshot and kept (`SnapshotTensors.affinity_task_words`); K11 reads
+  its label rows from them.
+* `affinity_mask(fields..., resident)` → bool[T, N];
+* `affinity_row(fields..., resident, p)` → bool[N]: the same for task `p`
+  (an int or a 0-dim device tensor, never read on the host) against the
+  future tables;
+* `affinity_words(task_words, term_key, term_label, node_key_domain,
+  resident)` → `AffinityWords`: the mask's operands as 32-bit words and
   per-task thresholds, nothing per cell.  Kernel K2 takes it in place of
   the mask and tests each cell in its own tiles (`kernels/propose.py`).
-  `task_words` (i32[T, NW], or None to build them) read only the
-  snapshot, so a caller keeps `result.task_words` for the next call on
-  the same snapshot.
 
 Every operand is 0/1, so every count is an exact integer: the kernel and
 the plain version (the reference's float matrix products) agree bit for
@@ -43,23 +46,20 @@ import dataclasses
 import torch
 
 from kube_batch_tpu_torch.kernels import build
+from kube_batch_tpu_torch.kernels.resident import ResidentWords, pack, unpack, words
 
 MAX_WIDTH = 256          # K and K2 (8 words of 32 bits each)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "kb_affinity_mask": [_P] * 14 + [_I] * 5 + [_P] * 6,
-    "kb_affinity_row": [_P] * 13 + [_I] * 5 + [_P] * 6,
-    "kb_affinity_words": [_P] * 14 + [_I] * 6 + [_P] * 5,
+    "kb_affinity_mask": [_P] * 15 + [_I] * 5 + [_P] * 5,
+    "kb_affinity_row": [_P] * 16 + [_I] * 5 + [_P] * 5,
+    "kb_affinity_words": [_P] * 11 + [_I] * 5 + [_P] * 3,
+    "kb_affinity_task_words": [_P] * 6 + [_I] * 3 + [_P] * 2,
 }
 
 
 def _fn(name: str):
     return build.function("affinity_mask", name, _SIGNATURES[name])
-
-
-def words(width: int) -> int:
-    """32-bit words of a vocabulary of `width` columns."""
-    return (width + 31) // 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +90,9 @@ def present_table(node_key_domain, term_key, term_label, Hd):
 
 
 def affinity_mask_plain(aff, anti, labels, aff_topo, anti_topo, term_key,
-                        term_label, node_key_domain, Hb, Hb_anti, Ab_anti,
-                        Hd, Hd_now, Ad_now):
+                        term_label, node_key_domain, resident: ResidentWords):
+    Hb, _, Hd, _ = resident.tables()
+    Hb_anti, Ab_anti, Hd_now, Ad_now = resident.tables(now=True)
     Hf = Hb.float()
     need = aff.sum(dim=1, keepdim=True)
     have = aff @ Hf.T
@@ -121,7 +122,8 @@ def affinity_mask_plain(aff, anti, labels, aff_topo, anti_topo, term_key,
 
 
 def affinity_row_plain(aff, anti, labels, aff_topo, anti_topo, term_key,
-                       term_label, node_key_domain, Hb, Ab, Hd, Ad, p):
+                       term_label, node_key_domain, resident: ResidentWords, p):
+    Hb, Ab, Hd, Ad = resident.tables()
     Hf = Hb.float()
     a = aff[p]                                                 # f32[K]
     own = labels[p]
@@ -144,29 +146,18 @@ def affinity_row_plain(aff, anti, labels, aff_topo, anti_topo, term_key,
     return ok & (have2 + boot2 >= a2.sum()) & (anti2 <= 0.5) & (sym2 <= 0.5)
 
 
-def _pack(bits: torch.Tensor) -> torch.Tensor:
-    """bool[..., W] → i32[..., words(W)]: bit b of word w is column 32w + b."""
-    W = bits.shape[-1]
-    nw = words(W)
-    padded = torch.zeros(bits.shape[:-1] + (nw * 32,), dtype=torch.int64,
-                         device=bits.device)
-    padded[..., :W] = bits.long()
-    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
-    v = (padded.view(bits.shape[:-1] + (nw, 32)) << shifts).sum(dim=-1)
-    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
-
-
 def task_words_plain(aff, anti, labels, aff_topo, anti_topo) -> torch.Tensor:
     """i32[T, NW]: [aff | anti | labels | aff_topo | anti_topo] as bits."""
-    return torch.cat([_pack(x > 0) for x in (aff, anti, labels, aff_topo, anti_topo)],
+    return torch.cat([pack(x > 0) for x in (aff, anti, labels, aff_topo, anti_topo)],
                      dim=1)
 
 
-def affinity_words_plain(aff, anti, labels, aff_topo, anti_topo, term_key,
-                         term_label, node_key_domain, Hb, Hb_anti, Ab_anti,
-                         Hd, Hd_now, Ad_now, task_words=None) -> AffinityWords:
-    K, K2 = aff.shape[1], aff_topo.shape[1]
-    sym = Ab_anti
+def affinity_words_plain(task_words, term_key, term_label, node_key_domain,
+                         resident: ResidentWords) -> AffinityWords:
+    K, K2 = resident.K, resident.K2
+    KW, K2W = words(K), words(K2)
+    Hb, _, Hd, _ = resident.tables()
+    Hb_anti, sym, Hd_now, Ad_now = resident.tables(now=True)
     node = [Hb, Hb_anti]
     if K2:
         for tk in range(node_key_domain.shape[1]):
@@ -175,13 +166,12 @@ def affinity_words_plain(aff, anti, labels, aff_topo, anti_topo, term_key,
         now = present_table(node_key_domain, term_key, term_label, Hd_now) > 0
     else:
         pres = now = torch.zeros((Hb.shape[0], 0), dtype=torch.bool, device=Hb.device)
-    node_words = torch.cat([_pack(x) for x in node + [sym, pres, now]], dim=1)
-    if task_words is None:
-        task_words = task_words_plain(aff, anti, labels, aff_topo, anti_topo)
+    node_words = torch.cat([pack(x) for x in node + [sym, pres, now]], dim=1)
     exists = Hb.any(dim=0)
-    A, L = aff > 0, labels > 0
+    A = unpack(task_words[:, :KW], K)
+    L = unpack(task_words[:, 2 * KW:3 * KW], K)
+    At = unpack(task_words[:, 3 * KW:3 * KW + K2W], K2)
     thr0 = A.sum(dim=1) - (A & L & ~exists[None, :]).sum(dim=1)
-    At = aff_topo > 0
     label = term_label.long()
     thr1 = At.sum(dim=1) - (At & L[:, label] & ~exists[label][None, :]).sum(dim=1)
     thr = torch.stack([thr0, thr1], dim=1).to(torch.int32)
@@ -229,112 +219,138 @@ def _on_card(t, what: str) -> bool:
     return True
 
 
-def _inputs(what, fields, tables):
-    """Contiguous, type-checked inputs and the scratch of one launch."""
-    aff, anti, labels, aff_topo, anti_topo, term_key, term_label, nkd = fields
-    dev = aff.device
-    T, K = aff.shape
-    K2 = aff_topo.shape[1]
-    if K > MAX_WIDTH or K2 > MAX_WIDTH:
+# K11's tables as the kernels read them: the `_now` set on the anti /
+# symmetry side (the future set itself when the build has no `_now` set)
+_KERNEL_TABLES = ("Hb", "Hb_now", "Ab_now", "Hd", "Hd_now", "Ad_now", "term_exists")
+# the row form: the future set in both orientations
+_ROW_TABLES = ("Hb", "Hb", "Ab", "Hd", "Hd", "Ad", "term_exists")
+
+
+def _check(what, tensors, dtypes, dev) -> None:
+    for x, want in zip(tensors, dtypes):
+        if x is not None and (x.dtype != want or x.device != dev
+                              or not x.is_contiguous()):
+            raise TypeError(f"{what}: expected contiguous {want} on {dev}, got "
+                            f"{x.dtype} on {x.device}")
+
+
+def _tables(what, resident: ResidentWords, dev, names=_KERNEL_TABLES):
+    """Addresses of K11's word tables in the kernels' order [Hb, Hb_anti,
+    Ab_anti, Hd, Hd_now, Ad_now, exists] (`names`), its buffer checked."""
+    if resident.K > MAX_WIDTH or resident.K2 > MAX_WIDTH:
         raise ValueError(f"{what}: vocabularies of at most {MAX_WIDTH} columns, "
-                         f"got K={K}, K2={K2}")
-    f = [x.contiguous() for x in fields]
-    for x, want in zip(f, (torch.float32,) * 5 + (torch.int32,) * 3):
-        if x.dtype != want or x.device != dev:
-            raise TypeError(f"{what}: expected {want} on {dev}, got {x.dtype} "
-                            f"on {x.device}")
-    t = [None if x is None else x.contiguous() for x in tables]
-    for x in t:
-        if x is not None and (x.dtype != torch.bool or x.device != dev):
-            raise TypeError(f"{what}: resident tables must be bool on {dev}")
-    N = t[0].shape[0]
-    TK = nkd.shape[1] if K2 else 0
-    nw = 3 * words(K) + 2 * words(K2)
-    return f, t, (T, N, K, K2, TK, nw)
+                         f"got K={resident.K}, K2={resident.K2}")
+    _check(what, (resident.buf,), (torch.int32,), dev)
+    return tuple(resident.address(n) for n in names)
 
 
-def _scratch(N: int, nw: int, K: int, dev):
-    """The node words and the zeroed term-exists words of one launch."""
-    return (torch.empty((N, nw), dtype=torch.int32, device=dev),
-            torch.zeros(words(K), dtype=torch.int32, device=dev))
+_FIELD_DTYPES = (torch.float32,) * 5 + (torch.int32,) * 3
+
+
+def _scratch(T: int, N: int, nw: int, dev):
+    """Node words, task words and thresholds of one mask / row launch,
+    in one allocation."""
+    buf = torch.empty(N * nw + T * nw + 2 * T, dtype=torch.int32, device=dev)
+    return (buf[:N * nw].view(N, nw), buf[N * nw:(N + T) * nw].view(T, nw),
+            buf[(N + T) * nw:].view(T, 2))
+
+
+def affinity_task_words(aff, anti, labels, aff_topo, anti_topo):
+    """i32[T, NW] — see the module docstring."""
+    fields = (aff, anti, labels, aff_topo, anti_topo)
+    if not _on_card(aff, "affinity_task_words"):
+        return task_words_plain(*fields)
+    dev = aff.device
+    (T, K), K2 = aff.shape, aff_topo.shape[1]
+    if K > MAX_WIDTH or K2 > MAX_WIDTH:
+        raise ValueError(f"affinity_task_words: vocabularies of at most {MAX_WIDTH} "
+                         f"columns, got K={K}, K2={K2}")
+    _check("affinity_task_words", fields, _FIELD_DTYPES, dev)
+    out = torch.empty((T, 3 * words(K) + 2 * words(K2)), dtype=torch.int32, device=dev)
+    # the label of a topology term is not read without thresholds
+    err = _fn("kb_affinity_task_words")(*(x.data_ptr() for x in fields), None, T, K,
+                                        K2, out.data_ptr(), build.stream_handle(dev))
+    build.check(err, "affinity_task_words")
+    affinity_task_words.launches += 1
+    return out
 
 
 def affinity_mask(aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
-                  node_key_domain, Hb, Hb_anti, Ab_anti, Hd, Hd_now, Ad_now):
+                  node_key_domain, resident: ResidentWords):
     """bool[T, N] — see the module docstring."""
     fields = (aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
               node_key_domain)
-    tables = (Hb, Hb_anti, Ab_anti, Hd, Hd_now, Ad_now)
     if not _on_card(aff, "affinity_mask"):
-        return affinity_mask_plain(*fields, *tables)
-    f, t, (T, N, K, K2, TK, nw) = _inputs("affinity_mask", fields, tables)
+        return affinity_mask_plain(*fields, resident)
     dev = aff.device
-    node_words, exists = _scratch(N, nw, K, dev)
-    task_words = torch.empty((T, nw), dtype=torch.int32, device=dev)
-    thr = torch.empty((T, 2), dtype=torch.int32, device=dev)
+    _check("affinity_mask", fields, _FIELD_DTYPES, dev)
+    tables = _tables("affinity_mask", resident, dev)
+    (T, K), K2, N = aff.shape, aff_topo.shape[1], resident.N
+    TK = node_key_domain.shape[1] if K2 else 0
+    nw = 3 * words(K) + 2 * words(K2)
+    node_words, task_words, thr = _scratch(T, N, nw, dev)
     out = torch.empty((T, N), dtype=torch.bool, device=dev)
-    err = _fn("kb_affinity_mask")(*(build.ptr(x) for x in f), *(build.ptr(x) for x in t),
-             T, N, K, K2, TK, build.ptr(node_words), build.ptr(exists),
-             build.ptr(task_words), build.ptr(thr), build.ptr(out),
-             build.stream_handle(dev))
+    err = _fn("kb_affinity_mask")(
+        *(x.data_ptr() for x in fields), *tables, T, N, K, K2, TK,
+        node_words.data_ptr(), task_words.data_ptr(), thr.data_ptr(), out.data_ptr(),
+        build.stream_handle(dev))
     build.check(err, "affinity_mask")
     affinity_mask.launches += 1
     return out
 
 
 def affinity_row(aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
-                 node_key_domain, Hb, Ab, Hd, Ad, p):
+                 node_key_domain, resident: ResidentWords, p):
     """bool[N] — see the module docstring."""
     fields = (aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
               node_key_domain)
     if not _on_card(aff, "affinity_row"):
-        return affinity_row_plain(*fields, Hb, Ab, Hd, Ad, p)
-    f, t, (T, N, K, K2, TK, nw) = _inputs("affinity_row", fields, (Hb, Ab, Hd, Ad))
+        return affinity_row_plain(*fields, resident, p)
     dev = aff.device
-    node_words, exists = _scratch(N, nw, K, dev)
+    _check("affinity_row", fields, _FIELD_DTYPES, dev)
+    tables = _tables("affinity_row", resident, dev, _ROW_TABLES)
+    (T, K), K2, N = aff.shape, aff_topo.shape[1], resident.N
+    TK = node_key_domain.shape[1] if K2 else 0
+    nw = 3 * words(K) + 2 * words(K2)
+    node_words, task_words, thr = _scratch(1, N, nw, dev)
     p_dev = torch.as_tensor(p, device=dev).to(torch.int64).reshape(1)
-    task_words = torch.empty((1, nw), dtype=torch.int32, device=dev)
-    thr = torch.empty((1, 2), dtype=torch.int32, device=dev)
     out = torch.empty(N, dtype=torch.bool, device=dev)
-    err = _fn("kb_affinity_row")(*(build.ptr(x) for x in f), *(build.ptr(x) for x in t),
-             build.ptr(p_dev), T, N, K, K2, TK, build.ptr(node_words),
-             build.ptr(exists), build.ptr(task_words), build.ptr(thr),
-             build.ptr(out), build.stream_handle(dev))
+    err = _fn("kb_affinity_row")(
+        *(x.data_ptr() for x in fields), *tables, p_dev.data_ptr(), T, N, K, K2, TK,
+        node_words.data_ptr(), task_words.data_ptr(), thr.data_ptr(), out.data_ptr(),
+        build.stream_handle(dev))
     build.check(err, "affinity_row")
     affinity_row.launches += 1
     return out
 
 
-def affinity_words(aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
-                   node_key_domain, Hb, Hb_anti, Ab_anti, Hd, Hd_now, Ad_now,
-                   task_words) -> AffinityWords:
-    """AffinityWords — see the module docstring (`task_words` None: build
-    them)."""
-    fields = (aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
-              node_key_domain)
-    tables = (Hb, Hb_anti, Ab_anti, Hd, Hd_now, Ad_now)
-    if not _on_card(aff, "affinity_words"):
-        return affinity_words_plain(*fields, *tables, task_words)
-    f, t, (T, N, K, K2, TK, nw) = _inputs("affinity_words", fields, tables)
-    dev = aff.device
-    build_tw = task_words is None
-    if build_tw:
-        task_words = torch.empty((T, nw), dtype=torch.int32, device=dev)
-    elif task_words.shape != (T, nw) or task_words.dtype != torch.int32:
-        raise ValueError(f"affinity_words: task words must be int32 of shape {(T, nw)}")
-    # node words, thresholds and the term-exists words in one allocation
-    buf = torch.empty(N * nw + 2 * T + max(words(K), 1), dtype=torch.int32, device=dev)
-    node_words = buf[:N * nw].view(N, nw)
-    thr = buf[N * nw:N * nw + 2 * T].view(T, 2)
+def affinity_words(task_words, term_key, term_label, node_key_domain,
+                   resident: ResidentWords) -> AffinityWords:
+    """AffinityWords — see the module docstring."""
+    args = (task_words, term_key, term_label, node_key_domain)
+    if not _on_card(task_words, "affinity_words"):
+        return affinity_words_plain(*args, resident)
+    dev = task_words.device
+    _check("affinity_words", args, (torch.int32,) * 4, dev)
+    tables = _tables("affinity_words", resident, dev)
+    K, K2 = resident.K, resident.K2
+    T, N = task_words.shape[0], resident.N
+    TK = node_key_domain.shape[1] if K2 else 0
+    nw = 3 * words(K) + 2 * words(K2)
+    if task_words.shape[1] != nw:
+        raise ValueError(f"affinity_words: task words must have {nw} words a row")
+    # node words and thresholds in one allocation
+    buf = torch.empty(N * nw + 2 * T, dtype=torch.int32, device=dev)
+    node_words, thr = buf[:N * nw].view(N, nw), buf[N * nw:].view(T, 2)
     err = _fn("kb_affinity_words")(
-        *(build.ptr(x) for x in f), *(build.ptr(x) for x in t), T, N, K, K2, TK,
-        int(build_tw), build.ptr(node_words), build.ptr(buf[N * nw + 2 * T:]),
-        build.ptr(task_words), build.ptr(thr), build.stream_handle(dev))
+        *(x.data_ptr() for x in args), *tables, T, N, K, K2, TK, node_words.data_ptr(),
+        thr.data_ptr(), build.stream_handle(dev))
     build.check(err, "affinity_words")
     affinity_words.launches += 1
-    return AffinityWords(node_words, task_words.contiguous(), thr, K, K2)
+    return AffinityWords(node_words, task_words, thr, K, K2)
 
 
+affinity_task_words.launches = 0
 affinity_mask.launches = 0
 affinity_row.launches = 0
 affinity_words.launches = 0

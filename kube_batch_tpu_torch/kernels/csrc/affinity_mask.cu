@@ -18,8 +18,9 @@
 // words and is exact, and kernel and plain version agree bit for bit.
 //   pass 1, one thread per node: the node's words — Hb, Hb_anti, the
 //     symmetry mask (Ab_anti, OR'ed over every topology-key column of
-//     Ad_now through node_key_domain), present and present_now — and
-//     the term-exists words (Hb.any(0)) by atomicOr;
+//     Ad_now through node_key_domain), present and present_now — read
+//     from kernel K11's word tables (one word per 32 labels; K11 also
+//     gives the term-exists words, Hb.any(0)), so nothing is packed;
 //   pass 2, one thread per task (or the one task of the row form, read
 //     from device memory so the caller never waits): the task's words —
 //     aff, anti, labels, aff_topo, anti_topo — and its two thresholds
@@ -33,14 +34,15 @@
 // count; padded nodes and padded topology-key columns (the dead domain)
 // are evaluated by the same formula as the plain version.
 //
-// kb_affinity_words is the form the auction rounds take: passes 1 and 2
-// only, nothing written per cell.  Kernel K2 (propose.cu) applies pass
-// 3's cell test inside its own tiles.  The task words read nothing but
-// the snapshot, so the caller keeps them for the snapshot's life and a
-// round builds only the node words and the thresholds
-// (affinity_thresholds_kernel, from the kept words and the term-exists
-// words): at the flagship shapes 160 KB of node words and 512 KB of
-// thresholds a round, where the mask was 0.54 GB.
+// kb_affinity_words is the form the auction rounds take: pass 1 and the
+// thresholds, nothing written per cell.  Kernel K2 (propose.cu) applies
+// pass 3's cell test inside its own tiles.  The task words read nothing
+// but the snapshot: kb_affinity_task_words builds them once per snapshot
+// (pass 2 without thresholds), the caller keeps them, and K11 reads its
+// label rows from them too; a round builds only the node words and the
+// thresholds (affinity_thresholds_kernel, from the kept words and the
+// term-exists words): at the flagship shapes 160 KB of node words and
+// 512 KB of thresholds a round, where the mask was 0.54 GB.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,44 +58,37 @@ struct Dims {
   __host__ __device__ int nw() const { return 3 * KW + 2 * K2W; }
 };
 
-// node words: [Hb | Hb_anti | sym | present | present_now]
+// node words: [Hb | Hb_anti | sym | present | present_now], from kernel
+// K11's word tables (rows of KW words; Hd / Hd_now / Ad_now are read
+// only with topology terms)
 __global__ void affinity_nodes_kernel(
-    Dims d, const uint8_t* __restrict__ Hb, const uint8_t* __restrict__ Hba,
-    const uint8_t* __restrict__ Aba, const uint8_t* __restrict__ Hd,
-    const uint8_t* __restrict__ Hd_now, const uint8_t* __restrict__ Ad_now,
+    Dims d, const uint32_t* __restrict__ Hb, const uint32_t* __restrict__ Hba,
+    const uint32_t* __restrict__ Aba, const uint32_t* __restrict__ Hd,
+    const uint32_t* __restrict__ Hd_now, const uint32_t* __restrict__ Ad_now,
     const int32_t* __restrict__ nkd, const int32_t* __restrict__ term_key,
-    const int32_t* __restrict__ term_label, uint32_t* __restrict__ node_words,
-    uint32_t* __restrict__ exists) {
+    const int32_t* __restrict__ term_label, uint32_t* __restrict__ node_words) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= d.N) return;
   uint32_t* out = node_words + (size_t)n * d.nw();
   const int* dom = nkd + (size_t)n * d.TK;
+  const size_t row = (size_t)n * d.KW;
   for (int w = 0; w < d.KW; ++w) {
-    uint32_t hb = 0, hba = 0, sym = 0;
-    for (int b = 0; b < 32; ++b) {
-      int k = w * 32 + b;
-      if (k >= d.K) break;
-      size_t i = (size_t)n * d.K + k;
-      if (Hb[i]) hb |= 1u << b;
-      if (Hba[i]) hba |= 1u << b;
-      bool s = Aba[i] != 0;
-      if (d.K2)
-        for (int tk = 0; tk < d.TK; ++tk) s = s || Ad_now[(size_t)dom[tk] * d.K + k];
-      if (s) sym |= 1u << b;
-    }
-    out[w] = hb;
-    out[d.KW + w] = hba;
+    uint32_t sym = Aba[row + w];
+    if (d.K2)
+      for (int tk = 0; tk < d.TK; ++tk) sym |= Ad_now[(size_t)dom[tk] * d.KW + w];
+    out[w] = Hb[row + w];
+    out[d.KW + w] = Hba[row + w];
     out[2 * d.KW + w] = sym;
-    if (hb) atomicOr(exists + w, hb);
   }
   for (int w = 0; w < d.K2W; ++w) {
     uint32_t pres = 0, now = 0;
     for (int b = 0; b < 32; ++b) {
       int j = w * 32 + b;
       if (j >= d.K2) break;
-      size_t i = (size_t)dom[term_key[j]] * d.K + term_label[j];
-      if (Hd[i]) pres |= 1u << b;
-      if (Hd_now[i]) now |= 1u << b;
+      const int lab = term_label[j];
+      const size_t i = (size_t)dom[term_key[j]] * d.KW + (lab >> 5);
+      if ((Hd[i] >> (lab & 31)) & 1u) pres |= 1u << b;
+      if ((Hd_now[i] >> (lab & 31)) & 1u) now |= 1u << b;
     }
     out[3 * d.KW + w] = pres;
     out[3 * d.KW + d.K2W + w] = now;
@@ -111,8 +106,9 @@ __device__ __forceinline__ uint32_t bits(const float* row, int w, int width) {
 }
 
 // task words: [aff | anti | labels | aff_topo | anti_topo], thresholds
-// thr[0] = need - bootstrap (node terms), thr[1] = the same for topo terms.
-// `row` (device int64) selects one task for the row form, else all tasks.
+// thr[0] = need - bootstrap (node terms), thr[1] = the same for topo terms
+// (the words alone when thr is null).  `row` (device int64) selects one
+// task for the row form, else all tasks.
 __global__ void affinity_tasks_kernel(
     Dims d, const float* __restrict__ aff, const float* __restrict__ anti,
     const float* __restrict__ labels, const float* __restrict__ aff_topo,
@@ -132,13 +128,13 @@ __global__ void affinity_tasks_kernel(
     out[d.KW + w] = bits(anti + (size_t)t * d.K, w, d.K);
     out[2 * d.KW + w] = l;
     need += __popc(a);
-    boot += __popc(a & l & ~exists[w]);
+    if (thr) boot += __popc(a & l & ~exists[w]);
   }
   int need2 = 0, boot2 = 0;
   for (int w = 0; w < d.K2W; ++w) {
     uint32_t a = bits(aff_topo + (size_t)t * d.K2, w, d.K2);
     uint32_t own = 0, gone = 0;
-    for (int b = 0; b < 32; ++b) {
+    for (int b = 0; thr && b < 32; ++b) {   // the waiver: thresholds only
       int j = w * 32 + b;
       if (j >= d.K2) break;
       int lab = term_label[j];
@@ -150,8 +146,10 @@ __global__ void affinity_tasks_kernel(
     need2 += __popc(a);
     boot2 += __popc(a & own & gone);
   }
-  thr[2 * i] = need - boot;
-  thr[2 * i + 1] = need2 - boot2;
+  if (thr) {
+    thr[2 * i] = need - boot;
+    thr[2 * i + 1] = need2 - boot2;
+  }
 }
 
 // thresholds from kept task words: the same need - bootstrap as
@@ -251,41 +249,53 @@ Dims make_dims(int T, int N, int K, int K2, int TK) {
   return d;
 }
 
-int prepare(const Dims& d, const uint8_t* Hb, const uint8_t* Hba, const uint8_t* Aba,
-            const uint8_t* Hd, const uint8_t* Hd_now, const uint8_t* Ad_now,
-            const int32_t* nkd, const int32_t* term_key, const int32_t* term_label,
-            const float* aff, const float* anti, const float* labels, const float* aff_topo,
-            const float* anti_topo, const int64_t* row, uint32_t* node_words,
-            uint32_t* exists, uint32_t* task_words, int32_t* thr, cudaStream_t stream) {
+// K11's word tables and term_exists: [Hb, Hb_anti, Ab_anti, Hd, Hd_now,
+// Ad_now, exists]
+struct Tables {
+  const uint32_t *Hb, *Hba, *Aba, *Hd, *Hd_now, *Ad_now, *exists;
+};
+
+int launch_nodes(const Dims& d, const Tables& r, const int32_t* nkd, const int32_t* term_key,
+                 const int32_t* term_label, uint32_t* node_words, cudaStream_t stream) {
   if (d.KW > MAXW || d.K2W > MAXW) return (int)cudaErrorInvalidValue;
   affinity_nodes_kernel<<<(d.N + 127) / 128, 128, 0, stream>>>(
-      d, Hb, Hba, Aba, Hd, Hd_now, Ad_now, nkd, term_key, term_label, node_words, exists);
-  int err = (int)cudaGetLastError();
+      d, r.Hb, r.Hba, r.Aba, r.Hd, r.Hd_now, r.Ad_now, nkd, term_key, term_label, node_words);
+  return (int)cudaGetLastError();
+}
+
+int prepare(const Dims& d, const Tables& r, const int32_t* nkd, const int32_t* term_key,
+            const int32_t* term_label, const float* aff, const float* anti,
+            const float* labels, const float* aff_topo, const float* anti_topo,
+            const int64_t* row, uint32_t* node_words, uint32_t* task_words, int32_t* thr,
+            cudaStream_t stream) {
+  int err = launch_nodes(d, r, nkd, term_key, term_label, node_words, stream);
   if (err) return err;
   int count = row ? 1 : d.T;
   affinity_tasks_kernel<<<(count + 127) / 128, 128, 0, stream>>>(
-      d, aff, anti, labels, aff_topo, anti_topo, term_label, exists, row, task_words, thr);
+      d, aff, anti, labels, aff_topo, anti_topo, term_label, r.exists, row, task_words, thr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Every entry takes kernel K11's word tables (u32 rows of ceil(K/32)
+// words; the domain tables may be null when K2 == 0) and its term_exists
+// words.  NW = 3 ceil(K/32) + 2 ceil(K2/32).
+
 // The mask: out u8[T, N].  Scratch from the caller: node_words u32[N, NW],
-// task_words u32[T, NW], thr i32[T, 2], exists u32[KW] zeroed, with
-// NW = 3 ceil(K/32) + 2 ceil(K2/32).  Domain tables may be null when
-// K2 == 0.
+// task_words u32[T, NW], thr i32[T, 2].
 extern "C" int kb_affinity_mask(
     const float* aff, const float* anti, const float* labels, const float* aff_topo,
     const float* anti_topo, const int32_t* term_key, const int32_t* term_label,
-    const int32_t* nkd, const uint8_t* Hb, const uint8_t* Hba, const uint8_t* Aba,
-    const uint8_t* Hd, const uint8_t* Hd_now, const uint8_t* Ad_now, int T, int N, int K,
-    int K2, int TK, uint32_t* node_words, uint32_t* exists, uint32_t* task_words,
-    int32_t* thr, uint8_t* out, cudaStream_t stream) {
+    const int32_t* nkd, const uint32_t* Hb, const uint32_t* Hba, const uint32_t* Aba,
+    const uint32_t* Hd, const uint32_t* Hd_now, const uint32_t* Ad_now,
+    const uint32_t* exists, int T, int N, int K, int K2, int TK, uint32_t* node_words,
+    uint32_t* task_words, int32_t* thr, uint8_t* out, cudaStream_t stream) {
   if (T == 0 || N == 0) return 0;
   Dims d = make_dims(T, N, K, K2, TK);
-  int err = prepare(d, Hb, Hba, Aba, Hd, Hd_now, Ad_now, nkd, term_key, term_label, aff,
-                    anti, labels, aff_topo, anti_topo, nullptr, node_words, exists,
-                    task_words, thr, stream);
+  Tables r{Hb, Hba, Aba, Hd, Hd_now, Ad_now, exists};
+  int err = prepare(d, r, nkd, term_key, term_label, aff, anti, labels, aff_topo, anti_topo,
+                    nullptr, node_words, task_words, thr, stream);
   if (err) return err;
   dim3 block(TILE, TILE / ROWS);
   dim3 grid((N + TILE - 1) / TILE, (T + TILE - 1) / TILE);
@@ -293,20 +303,22 @@ extern "C" int kb_affinity_mask(
   return (int)cudaGetLastError();
 }
 
-// The row of task *p (device int64): out u8[N].  Scratch as above, with
-// task_words u32[1, NW] and thr i32[1, 2].
+// The row of task *p (device int64) against one table set (the caller
+// passes Hb, Ab, Hd, Ad as both orientations): out u8[N].  Scratch as
+// above, with task_words u32[1, NW] and thr i32[1, 2].
 extern "C" int kb_affinity_row(
     const float* aff, const float* anti, const float* labels, const float* aff_topo,
     const float* anti_topo, const int32_t* term_key, const int32_t* term_label,
-    const int32_t* nkd, const uint8_t* Hb, const uint8_t* Ab, const uint8_t* Hd,
-    const uint8_t* Ad, const int64_t* p, int T, int N, int K, int K2, int TK,
-    uint32_t* node_words, uint32_t* exists, uint32_t* task_words, int32_t* thr,
-    uint8_t* out, cudaStream_t stream) {
+    const int32_t* nkd, const uint32_t* Hb, const uint32_t* Hba, const uint32_t* Aba,
+    const uint32_t* Hd, const uint32_t* Hd_now, const uint32_t* Ad_now,
+    const uint32_t* exists, const int64_t* p, int T, int N, int K, int K2, int TK,
+    uint32_t* node_words, uint32_t* task_words, int32_t* thr, uint8_t* out,
+    cudaStream_t stream) {
   if (N == 0) return 0;
   Dims d = make_dims(T, N, K, K2, TK);
-  int err = prepare(d, Hb, Hb, Ab, Hd, Hd, Ad, nkd, term_key, term_label, aff, anti,
-                    labels, aff_topo, anti_topo, p, node_words, exists, task_words, thr,
-                    stream);
+  Tables r{Hb, Hba, Aba, Hd, Hd_now, Ad_now, exists};
+  int err = prepare(d, r, nkd, term_key, term_label, aff, anti, labels, aff_topo, anti_topo,
+                    p, node_words, task_words, thr, stream);
   if (err) return err;
   affinity_row_kernel<<<(N + 127) / 128, 128, 0, stream>>>(d, task_words, thr, node_words,
                                                           out);
@@ -314,28 +326,34 @@ extern "C" int kb_affinity_row(
 }
 
 // The words form: node_words u32[N, NW] and thr i32[T, 2] of this round,
-// and task_words u32[T, NW], built here when build_task_words is set and
-// read (kept from an earlier call on the same snapshot) otherwise.
-// exists u32[KW] is scratch, zeroed here.
+// from the snapshot's task words u32[T, NW] (kb_affinity_task_words).
 extern "C" int kb_affinity_words(
-    const float* aff, const float* anti, const float* labels, const float* aff_topo,
-    const float* anti_topo, const int32_t* term_key, const int32_t* term_label,
-    const int32_t* nkd, const uint8_t* Hb, const uint8_t* Hba, const uint8_t* Aba,
-    const uint8_t* Hd, const uint8_t* Hd_now, const uint8_t* Ad_now, int T, int N, int K,
-    int K2, int TK, int build_task_words, uint32_t* node_words, uint32_t* exists,
-    uint32_t* task_words, int32_t* thr, cudaStream_t stream) {
+    const uint32_t* task_words, const int32_t* term_key, const int32_t* term_label,
+    const int32_t* nkd, const uint32_t* Hb, const uint32_t* Hba, const uint32_t* Aba,
+    const uint32_t* Hd, const uint32_t* Hd_now, const uint32_t* Ad_now,
+    const uint32_t* exists, int T, int N, int K, int K2, int TK, uint32_t* node_words,
+    int32_t* thr, cudaStream_t stream) {
   if (T == 0 || N == 0) return 0;
   Dims d = make_dims(T, N, K, K2, TK);
-  if (d.KW > MAXW || d.K2W > MAXW) return (int)cudaErrorInvalidValue;
-  int err = (int)cudaMemsetAsync(exists, 0, sizeof(uint32_t) * (d.KW ? d.KW : 1), stream);
+  Tables r{Hb, Hba, Aba, Hd, Hd_now, Ad_now, exists};
+  int err = launch_nodes(d, r, nkd, term_key, term_label, node_words, stream);
   if (err) return err;
-  if (build_task_words)
-    return prepare(d, Hb, Hba, Aba, Hd, Hd_now, Ad_now, nkd, term_key, term_label, aff,
-                   anti, labels, aff_topo, anti_topo, nullptr, node_words, exists,
-                   task_words, thr, stream);
-  affinity_nodes_kernel<<<(d.N + 127) / 128, 128, 0, stream>>>(
-      d, Hb, Hba, Aba, Hd, Hd_now, Ad_now, nkd, term_key, term_label, node_words, exists);
   affinity_thresholds_kernel<<<(d.T + 127) / 128, 128, 0, stream>>>(d, task_words,
                                                                      term_label, exists, thr);
+  return (int)cudaGetLastError();
+}
+
+// The task words alone, u32[T, NW], from the float label fields: built
+// once per snapshot and kept (K11 and kb_affinity_words read them).
+extern "C" int kb_affinity_task_words(
+    const float* aff, const float* anti, const float* labels, const float* aff_topo,
+    const float* anti_topo, const int32_t* term_label, int T, int K, int K2,
+    uint32_t* task_words, cudaStream_t stream) {
+  if (T == 0) return 0;
+  Dims d = make_dims(T, 0, K, K2, 0);
+  if (d.KW > MAXW || d.K2W > MAXW) return (int)cudaErrorInvalidValue;
+  affinity_tasks_kernel<<<(T + 127) / 128, 128, 0, stream>>>(
+      d, aff, anti, labels, aff_topo, anti_topo, term_label, nullptr, nullptr, task_words,
+      nullptr);
   return (int)cudaGetLastError();
 }

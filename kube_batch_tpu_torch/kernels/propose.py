@@ -53,9 +53,11 @@ class ScoreSpec:
 
     `w_lr` / `w_bal` weight the least-requested and balanced-allocation
     terms (None = not registered); `extra_fns` are callables
-    `(snap, state) -> f32[T, N] | None` returning an already weighted
-    additive term, or None when the term is exactly zero for this
-    snapshot.  An empty spec is the zero score (backfill)."""
+    `(snap, state, resident=None) -> f32[T, N] | None` returning an
+    already weighted additive term, or None when the term is exactly
+    zero for this snapshot (`resident`: the auction round's
+    `kernels/resident.py · RoundResident`, or None).  An empty spec is
+    the zero score (backfill)."""
 
     w_lr: float | None = None
     w_bal: float | None = None
@@ -63,10 +65,10 @@ class ScoreSpec:
     d1: int = 1
     extra_fns: tuple = ()
 
-    def extra_terms(self, snap, state) -> list[torch.Tensor]:
+    def extra_terms(self, snap, state, resident=None) -> list[torch.Tensor]:
         out = []
         for fn in self.extra_fns:
-            term = fn(snap, state)
+            term = fn(snap, state, resident)
             if term is not None:
                 out.append(term)
         return out

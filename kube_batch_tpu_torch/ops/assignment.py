@@ -41,6 +41,7 @@ import torch
 from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels import lex_rank, propose, resolve
+from kube_batch_tpu_torch.kernels.resident import RoundResident
 
 NEG_INF = -1e30
 INT32_MAX = 2**31 - 1
@@ -208,22 +209,32 @@ def auction_round(
     domain_serialize_fn=None,
     serialize_mask: torch.Tensor | None = None,
     cancelled: torch.Tensor | None = None,
+    eligible: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One auction round up to its apply: every eligible pending task
     proposes (K2), nodes resolve conflicts (K3 resolve), the serialize
     steps trim the accepted set.  `dyn_predicate_fn` gives K2 a bool[T, N]
     mask or the affinity words (`TensorPolicy.auction_dyn_predicate`).
-    Returns (accept bool[T], perm, sorted node ids) for `apply_round`;
-    nothing is read on the host.  `cancelled` (i64[3], on the device)
-    gains the acceptances each step of CANCEL_STEPS cancelled."""
+    The dynamic predicate, the score terms and the global serialize set
+    share one `RoundResident`: the first of them that reads the resident
+    tables builds them (kernel K11), once a round and never past its
+    apply, which writes the state.
+    `eligible` (bool[T], optional) is this state's pending & eligible
+    mask when the caller has it (the joint loop's kernel K12 writes it),
+    in place of calling `eligible_fn`.  Returns (accept bool[T], perm,
+    sorted node ids) for `apply_round`; nothing is read on the host.
+    `cancelled` (i64[3], on the device) gains the acceptances each step
+    of CANCEL_STEPS cancelled."""
     avail = state.node_future if use_future else state.node_idle
-    pending = (state.task_state == int(TaskStatus.PENDING)) & snap.task_mask
-    eligible = pending & eligible_fn(snap, state)
+    if eligible is None:
+        pending = (state.task_state == int(TaskStatus.PENDING)) & snap.task_mask
+        eligible = pending & eligible_fn(snap, state)
+    resident = RoundResident(with_now=not use_future)
     dyn = (
-        dyn_predicate_fn(snap, state, not use_future)
+        dyn_predicate_fn(snap, state, not use_future, resident)
         if dyn_predicate_fn is not None else None
     )
-    extras = score_spec.extra_terms(snap, state)
+    extras = score_spec.extra_terms(snap, state, resident)
     best, cnt, active = propose.propose_best(
         predicate_mask, dyn, snap.task_req, avail, eps, snap.node_mask,
         eligible, state.node_future, snap.node_cap, score_spec, extras,
@@ -248,7 +259,7 @@ def auction_round(
         _count_cancelled(cancelled, 1, accept, kept)
         accept = kept
     if global_serialize_fn is not None:
-        gmask = global_serialize_fn(snap, state)
+        gmask = global_serialize_fn(snap, state, resident)
         if gmask is not None:
             kept = _global_serialize(accept, rank, gmask)
             _count_cancelled(cancelled, 2, accept, kept)
@@ -281,8 +292,8 @@ def allocate_rounds(
     max_rounds: int | None = None,
     one_per_node: bool = False,
     score_quantum: float = 0.0,
-    dyn_predicate_fn=None,     # (snap, state, immediate) -> bool[T, N] | None
-    global_serialize_fn=None,  # (snap, state) -> bool[T] | None
+    dyn_predicate_fn=None,     # (snap, state, immediate, resident) -> mask | words | None
+    global_serialize_fn=None,  # (snap, state, resident) -> bool[T] | None
     domain_serialize_fn=None,  # (snap, state) -> bool[T] | None
     serialize_mask: torch.Tensor | None = None,  # bool[T] | None
     stats: dict | None = None,

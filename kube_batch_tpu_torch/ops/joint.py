@@ -14,17 +14,23 @@ plan clears its codes.
 The reference runs the loop in one device `lax.while_loop` with
 `lax.cond` / `lax.switch` between the tiers.  Here the host drives it,
 as ops/preemption.py drives the preemption loop, and branches between an
-auction step and an evict step.  Each iteration launches kernel K12
-(kernels/joint_tier.py) once: the current tier's work test, the
-`tier_done = ~progressed | step >= max_steps | ~has_work` test of the
-reference's loop body, and, when done, the advance applied in place.
-The host then reads ONE flag vector: the last step's flags and K12's
-together.  The steps themselves are the port's own machinery:
-ops/assignment.py · auction_round / apply_round (K2, K3, the serialize
-steps) and ops/preemption.py · evict_step (K5, K6, the plan open /
-continue branch), with the joint solve's differences kept: a tier ends
-when its work test is empty, and an open plan left at a tier's step
-bound is discarded by the advance.
+auction step and an evict step.  Each iteration computes the current
+tier's masks once (its `eligible_fn`, and an evict tier's
+`starving_fn`) and launches kernel K12 (kernels/joint_tier.py) once, fed
+by the step it follows (the auction round's accept mask, or the evict
+step's flag vector): the tier's work test, the `tier_done =
+~progressed | step >= max_steps | ~has_work` test of the reference's
+loop body, and, when done, the advance applied in place.  K12 writes
+the tier's work mask, which the next step takes in place of computing
+the masks again, and packs the step's flags with its own [done,
+has_work, phase] into one buffer: the host reads ONE vector per
+iteration.  The work mask and the read buffer belong to the loop.  The
+steps themselves are the port's own machinery: ops/assignment.py ·
+auction_round / apply_round (K2, K3, the serialize steps, one resident
+table build per round) and ops/preemption.py · evict_step (K5, K6, the
+plan open / continue branch), with the joint solve's differences kept:
+a tier ends when its work test is empty, and an open plan left at a
+tier's step bound is discarded by the advance.
 
 Float rules: the discarded plan's request sum is float64, rounded once
 (as the preemption loop's); the auction apply is K3's float64 per-node
@@ -101,9 +107,9 @@ def joint_rounds(
     predicate_mask: torch.Tensor,   # bool[T, N] static feasibility
     rank_fn: MaskFn,
     eps: torch.Tensor,              # f32[R]
-    dyn_predicate_fn=None,          # (snap, state, immediate) -> bool[T, N] | None
+    dyn_predicate_fn=None,          # (snap, state, immediate, resident) -> mask | words | None
     dyn_predicate_row_fn=None,      # (snap, state, p) -> bool[N] | None
-    global_serialize_fn=None,       # (snap, state) -> bool[T] | None
+    global_serialize_fn=None,       # (snap, state, resident) -> bool[T] | None
     domain_serialize_fn=None,       # (snap, state) -> bool[T] | None
     serialize_mask: torch.Tensor | None = None,   # bool[T] | None
     stats: dict | None = None,
@@ -120,9 +126,8 @@ def joint_rounds(
     st = state
     c = EvictCarry.fresh(T, N, dev)
     phase_reg = torch.zeros(1, dtype=torch.int32, device=dev)
-    fresh_carry = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
-    carry_vec = fresh_carry          # [progressed, plan open, plan node]
-    step_flags = None                # the last step's flags, not read yet
+    work, read = _k12.tier_buffers(T, dev)
+    step_out = None                  # the last step's accept mask or flags
     last = None                      # the last evict step's StepOut
     phase, step = 0, 0
     tiers = []
@@ -133,28 +138,26 @@ def joint_rounds(
         auction = isinstance(ph, AuctionPhase)
         # the carry tensors as the last step left them (K12 may reset them)
         cur = c if last is None else last
-        ctl = _k12.tier_control(
+        _k12.tier_control(
             _k12.AUCTION if auction else _k12.EVICT,
             auction and ph.gated_on_evictions, step, _max_steps(ph, T, N),
-            carry_vec, st.task_state, snap.task_state, snap.task_mask,
+            step_out, st.task_state, snap.task_state, snap.task_mask,
             ph.eligible_fn(snap, st),
             None if auction else ph.starving_fn(snap, st),
             snap.task_job, cur.tried, cur.prov, evict_code, snap.task_req,
-            st.node_future, cur.excl, phase_reg,
+            st.node_future, cur.excl, phase_reg, work, read, step <= 1,
         )
-        if step_flags is None:
-            done = ctl.tolist()[0]
-        else:                        # the step's one read
-            read = torch.cat([step_flags, ctl.long()]).tolist()
-            done = read[-3]
+        flags = read.tolist()        # the iteration's one read
+        done = flags[_k12.STEP_FLAGS]
+        if step_out is not None:
             if last is not None:
-                tally_step(tally, read[:-3])
-                c = next_carry(last, read[:-3])
+                tally_step(tally, flags[:_k12.STEP_FLAGS])
+                c = next_carry(last, flags[:_k12.STEP_FLAGS])
             else:
-                placed += read[0]
+                placed += flags[0]
         if done:
             # K12 applied the advance: an open plan is discarded and
-            # tried / prov / excl are cleared in place
+            # tried / prov / excl are cleared in place; `work` is void
             line = {"tier": ph.name, "kind": "auction" if auction else "evict",
                     "steps": step, "ms": (time.perf_counter() - t0) * 1e3}
             if auction:
@@ -164,7 +167,7 @@ def joint_rounds(
             tiers.append(line)
             c = EvictCarry(tried=c.tried, prov=c.prov, excl=c.excl,
                            excl_p=torch.full((), -1, dtype=torch.long, device=dev))
-            carry_vec, step_flags, last = fresh_carry, None, None
+            step_out, last = None, None
             tally, placed = new_tally(), 0
             phase, step = phase + 1, 0
             t0 = time.perf_counter()
@@ -174,22 +177,18 @@ def joint_rounds(
                 snap, st, predicate_mask, ph.score_spec, rank_fn,
                 ph.eligible_fn, eps, ph.use_future, False, ph.score_quantum,
                 dyn_predicate_fn, global_serialize_fn, domain_serialize_fn,
-                serialize_mask,
+                serialize_mask, None, work,
             )
             apply_round(snap, st, accept, perm, s_node, ph.use_future)
-            n_accepted = accept.sum()
-            step_flags = n_accepted.view(1)
-            carry_vec = torch.stack([(n_accepted > 0).int(), fresh_carry[1],
-                                     fresh_carry[2]])
+            step_out = accept
         else:
             last = evict_step(snap, st, c, predicate_mask, ph.victim_fn,
                               ph.starving_fn, rank_fn, ph.eligible_fn, eps,
-                              dyn_predicate_row_fn)
+                              dyn_predicate_row_fn, work)
             st = last.state
             evict_code = torch.where(last.is_v, ph.evict_code, evict_code)
             evict_code = torch.where(last.fail & c.prov, 0, evict_code)
-            step_flags = last.flags
-            carry_vec = last.flags[:3].to(torch.int32)
+            step_out = last.flags
         step += 1
     if stats is not None:
         stats["joint_tiers"] = tiers

@@ -155,13 +155,18 @@ def evict_step(
     eligible_fn,
     eps: torch.Tensor,
     dyn_predicate_row_fn=None,       # (snap, state, p) -> bool[N] | None
+    elig: torch.Tensor | None = None,
 ) -> StepOut:
     """One eviction-granular Statement step (≙ the body of
     kube_batch_tpu ops/preemption.py · preemption_rounds, and of the
     evict tiers of ops/joint.py · joint_rounds): open a plan, evict one
     re-validated victim, finalize, or roll back.  Nothing is read on the
     host; the branch between opening and continuing a plan is the host's
-    (`c.active`, read at the end of the previous step)."""
+    (`c.active`, read at the end of the previous step).  `elig` (bool[T],
+    optional) is the preemptor candidates of this state — pending &
+    starving[job] & job >= 0 & eligible & ~tried — when the caller has
+    them (the joint loop's kernel K12 writes them), in place of calling
+    `starving_fn` and `eligible_fn`."""
     T, N = snap.num_tasks, snap.num_nodes
     dev = snap.device
     idx_t = torch.arange(T, device=dev)
@@ -175,10 +180,11 @@ def evict_step(
         have_p = active = torch.ones((), dtype=torch.bool, device=dev)
         opening = no_node = torch.zeros((), dtype=torch.bool, device=dev)
     else:
-        pending = (st.task_state == int(TaskStatus.PENDING)) & snap.task_mask
-        tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
-        elig = (pending & starving_fn(snap, st)[tj] & (snap.task_job >= 0)
-                & eligible_fn(snap, st) & ~c.tried)
+        if elig is None:
+            pending = (st.task_state == int(TaskStatus.PENDING)) & snap.task_mask
+            tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
+            elig = (pending & starving_fn(snap, st)[tj] & (snap.task_job >= 0)
+                    & eligible_fn(snap, st) & ~c.tried)
         scan = _k6.preempt_open(
             rank, elig, snap.task_state, st.task_state, snap.task_mask,
             c.prov, snap.task_req, st.node_future, node_ok, eps,

@@ -57,25 +57,28 @@ def _podpref_present(snap) -> bool:
     )
 
 
-def pod_affinity_score(snap, state):
+def pod_affinity_score(snap, state, resident=None):
     """f32[T, N] preferred co-location score (≙ InterPodAffinityPriority),
     or None when no task states a soft pod-affinity term.  The resident
-    tables come from kernel K11; the weighted [T, K] @ [K, N] products
-    stay torch.matmul in float32 (TF32 is off, kube_batch_tpu_torch.device)."""
+    tables come from kernel K11 (`resident`, the auction round's
+    `RoundResident`, or a build of this state), unpacked to float; the
+    weighted [T, K] @ [K, N] products stay torch.matmul in float32 (TF32
+    is off, kube_batch_tpu_torch.device), as the reference leaves them to
+    XLA."""
     active = state.aux.get(PODPREF_AUX)
     if active is None:
         active = state.aux[PODPREF_AUX] = _podpref_present(snap)
     if not active:
         return None
     from kube_batch_tpu_torch.kernels.affinity import present_table
-    from kube_batch_tpu_torch.plugins.predicates import resident_tables
+    from kube_batch_tpu_torch.plugins.predicates import round_words
 
-    Hb, _, Hd, _ = resident_tables(snap, state)
+    Hb, _, Hd, _ = round_words(snap, state, False, resident).tables()
     raw = snap.task_podpref @ Hb.float().T
     total_w = snap.task_podpref.sum(dim=1)
     if snap.task_podpref_topo.shape[1]:
         present = present_table(snap.node_key_domain, snap.topo_term_key,
-                           snap.topo_term_label, Hd)
+                                snap.topo_term_label, Hd)
         raw = raw + snap.task_podpref_topo @ present.T
         total_w = total_w + snap.task_podpref_topo.sum(dim=1)
     denom = torch.clamp(total_w, min=1e-9)
@@ -104,7 +107,7 @@ class NodeOrderPlugin(Plugin):
         if w_aff:
             policy.add_cycle_setup_fn(NODE_AFFINITY_AUX, node_affinity_term)
 
-            def node_affinity(snap, state):
+            def node_affinity(snap, state, resident=None):  # noqa: ARG001
                 if NODE_AFFINITY_AUX in state.aux:
                     return state.aux[NODE_AFFINITY_AUX]
                 return node_affinity_term(snap)

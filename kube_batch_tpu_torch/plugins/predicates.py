@@ -12,16 +12,22 @@ exactly like the reference: actions check `Resreq ⊑ Idle` themselves.
 Inter-pod affinity is a DYNAMIC predicate — placements earlier in the
 same cycle change feasibility — re-evaluated every auction round (and,
 as a row, every preemption step): kernel K11 (kernels/resident.py)
-builds the resident label tables per node and per topology domain,
-kernel K10 (kernels/affinity.py) the predicate against them: as words
-for the auction rounds (kernel K2 tests the cells itself;
-`pod_affinity_words`, the task words kept for the snapshot's life), as
-the bool[T, N] mask for the cycle's failure tallies, or as the one
-task's bool[N] row for a preemption step.  The per-task serialize sets
-stay torch: they are [T] reductions over snapshot-static columns.  When no task of the
-snapshot carries a required affinity or anti-affinity term, the
-predicate is all-true, the serialize sets are empty and neither kernel
-launches (`affinity_active`).
+builds the resident label tables per node and per topology domain as
+words, both resident sets in one launch, from kernel K10's task words
+(built once per snapshot and kept, `task_words`); kernel K10
+(kernels/affinity.py) the predicate against them: as words for the
+auction rounds (kernel K2 tests the cells itself; `pod_affinity_words`),
+as the bool[T, N] mask for the cycle's failure tallies, or as the one
+task's bool[N] row for a preemption step.  An auction round hands
+`pod_affinity_words`, `bootstrap_mask` and nodeorder's pod-affinity
+score one `RoundResident` (their `resident` argument): the first to
+read the tables builds them (`round_words`), the others take that
+build; called without one, each builds its own from the state it is
+given.  The per-task serialize sets
+stay torch: they are [T] reductions over snapshot-static columns.  When
+no task of the snapshot carries a required affinity or anti-affinity
+term, the predicate is all-true, the serialize sets are empty and
+neither kernel launches for it (`affinity_active`).
 
 Arguments (≙ predicates.go's `predicate.*Enable` toggles):
     predicate.NodeSelectorEnable    (default true)
@@ -42,6 +48,7 @@ import torch
 from kube_batch_tpu_torch.framework.plugin import Plugin, register_plugin
 from kube_batch_tpu_torch.kernels import affinity as _k10
 from kube_batch_tpu_torch.kernels import resident as _k11
+from kube_batch_tpu_torch.kernels.resident import ResidentWords, pack, unpack, words
 from kube_batch_tpu_torch.kernels.predicate_mask import (
     PredicateFlags,
     predicate_mask,
@@ -100,17 +107,43 @@ def affinity_active(snap, state) -> bool:
     return flag
 
 
-def resident_tables(snap, state, include_releasing: bool = False):
-    """(Hb, Ab, Hd, Ad) of the state's residents, kernel K11
-    (kernels/resident.py): bool[N, K] label / anti-term presence per
-    node and, when the snapshot has topology-scoped terms, bool[D, K]
-    per topology domain (None otherwise)."""
-    return _k11.resident_tables(
-        snap.task_podlabels, snap.task_anti, snap.task_anti_topo,
-        state.task_node, state.task_state, snap.task_mask,
+def task_words(snap) -> torch.Tensor:
+    """i32[T, NW]: the snapshot's inter-pod affinity task words (kernel
+    K10's `affinity_task_words`), built at the first call and kept on it
+    (`SnapshotTensors.affinity_task_words`)."""
+    w = snap.affinity_task_words()
+    if w is None:
+        w = _k10.affinity_task_words(snap.task_aff, snap.task_anti, snap.task_podlabels,
+                                     snap.task_aff_topo, snap.task_anti_topo)
+        snap.keep_affinity_task_words(w)
+    return w
+
+
+def resident_words(snap, state, with_now: bool = False) -> ResidentWords:
+    """The state's resident tables as words, kernel K11
+    (kernels/resident.py): label / anti-term presence per node and, when
+    the snapshot has topology-scoped terms, per topology domain; the
+    Releasing-inclusive `_now` set too with `with_now`."""
+    return _k11.resident_words(
+        task_words(snap), state.task_node, state.task_state, snap.task_mask,
         snap.node_key_domain, snap.topo_term_key, snap.topo_term_label,
-        snap.num_nodes, snap.domain_mask.shape[0], include_releasing,
+        snap.num_nodes, snap.domain_mask.shape[0], snap.task_podlabels.shape[1],
+        snap.task_aff_topo.shape[1], with_now,
     )
+
+
+def round_words(snap, state, immediate: bool, resident) -> ResidentWords:
+    """The resident tables of this state: the auction round's (`resident`,
+    a `kernels/resident.py · RoundResident`, built here if no consumer
+    of the round has built them yet), or a build of our own without one.
+    The Idle pass (`immediate`) reads the Releasing-inclusive set."""
+    if resident is None:
+        return resident_words(snap, state, immediate)
+    if immediate and not resident.with_now:
+        raise ValueError("the Idle pass needs resident tables built with_now")
+    if resident.words is None:
+        resident.words = resident_words(snap, state, resident.with_now)
+    return resident.words
 
 
 def _fields(snap):
@@ -119,18 +152,7 @@ def _fields(snap):
             snap.topo_term_label, snap.node_key_domain)
 
 
-def _predicate_tables(snap, state, immediate: bool):
-    """(Hb, Hb_now, Ab_now, Hd, Hd_now, Ad_now): the future-oriented
-    tables, and the anti / symmetry side's, which also see Releasing
-    residents in the Idle pass (`immediate`)."""
-    Hb, Ab, Hd, Ad = resident_tables(snap, state)
-    if not immediate:
-        return Hb, Hb, Ab, Hd, Hd, Ad
-    Hb_now, Ab_now, Hd_now, Ad_now = resident_tables(snap, state, include_releasing=True)
-    return Hb, Hb_now, Ab_now, Hd, Hd_now, Ad_now
-
-
-def pod_affinity_predicate(snap, state, immediate: bool = False):
+def pod_affinity_predicate(snap, state, immediate: bool = False, resident=None):
     """bool[T, N] inter-pod affinity/anti-affinity feasibility, or None
     when no task carries such a term (≙ kube_batch_tpu
     plugins/predicates.py · pod_affinity_predicate):
@@ -142,25 +164,26 @@ def pod_affinity_predicate(snap, state, immediate: bool = False):
     * symmetry: no resident's anti term matches the task's own labels.
 
     `immediate` (the Idle pass) makes the anti/symmetry side also see
-    RELEASING residents.  The tables come from kernel K11, the mask from
-    kernel K10 (kernels/affinity.py)."""
+    RELEASING residents.  The tables come from kernel K11 (`resident`,
+    or a build of this state), the mask from kernel K10
+    (kernels/affinity.py)."""
     if not affinity_active(snap, state):
         return None
-    return _k10.affinity_mask(*_fields(snap), *_predicate_tables(snap, state, immediate))
+    return _k10.affinity_mask(*_fields(snap),
+                              round_words(snap, state, immediate, resident))
 
 
-def pod_affinity_words(snap, state, immediate: bool = False):
+def pod_affinity_words(snap, state, immediate: bool = False, resident=None):
     """pod_affinity_predicate as `kernels/affinity.py · AffinityWords`, for
-    kernel K2 to test in its own tiles: the same tables, the node words
-    and thresholds of this state, the task words built at the snapshot's
-    first call and kept on it (`SnapshotTensors.affinity_task_words`).
-    None when no task carries such a term."""
+    kernel K2 to test in its own tiles: the node words and thresholds of
+    this state's tables (`resident`, or a build of its own), the task
+    words kept on the snapshot (`task_words`).  None when no task
+    carries such a term."""
     if not affinity_active(snap, state):
         return None
-    w = _k10.affinity_words(*_fields(snap), *_predicate_tables(snap, state, immediate),
-                            snap.affinity_task_words())
-    snap.keep_affinity_task_words(w.task_words)
-    return w
+    return _k10.affinity_words(task_words(snap), snap.topo_term_key, snap.topo_term_label,
+                               snap.node_key_domain,
+                               round_words(snap, state, immediate, resident))
 
 
 def pod_affinity_row(snap, state, p):
@@ -169,11 +192,10 @@ def pod_affinity_row(snap, state, p):
     of the [T, N] matrix; future-oriented, since the preemptor pipelines
     onto FutureIdle after its victims leave.  None when no task carries
     an affinity term (≙ kube_batch_tpu plugins/predicates.py ·
-    pod_affinity_row).  Kernels K11 and K10."""
+    pod_affinity_row).  Kernels K11 (a build of this state) and K10."""
     if not affinity_active(snap, state):
         return None
-    Hb, Ab, Hd, Ad = resident_tables(snap, state)
-    return _k10.affinity_row(*_fields(snap), Hb, Ab, Hd, Ad, p)
+    return _k10.affinity_row(*_fields(snap), resident_words(snap, state), p)
 
 
 def anti_serialize_mask(snap, state):
@@ -189,18 +211,23 @@ def anti_serialize_mask(snap, state):
     ).any(dim=1)
 
 
-def bootstrap_mask(snap, state):
+def bootstrap_mask(snap, state, resident=None):
     """bool[T]: pending tasks whose required affinity currently relies
     on the bootstrap waiver — at most one is accepted per round
-    globally.  None when no affinity term exists."""
+    globally.  None when no affinity term exists.  The term-exists words
+    (Hb.any(0)) come from kernel K11 (`resident`, or a build of this
+    state) and are tested against the task words' aff and aff_topo
+    groups, the latter gathered through topo_term_label."""
     if not affinity_active(snap, state):
         return None
-    Hb, _, _, _ = resident_tables(snap, state)
-    term_exists = Hb.any(dim=0)
-    m = ((snap.task_aff > 0) & ~term_exists[None, :]).any(dim=1)
-    if snap.task_aff_topo.shape[1]:
-        exists2 = term_exists[snap.topo_term_label.long()]
-        m = m | ((snap.task_aff_topo > 0) & ~exists2[None, :]).any(dim=1)
+    rw = round_words(snap, state, False, resident)
+    tw = task_words(snap)
+    KW, K2W = words(rw.K), words(rw.K2)
+    exists = rw.term_exists
+    m = ((tw[:, :KW] & ~exists) != 0).any(dim=1)
+    if rw.K2:
+        exists2 = pack(unpack(exists, rw.K)[snap.topo_term_label.long()])
+        m = m | ((tw[:, 3 * KW:3 * KW + K2W] & ~exists2) != 0).any(dim=1)
     return m & snap.task_mask
 
 

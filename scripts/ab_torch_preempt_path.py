@@ -29,10 +29,16 @@ drives, on the card with that checkout's own kernels (built into its own
   * K7's segment_sum on both recorded sums and K6's preempt_open on the
     recorded step (median of 7 CUDA-event runs after 2 warm-ups; a
     checkout whose segment_sum takes no index is called without one),
-    each output held against the plain version.
+    each output held against the plain version;
+  * the device operations per joint step by tier kind, on 40 auction
+    steps of the joint run's cycle 1 and 40 evict steps of its cycle 2
+    traced with torch.profiler by this script's own checkout's
+    `chip_smoke.JointWindows`, which wraps that checkout's K12
+    `tier_control(kind, gated, step, ...)` (called once an iteration).
 One JSON line per run gives each cycle's solve ms, binds, evictions and
 each loop's or joint tier's steps and ms per step (the affinity path:
-auction rounds and solve ms per round), and the kernel times;
+auction rounds and solve ms per round), the kernel times and the
+launches per joint step;
 a last line says whether every run made the same decisions (binds,
 evictions and ready jobs of every cycle, as sets).  Runs in one call
 share one card, so the checkouts compare; calls on different machines
@@ -67,13 +73,19 @@ torch.save({k: [a.cpu() if torch.is_tensor(a) else a for a in v]
 """
 
 _RUN = r"""
-import inspect, json, sys, time
+import importlib.util, inspect, json, os, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke
+from kube_batch_tpu_torch.kernels import joint_tier
 from kube_batch_tpu_torch.kernels import preempt_scan as k6
 from kube_batch_tpu_torch.kernels import segment_sum as k7
 from kube_batch_tpu_torch.scheduler import Scheduler
+
+spec = importlib.util.spec_from_file_location(
+    "ab_launch_counter", os.path.join(sys.argv[2], "chip_smoke.py"))
+counter = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(counter)
 
 
 def ready(ssn, job_ready):
@@ -103,8 +115,21 @@ del sessions, _cache
 cache, sim = chip_smoke.preempt_world()
 sched = Scheduler(cache, conf=chip_smoke.scheduler_conf(), device="cuda",
                   joint_solve=True)
+windows = counter.JointWindows()
+real = joint_tier.tier_control
+
+
+def traced(*args):
+    windows.hook(args)
+    return real(*args)
+
+
+# the wrapper counts its launches on its module's global name
+traced.launches = real.launches
+joint_tier.tier_control = traced
 joint = []
 for cycle in range(3):
+    windows.cycle = cycle
     ssn = sched.run_once()
     assert sched.last_stats["cycle"] == "joint"
     joint.append({"solve_ms": sched.last_timings["solve_ms"], "binds": list(ssn.bound),
@@ -113,6 +138,8 @@ for cycle in range(3):
     sim.tick()
     if cycle == 0:
         chip_smoke.preempt_wave(sim)
+joint_tier.tier_control = real
+launches = windows.result()
 paths["joint"] = joint
 cache, sim = chip_smoke.config5_affinity()
 sched = Scheduler(cache, device="cuda")
@@ -153,7 +180,8 @@ if not torch.equal(out, k6.preempt_open_plain(*args)):
 kern["preempt_open"] = {"ms": chip_smoke.time_ms(lambda: k6.preempt_open(*args)),
                         "out": out.tolist()}
 print("RESULT " + json.dumps({"paths": paths, "kernels": kern, "s": paths_s,
-                              "segment_sum_takes_index": with_index}))
+                              "segment_sum_takes_index": with_index,
+                              "joint_launches": launches}))
 """
 
 
@@ -167,7 +195,7 @@ def _python(tree: str, code: str, *args: str, timeout: int = 1800):
 
 
 def run(tree: str, inputs: str) -> dict:
-    out = _python(tree, _RUN, inputs)
+    out = _python(tree, _RUN, inputs, ROOT)
     line = [x for x in out.splitlines() if x.startswith("RESULT ")][-1]
     return json.loads(line[len("RESULT "):])
 
@@ -200,6 +228,7 @@ def main(trees: list[str]) -> int:
                 "run": i, "tree": tree, "seconds": round(r["s"], 1),
                 "segment_sum_takes_index": r["segment_sum_takes_index"],
                 "kernels_ms": {k: round(v["ms"], 4) for k, v in r["kernels"].items()},
+                "joint_launches": r["joint_launches"],
                 **{kind: [{"solve_ms": round(c["solve_ms"], 1), "binds": len(c["binds"]),
                            "evicted": len(c["evicted"]), "ready_jobs": len(c["ready"]),
                            "loops": [{"loop": lp["loop"], "steps": lp["steps"],

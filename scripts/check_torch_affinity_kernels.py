@@ -8,11 +8,19 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 The inputs (numpy, seed 0) have the shapes of the config-5 affinity world:
 K = 32 pod labels, K2 = 32 topology terms, two real topology keys plus
 two padded key columns that point at the dead domain, padded nodes and
-tasks, residents in every status.  Every output must equal the plain
-version's exactly; prints one JSON line per kernel (equal, ms of the
-kernel and of the plain version, median of 7 CUDA-event runs) and exits
-non-zero on the first difference.  The first line is the card's name and
-power limit as nvidia-smi gives them.
+tasks, residents in every status.  K11 (`resident_words`) builds both
+resident sets and the future set alone; K10 reads them (task words,
+mask in both orientations, rows, words); K12 (`tier_control`) runs
+every tier kind after no step, an auction round and an evict step with
+and without an open plan, at and below its step bound.  Every output
+must equal the plain version's exactly; prints one JSON line per kernel
+(equal; ms of the kernel and of the plain version, median of 7
+CUDA-event runs; for K11 and K12 also the host µs of one call, 200
+calls queued without a wait, and the device µs of each kernel a call
+launches, torch.profiler; for K11 the host µs of its one buffer
+allocation alone) and exits non-zero on the first difference.
+The first line is the card's name and power limit as nvidia-smi gives
+them, then the build's ptxas report (registers, spills).
 """
 
 from __future__ import annotations
@@ -42,6 +50,30 @@ def time_ms(fn, runs: int = 7) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def host_and_device(fn, calls: int = 200, traced: int = 20) -> dict:
+    """Host µs of one call (calls queued back to back, then one wait) and
+    the device µs of each kernel a call launches (torch.profiler)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(traced):
+            fn()
+        torch.cuda.synchronize()
+    device_us = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if total:
+            device_us[e.key[:48]] = round(total / traced, 3)
+    return {"host_us_per_call": round(host_us, 3), "device_us_per_call": device_us}
 
 
 def inputs(T: int, N: int, seed: int = 0):
@@ -120,33 +152,52 @@ def main() -> int:
                 return False
         return True
 
-    res_args = (x["labels"], x["anti"], x["anti_topo"], x["task_node"], x["task_state"],
-                x["task_mask"], x["nkd"], x["term_key"], x["term_label"], N, D)
-    tables = {}
-    for rel in (False, True):
-        got = k11.resident_tables(*res_args, rel)
-        want = k11.resident_tables_plain(*res_args, rel)
-        eq = same(f"resident_tables[{rel}]", got, want)
-        tables[rel] = got
-        print(json.dumps({
-            "kernel": "resident_tables", "include_releasing": rel, "equal": eq,
-            "present_cells": [int(t.sum()) for t in got],
-            "ms": round(time_ms(lambda: k11.resident_tables(*res_args, rel)), 4),
-            "plain_ms": round(time_ms(lambda: k11.resident_tables_plain(*res_args, rel)), 4),
-        }), flush=True)
+    def tables_equal(name, got, want):
+        pairs = [(getattr(got, f), getattr(want, f)) for f in (
+            "Hb", "Ab", "Hb_now", "Ab_now", "Hd", "Ad", "Hd_now", "Ad_now", "term_exists")]
+        return same(name, [a for a, _ in pairs], [b for _, b in pairs])
+
     fields = (x["aff"], x["anti"], x["labels"], x["aff_topo"], x["anti_topo"],
               x["term_key"], x["term_label"], x["nkd"])
-    Hb, Ab, Hd, Ad = tables[False]
-    Hbn, Abn, Hdn, Adn = tables[True]
-    for imm, tb in ((False, (Hb, Hb, Ab, Hd, Hd, Ad)), (True, (Hb, Hbn, Abn, Hd, Hdn, Adn))):
-        got = k10.affinity_mask(*fields, *tb)
-        want = k10.affinity_mask_plain(*fields, *tb)
-        eq = same(f"affinity_mask[{imm}]", [got], [want])
+    tw = k10.affinity_task_words(*fields[:5])
+    eq = same("affinity_task_words", [tw], [k10.task_words_plain(*fields[:5])])
+    print(json.dumps({
+        "kernel": "affinity_task_words", "equal": eq,
+        "ms": round(time_ms(lambda: k10.affinity_task_words(*fields[:5])), 4),
+        "plain_ms": round(time_ms(lambda: k10.task_words_plain(*fields[:5])), 4),
+    }), flush=True)
+    K, K2 = x["labels"].shape[1], x["aff_topo"].shape[1]
+    res = {}
+    for now in (False, True):
+        res_args = (tw, x["task_node"], x["task_state"], x["task_mask"], x["nkd"],
+                    x["term_key"], x["term_label"], N, D, K, K2, now)
+        got = k11.resident_words(*res_args)
+        eq = tables_equal(f"resident_words[{now}]", got, k11.resident_words_plain(*res_args))
+        res[now] = got
         print(json.dumps({
-            "kernel": "affinity_mask", "immediate": imm, "equal": eq,
+            "kernel": "resident_words", "with_now": now, "equal": eq,
+            "present_bits": int(k11.unpack(got.Hb, K).sum()),
+            "ms": round(time_ms(lambda: k11.resident_words(*res_args)), 4),
+            "plain_ms": round(time_ms(lambda: k11.resident_words_plain(*res_args)), 4),
+            **host_and_device(lambda: k11.resident_words(*res_args)),
+            # the build's one allocation alone (its table buffer)
+            "alloc_host_us_per_call": host_and_device(lambda: torch.empty(
+                got.buf.numel(), dtype=torch.int32, device=got.buf.device))["host_us_per_call"],
+        }), flush=True)
+    for imm in (False, True):
+        got = k10.affinity_mask(*fields, res[imm])
+        want = k10.affinity_mask_plain(*fields, res[imm])
+        eq = same(f"affinity_mask[{imm}]", [got], [want])
+        words = k10.affinity_words(tw, *fields[5:], res[imm])
+        eq_w = same(f"affinity_words[{imm}]", [k10.affinity_cells_plain(words)], [want])
+        print(json.dumps({
+            "kernel": "affinity_mask", "immediate": imm, "equal": eq, "words_equal": eq_w,
             "infeasible_cells": int((~got).sum()),
-            "ms": round(time_ms(lambda: k10.affinity_mask(*fields, *tb)), 4),
-            "plain_ms": round(time_ms(lambda: k10.affinity_mask_plain(*fields, *tb), runs=3), 4),
+            "ms": round(time_ms(lambda: k10.affinity_mask(*fields, res[imm])), 4),
+            "words_ms": round(time_ms(lambda: k10.affinity_words(tw, *fields[5:],
+                                                                  res[imm])), 4),
+            "plain_ms": round(time_ms(lambda: k10.affinity_mask_plain(*fields, res[imm]),
+                                      runs=3), 4),
         }), flush=True)
         del want
     rows = [int(t) for t in torch.nonzero(x["aff"].any(1) | x["aff_topo"].any(1)
@@ -154,28 +205,30 @@ def main() -> int:
     bad = 0
     for p in rows:
         p_dev = torch.tensor(p, device="cuda")
-        got = k10.affinity_row(*fields, Hb, Ab, Hd, Ad, p_dev)
-        if not torch.equal(got, k10.affinity_row_plain(*fields, Hb, Ab, Hd, Ad, p)):
+        got = k10.affinity_row(*fields, res[False], p_dev)
+        if not torch.equal(got, k10.affinity_row_plain(*fields, res[False], p)):
             bad += 1
     ok = ok and bad == 0
     p_dev = torch.tensor(rows[0], device="cuda")
     print(json.dumps({
         "kernel": "affinity_row", "rows": len(rows), "equal": bad == 0,
-        "ms": round(time_ms(lambda: k10.affinity_row(*fields, Hb, Ab, Hd, Ad, p_dev)), 4),
-        "plain_ms": round(time_ms(lambda: k10.affinity_row_plain(*fields, Hb, Ab, Hd, Ad, rows[0])), 4),
+        "ms": round(time_ms(lambda: k10.affinity_row(*fields, res[False], p_dev)), 4),
+        "plain_ms": round(time_ms(lambda: k10.affinity_row_plain(*fields, res[False],
+                                                                 rows[0])), 4),
     }), flush=True)
 
     import numpy as np
 
     rng = np.random.default_rng(1)
     Tk, Nk, J, R = 8192, 512, 1024, 4
-    cases = 0
+    cases = total = 0
     for kind in (k12.AUCTION, k12.EVICT):
         for gated in (0, 1):
-            for prov_active in (0, 1):
-                for progressed, step in ((1, 3), (0, 3), (1, 10**6)):
+            for after in ("none", "auction", "evict", "evict_open"):
+                if after == "evict_open" and kind == k12.AUCTION:
+                    continue
+                for progressed, step in ((1, 3), (0, 3), (1, 1000)):
                     base = {
-                        "carry": torch.tensor([progressed, prov_active, 17], dtype=torch.int32),
                         "task_state": torch.from_numpy(rng.integers(0, 8, Tk).astype(np.int32)),
                         "snap_state": torch.from_numpy(rng.integers(0, 8, Tk).astype(np.int32)),
                         "task_mask": torch.from_numpy(rng.random(Tk) < 0.9),
@@ -189,19 +242,33 @@ def main() -> int:
                         "node_future": torch.from_numpy(rng.integers(-4, 16, (Nk, R)).astype(np.float32) * 1000),
                         "excl": torch.from_numpy(rng.random(Nk) < 0.1),
                         "phase": torch.tensor([2], dtype=torch.int32),
+                        "work": torch.zeros(Tk, dtype=torch.bool),
+                        "read": torch.zeros(k12.READ, dtype=torch.int64),
                     }
+                    step_out = (None if after == "none" else
+                                torch.from_numpy((rng.random(Tk) < 0.01) & bool(progressed))
+                                if after == "auction" else
+                                torch.tensor([progressed, int(after == "evict_open"), 17,
+                                              1, 0, 0, 0], dtype=torch.int64))
                     a = {k: v.cuda() for k, v in base.items()}
                     b = {k: v.clone().cuda() for k, v in base.items()}
-                    fa = k12.tier_control(kind, gated, step, 1000, *a.values())
-                    fb = k12.tier_control_plain(kind, gated, step, 1000, *b.values())
-                    eq = same(f"tier_control[{kind},{gated},{prov_active},{progressed},{step}]",
-                              [fa.cpu()] + list(a.values()), [fb.cpu()] + list(b.values()))
+                    so = None if step_out is None else step_out.cuda()
+                    k12.tier_control(kind, gated, step, 1000, so, *a.values())
+                    k12.tier_control_plain(kind, gated, step, 1000, so, *b.values())
+                    eq = same(f"tier_control[{kind},{gated},{after},{progressed},{step}]",
+                              list(a.values()), list(b.values()))
                     cases += eq
+                    total += 1
     a = {k: v.cuda() for k, v in base.items()}
-    print(json.dumps({"kernel": "tier_control", "cases": 24, "equal_cases": cases,
-                      "ms": round(time_ms(lambda: k12.tier_control(
-                          k12.EVICT, 0, 0, 1, *a.values())), 4)}), flush=True)
-    ok = ok and cases == 24
+    flags = torch.tensor([1, 1, 17, 1, 0, 0, 0], dtype=torch.int64, device="cuda")
+
+    def one_step():
+        k12.tier_control(k12.EVICT, 0, 3, 1000, flags, *a.values(), False)
+
+    print(json.dumps({"kernel": "tier_control", "cases": total, "equal_cases": cases,
+                      "ms": round(time_ms(one_step), 4), **host_and_device(one_step)}),
+          flush=True)
+    ok = ok and cases == total
     print(json.dumps({"ok": ok, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0 if ok else 1
 

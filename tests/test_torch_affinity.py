@@ -1,29 +1,35 @@
 """The port's inter-pod affinity (kernels K10 and K11, their plain
 versions on the CPU) against the reference package's, exactly.
 
-* `resident_tables` against the reference's `resident_podlabels` and
-  `resident_domain_labels` (both `include_releasing` values),
-  `pod_affinity_predicate` (both
-  `immediate` values), `pod_affinity_row` for every task with a term,
-  `bootstrap_mask` and `pod_affinity_score` on the affinity worlds of
+* K11's word tables (`resident_words`, both resident sets from one
+  build, and the future set alone), unpacked, against the reference's
+  `resident_podlabels` and `resident_domain_labels` (both
+  `include_releasing` values) and term_exists against Hb.any(0);
+  `pod_affinity_predicate` (both `immediate` values), `pod_affinity_row`
+  for every task with a term, `bootstrap_mask` (its own build and a
+  shared one) and `pod_affinity_score` on the affinity worlds of
   tests/test_torch_pack.py (the hand-made one and the small config-5
   affinity world) and on a world with Releasing residents and
   topology-scoped anti-affinity: on the packed state and after one
   auction round.  Bool outputs bit for bit, the score to the last bit.
 * The default-conf cycle on the small config-5 affinity world over 2
   cycles with a second wave: the same binds, task states and nodes and
-  job readiness as the reference's Scheduler.
+  job readiness as the reference's Scheduler, with one K11 build per
+  auction round plus one a cycle; and an auction solve in which every
+  round builds the tables once on its own state and hands that build
+  to the predicate's words, the bootstrap mask and the score — never a
+  build from before an apply.
 * The plain K10 / K11 against the arithmetic of the kernels themselves
-  (popcounts of 0/1 words, presence as an OR), on numpy-seeded tables
-  with padded vocabulary columns and a dead-domain row.
+  (popcounts of 0/1 words, presence as an OR of bits), on numpy-seeded
+  tables with padded vocabulary columns and a dead-domain row.
 * K10's words form (`affinity_words`, the cells K2 tests itself) against
   the reference's `pod_affinity_predicate` on the same worlds and
-  states, task words built or kept; K2's two passes given the words
-  against the same passes given K10's mask; the policy's choice of the
-  words form (only when inter-pod affinity is the one dynamic predicate
-  and constrains the snapshot); and the acceptances each serialize step
-  cancels, as counted on the device, against the acceptances the round
-  lost.
+  states, the task words built once per snapshot and kept; K2's two
+  passes given the words against the same passes given K10's mask; the
+  policy's choice of the words form (only when inter-pod affinity is
+  the one dynamic predicate and constrains the snapshot); and the
+  acceptances each serialize step cancels, as counted on the device,
+  against the acceptances the round lost.
 """
 
 from __future__ import annotations
@@ -151,24 +157,34 @@ def _eq(got, want, what):
 
 @pytest.mark.parametrize("world", sorted(WORLDS))
 def test_resident_tables_match_reference(world):
+    """K11's word tables (`resident_words`, both resident sets from one
+    build, and the future set alone), unpacked, against the reference's
+    resident_podlabels / resident_domain_labels with and without
+    include_releasing; term_exists against Hb.any(0)."""
     jsnap, snap, states = _states(_fields(world))
     checked = 0
     for label, jst, st in states:
+        both = predicates.resident_words(snap, st, with_now=True)
+        future = predicates.resident_words(snap, st)
+        assert both.with_now and not future.with_now
         for rel in (False, True):
             what = f"{label}, include_releasing={rel}"
-            Hb, Ab, Hd, Ad = predicates.resident_tables(snap, st, rel)
-            jHb, jAb = jax_pred.resident_podlabels(jsnap, jst, rel)
-            _eq(Hb, jHb, f"Hb {what}")
-            _eq(Ab, jAb, f"Ab {what}")
+            for rw in (both,) + (() if rel else (future,)):
+                Hb, Ab, Hd, Ad = rw.tables(now=rel)
+                jHb, jAb = jax_pred.resident_podlabels(jsnap, jst, rel)
+                _eq(Hb, jHb, f"Hb {what}")
+                _eq(Ab, jAb, f"Ab {what}")
+                _eq(k11.unpack(rw.term_exists, rw.K), np.asarray(jHb).any(0),
+                    f"term_exists {what}")
+                if snap.task_aff_topo.shape[1]:
+                    jHd, jAd = jax_pred.resident_domain_labels(jsnap, jst, rel)
+                    _eq(Hd, jHd, f"Hd {what}")
+                    _eq(Ad, jAd, f"Ad {what}")
+                else:
+                    assert Hd is None and Ad is None
             checked += int(Hb.sum())
             if rel and world == "releasing":   # the terminating residents count
-                assert int(Hb.sum()) > int(predicates.resident_tables(snap, st)[0].sum())
-            if snap.task_aff_topo.shape[1]:
-                jHd, jAd = jax_pred.resident_domain_labels(jsnap, jst, rel)
-                _eq(Hd, jHd, f"Hd {what}")
-                _eq(Ad, jAd, f"Ad {what}")
-            else:
-                assert Hd is None and Ad is None
+                assert int(Hb.sum()) > int(both.tables()[0].sum())
     assert checked > 0
 
 
@@ -190,8 +206,12 @@ def test_affinity_predicate_and_row_match_reference(world):
         for p in rows:
             _eq(predicates.pod_affinity_row(snap, st, torch.tensor(p)),
                 jax_pred.pod_affinity_row(jsnap, jst, p), f"{label}, row {p}")
-        _eq(predicates.bootstrap_mask(snap, st), jax_pred.bootstrap_mask(jsnap, jst),
-            f"{label}, bootstrap_mask")
+        want = jax_pred.bootstrap_mask(jsnap, jst)
+        _eq(predicates.bootstrap_mask(snap, st), want, f"{label}, bootstrap_mask")
+        shared = k11.RoundResident(with_now=True)    # an Idle-pass round's build
+        shared.words = predicates.resident_words(snap, st, True)
+        _eq(predicates.bootstrap_mask(snap, st, shared), want,
+            f"{label}, bootstrap_mask of a shared build")
     assert vetoed > 0
 
 
@@ -264,7 +284,7 @@ def test_policy_takes_words_only_for_affinity_alone():
     policy, _ = build_policy(default_conf())
     assert isinstance(policy.auction_dyn_predicate(snap, st, True), k10.AffinityWords)
     extra = torch.ones((snap.num_tasks, snap.num_nodes), dtype=torch.bool)
-    policy.add_dynamic_predicate_fn(lambda s, state, imm: extra, row_fn=lambda *a: None)
+    policy.add_dynamic_predicate_fn(lambda s, state, imm, resident: extra, row_fn=lambda *a: None)
     assert policy.dyn_predicate_words(snap, st, True) is None
     got = policy.auction_dyn_predicate(snap, st, True)
     _eq(got, predicates.pod_affinity_predicate(snap, st, True).numpy(), "mask form")
@@ -316,6 +336,76 @@ def test_cancelled_acceptances_add_up(world, monkeypatch):
     assert len(kept) == stats["rounds"]
 
 
+@pytest.mark.parametrize("world", ["config5_affinity_small", "releasing"])
+def test_resident_words_are_built_per_round_never_across_apply(world, monkeypatch):
+    """An auction round builds the resident tables once, on its own state,
+    and hands that build to the predicate's words, the bootstrap mask and
+    the pod-affinity score; a build made before a round's apply is never
+    handed to the next round, whose tables differ."""
+    _jsnap, snap, _ = _states(_fields(world))
+    policy, _ = build_policy(default_conf())
+    st = policy.setup_state(snap, init_state(snap))
+    builds, uses = [], []
+    real = predicates.resident_words
+
+    def build(snap_, state, with_now=False):
+        rw = real(snap_, state, with_now)
+        builds.append((rw, state.task_state.clone(), state.task_node.clone()))
+        return rw
+
+    monkeypatch.setattr(predicates, "resident_words", build)
+
+    def spy(name, fn):
+        def wrapper(snap_, state, *args):
+            out = fn(snap_, state, *args)
+            resident = args[-1]
+            uses.append((name, resident, resident.words, state.task_state.clone(),
+                         state.task_node.clone()))
+            return out
+        return wrapper
+
+    policy.dynamic_predicate_words[0] = spy("words", policy.dynamic_predicate_words[0])
+    policy.global_serialize[0] = spy("bootstrap", policy.global_serialize[0])
+    policy.node_scores = [(w, spy("score", fn) if fn is nodeorder.pod_affinity_score
+                           else fn, kind) for w, fn, kind in policy.node_scores]
+    rounds = 0
+    for use_future in (False, True):
+        stats: dict = {}
+        allocate_rounds(snap, st, policy.predicate_mask(snap), policy.score_spec(),
+                        policy.rank_fn, policy.eligible_fn, snap.eps, use_future=use_future,
+                        dyn_predicate_fn=policy.auction_dyn_predicate,
+                        global_serialize_fn=policy.global_serialize_fn,
+                        domain_serialize_fn=policy.domain_serialize_fn,
+                        serialize_mask=policy.serialize_mask(snap, st), stats=stats)
+        rounds += stats["rounds"]
+    assert len(builds) == rounds > 2                # one build a round
+    order = {id(rw): i for i, (rw, _s, _n) in enumerate(builds)}   # kept alive
+    round_of = {}                                   # the round's holder -> its build
+    latest = -1
+    for name, resident, rw, task_state, task_node in uses:
+        assert id(rw) in order, name                # one of this solve's builds
+        i = order[id(rw)]
+        assert round_of.setdefault(id(resident), i) == i, name
+        _rw, b_state, b_node = builds[i]
+        assert torch.equal(b_state, task_state) and torch.equal(b_node, task_node), name
+        assert i >= latest, name                    # never an older build
+        latest = i
+    assert len(round_of) == rounds                  # a holder of its own each round
+    assert {name for name, *_ in uses} >= {"words", "bootstrap"}
+    assert any(not torch.equal(a.Hb, b.Hb) for (a, _s, _n), (b, _t, _m)
+               in zip(builds, builds[1:]))
+    # each build equals a fresh one from the state it was handed with
+    for rw, task_state, task_node in builds:
+        fresh = k11.resident_words_plain(
+            predicates.task_words(snap), task_node, task_state, snap.task_mask,
+            snap.node_key_domain, snap.topo_term_key, snap.topo_term_label,
+            snap.num_nodes, snap.domain_mask.shape[0], rw.K, rw.K2, rw.with_now)
+        for f in ("Hb", "Ab", "Hb_now", "Ab_now", "Hd", "Ad", "Hd_now", "Ad_now",
+                  "term_exists"):
+            a, b = getattr(rw, f), getattr(fresh, f)
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f
+
+
 def _jax_score_term(name):
     """The reference's registered pod-affinity score function."""
     policy, _ = jax_build_policy(jax_default_conf())
@@ -363,13 +453,20 @@ def _wave(cl, cache, sim, n_pods: int) -> None:
         sent += len(pods)
 
 
-def _run_cycles(pkg: str, cycles: int = 2):
+def _run_cycles(pkg: str, cycles: int = 2, builds=None):
+    """Each cycle's decisions; `builds` (a list, the port only) receives
+    per cycle (K11 builds, auction rounds)."""
     cache, sim = build_world("config5_affinity_small", pkg)
     sched = (JaxScheduler(cache, schedule_period=0.0) if pkg == "jax"
              else Scheduler(cache, device="cpu"))
     out = []
     for cycle in range(cycles):
+        before = k11.resident_words.launches_seen if builds is not None else 0
         ssn = sched.run_once()
+        if builds is not None:
+            st = sched.last_stats
+            builds.append((k11.resident_words.launches_seen - before,
+                           sum(st["allocate_rounds"]) + sum(st["backfill_rounds"])))
         if pkg == "jax":
             state, node, ready = (ssn.host_task_state(), ssn.host_task_node(),
                                   ssn.job_ready())
@@ -389,12 +486,27 @@ def _run_cycles(pkg: str, cycles: int = 2):
     return out
 
 
-def test_default_cycle_on_affinity_world_matches_reference():
+def test_default_cycle_on_affinity_world_matches_reference(monkeypatch):
+    """The default cycle's decisions equal the reference's over 2 cycles
+    with a wave, and the port builds the resident tables (K11) once per
+    auction round plus once a cycle for the failure tallies."""
+    real = k11.resident_words
+
+    def counted(*args, **kw):
+        counted.launches_seen += 1
+        return real(*args, **kw)
+
+    counted.launches_seen = 0
+    counted.launches = 0
+    monkeypatch.setattr(k11, "resident_words", counted)
     want = _run_cycles("jax")
-    got = _run_cycles("torch")
+    builds = []
+    got = _run_cycles("torch", builds=builds)
     for c, (g, w) in enumerate(zip(got, want)):
         assert g == w, c
     assert got[0]["bound"] and got[1]["bound"]
+    for n_builds, rounds in builds:
+        assert rounds > 2 and n_builds == rounds + 1
 
 
 # ---------------------------------------------------------------------------
@@ -438,10 +550,15 @@ def test_plain_tables_and_mask_match_bit_arithmetic(seed):
      state, node, mask), N, D = _random_inputs(seed)
     T, K = labels.shape
     K2, TK = aff_topo.shape[1], nkd.shape[1]
+    tw = k10.affinity_task_words(aff, anti, labels, aff_topo, anti_topo)
+    np.testing.assert_array_equal(tw.numpy(), k10.task_words_plain(
+        aff, anti, labels, aff_topo, anti_topo).numpy())
+    both = k11.resident_words(tw, node, state, mask, nkd, term_key, term_label,
+                              N, D, K, K2, with_now=True)
+    future = k11.resident_words(tw, node, state, mask, nkd, term_key, term_label,
+                                N, D, K, K2)
     tables = {}
     for rel in (False, True):
-        got = k11.resident_tables(labels, anti, anti_topo, node, state, mask, nkd,
-                                  term_key, term_label, N, D, rel)
         held = mask.numpy() & (node.numpy() >= 0) & np.isin(
             state.numpy(), (1, 2, 3, 4, 5) + ((6,) if rel else ()))
         Hb = np.zeros((N, K), bool)
@@ -456,16 +573,22 @@ def test_plain_tables_and_mask_match_bit_arithmetic(seed):
                 Hd[nkd[n, tk]] |= labels[t].numpy() > 0
             for j in np.nonzero(anti_topo[t].numpy() > 0)[0]:
                 Ad[nkd[n, term_key[j]], term_label[j]] = True
-        for g, w in zip(got, (Hb, Ab, Hd, Ad)):
-            np.testing.assert_array_equal(g.numpy(), w)
-        tables[rel] = got
+        for rw in (both,) + (() if rel else (future,)):
+            for g, w in zip(rw.tables(now=rel), (Hb, Ab, Hd, Ad)):
+                np.testing.assert_array_equal(g.numpy(), w)
+            # the words themselves: bit b of word w is column 32w + b
+            np.testing.assert_array_equal(rw.Hb.numpy() if not rel else rw.Hb_now.numpy(),
+                                          k11.pack(torch.from_numpy(Hb)).numpy())
+        if not rel:
+            np.testing.assert_array_equal(k11.unpack(both.term_exists, K).numpy(),
+                                          Hb.any(0))
+        tables[rel] = (Hb, Ab, Hd, Ad)
     assert tables[True][3][D - 1].sum() == 0 and tables[True][2][D - 1].any()
 
-    Hb, Ab, Hd, Ad = (x.numpy() for x in tables[False])
-    Hbn, Abn, Hdn, Adn = (x.numpy() for x in tables[True])
+    Hb, Ab, Hd, Ad = tables[False]
+    Hbn, Abn, Hdn, Adn = tables[True]
     fields = (aff, anti, labels, aff_topo, anti_topo, term_key, term_label, nkd)
-    got = k10.affinity_mask(*fields, *(torch.from_numpy(x) for x in
-                                       (Hb, Hbn, Abn, Hd, Hdn, Adn))).numpy()
+    got = k10.affinity_mask(*fields, both).numpy()
     exists = Hb.any(0)
     L, A, An = labels.numpy() > 0, aff.numpy() > 0, anti.numpy() > 0
     At, Ant = aff_topo.numpy() > 0, anti_topo.numpy() > 0
@@ -483,12 +606,13 @@ def test_plain_tables_and_mask_match_bit_arithmetic(seed):
                           and not (Ant[t] & now).any())
     np.testing.assert_array_equal(got, want)
     assert 0 < want.sum() < want.size
-    future = k10.affinity_mask(*fields, *(torch.from_numpy(x) for x in
-                                          (Hb, Hb, Ab, Hd, Hd, Ad))).numpy()
+    np.testing.assert_array_equal(
+        k10.affinity_cells_plain(k10.affinity_words(tw, term_key, term_label, nkd, both)),
+        want)
+    future_mask = k10.affinity_mask(*fields, future).numpy()
     for p in range(T):
-        row = k10.affinity_row(*fields, *(torch.from_numpy(x) for x in (Hb, Ab, Hd, Ad)),
-                               torch.tensor(p)).numpy()
-        np.testing.assert_array_equal(row, future[p])
+        row = k10.affinity_row(*fields, future, torch.tensor(p)).numpy()
+        np.testing.assert_array_equal(row, future_mask[p])
 
 
 def test_affinity_wrappers_refuse_other_devices():
@@ -498,12 +622,18 @@ def test_affinity_wrappers_refuse_other_devices():
     f = torch.zeros((4, 8), device=meta)
     i = torch.zeros(2, dtype=torch.int32, device=meta)
     nkd = torch.zeros((3, 1), dtype=torch.int32, device=meta)
-    b = torch.zeros((3, 8), dtype=torch.bool, device=meta)
     m = torch.zeros(4, dtype=torch.bool, device=meta)
     t = torch.zeros(4, dtype=torch.int32, device=meta)
+    tw = torch.zeros((4, 5), dtype=torch.int32, device=meta)
+    rw = k11.ResidentWords(torch.zeros(2 * 3 + 2 * 2 + 1, dtype=torch.int32, device=meta),
+                           3, 2, 8, 2, False)
     with pytest.raises(RuntimeError):
-        k11.resident_tables(f, f, f[:, :2], t, t, m, nkd, i, i, 3, 2)
+        k11.resident_words(tw, t, t, m, nkd, i, i, 3, 2, 8, 2)
     with pytest.raises(RuntimeError):
-        k10.affinity_mask(f, f, f, f[:, :2], f[:, :2], i, i, nkd, b, b, b, b, b, b)
+        k10.affinity_task_words(f, f, f, f[:, :2], f[:, :2])
     with pytest.raises(RuntimeError):
-        k10.affinity_row(f, f, f, f[:, :2], f[:, :2], i, i, nkd, b, b, b, b, 0)
+        k10.affinity_mask(f, f, f, f[:, :2], f[:, :2], i, i, nkd, rw)
+    with pytest.raises(RuntimeError):
+        k10.affinity_row(f, f, f, f[:, :2], f[:, :2], i, i, nkd, rw, 0)
+    with pytest.raises(RuntimeError):
+        k10.affinity_words(tw, i, i, nkd, rw)

@@ -15,9 +15,12 @@
   tiers open plans; its gangs run at minMember, so none may evict)
   equals the reference's joint cycle on the port's own packed arrays;
   an unfoldable conf runs the sequential cycle.
-* Kernel K12's plain version (the tier work tests and the advance)
-  against a numpy transcription of the reference's `_haswork_fn`,
-  `tier_done` and `advance`.
+* Kernel K12's plain version (the tier work tests and the advance, fed
+  by the step it follows) against a numpy transcription of the
+  reference's `_haswork_fn`, `tier_done` and `advance`; the work mask it
+  writes against the mask the reference's `_haswork_fn` reduces, for
+  every tier of the joint worlds; and the loop computing each tier's
+  masks once an iteration, with one K12 call and one host read.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from kube_batch_tpu.actions.fused import build_joint_phases as jax_joint_phases
 from kube_batch_tpu.actions.fused import make_cycle_solver as jax_cycle_solver
 from kube_batch_tpu.api.snapshot import SnapshotTensors as JaxSnapshot
 from kube_batch_tpu.cache.cluster import Node, Pod, PodGroup, Queue
@@ -47,6 +51,7 @@ from kube_batch_tpu_torch.framework.plugin import ACTION_REGISTRY
 from kube_batch_tpu_torch.framework.session import build_policy
 from kube_batch_tpu_torch.kernels import joint_tier as k12
 from kube_batch_tpu_torch.ops.assignment import init_state
+from kube_batch_tpu_torch.ops import joint as joint_ops
 from kube_batch_tpu_torch.ops.joint import AuctionPhase, EvictPhase
 from kube_batch_tpu_torch.scheduler import Scheduler
 from test_joint_solve import (
@@ -301,13 +306,15 @@ def test_scheduler_joint_cycle_on_affinity_world_matches_reference():
 @pytest.mark.parametrize("kind", [k12.AUCTION, k12.EVICT])
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_tier_control_matches_reference_arithmetic(kind, seed):
+    """One K12 call fed by the step it follows (an auction round's accept
+    mask, or an evict step's flag vector): the work mask, the packed read
+    and the advance in place."""
     rng = np.random.default_rng(seed + 10 * kind)
     T, N, J, R = 64, 6, 9, 4
     gated = seed % 2
     progressed, step = (seed != 2), (100 if seed == 3 else 3)
-    prov_active = int(seed in (1, 3))
+    prov_active = int(seed in (1, 3)) if kind == k12.EVICT else 0
     x = {
-        "carry": np.array([progressed, prov_active, 4], np.int32),
         "task_state": rng.integers(0, 8, T).astype(np.int32),
         "snap_state": rng.integers(0, 8, T).astype(np.int32),
         "task_mask": rng.random(T) < 0.9,
@@ -322,17 +329,27 @@ def test_tier_control_matches_reference_arithmetic(kind, seed):
         "excl": rng.random(N) < 0.3,
         "phase": np.array([3], np.int32),
     }
+    if kind == k12.EVICT:
+        step_flags = np.array([progressed, prov_active, 4, 1, 0, 0, 1], np.int64)
+        step_out = torch.from_numpy(step_flags.copy())
+    else:
+        accept = (rng.random(T) < 0.1) & progressed
+        step_flags = np.array([accept.sum(), 0, 0, 0, 0, 0, 0], np.int64)
+        step_out = torch.from_numpy(accept)
     t = {k: torch.from_numpy(v.copy()) for k, v in x.items()}
-    flags = k12.tier_control(kind, gated, step, 50, *t.values()).tolist()
+    work, read = k12.tier_buffers(T, "cpu")
+    out = k12.tier_control(kind, gated, step, 50, step_out, *t.values(), work, read)
+    assert out is read
 
     pending = (x["task_state"] == 0) & x["task_mask"]
-    work = pending & x["elig"]
+    want_work = pending & x["elig"]
     if kind == k12.EVICT:
         tj = np.clip(x["task_job"], 0, J - 1)
-        work = work & x["starving"][tj] & (x["task_job"] >= 0) & ~x["tried"]
-        has_work = bool(work.any()) or bool(prov_active)
+        want_work = want_work & x["starving"][tj] & (x["task_job"] >= 0) & ~x["tried"]
+        has_work = bool(want_work.any()) or bool(prov_active)
     else:
-        has_work = bool(work.any()) and (not gated or bool((x["code"] > 0).any()))
+        has_work = bool(want_work.any()) and (not gated or bool((x["code"] > 0).any()))
+    progressed = bool(step_flags[0])
     done = (not progressed) or step >= 50 or not has_work
     want = {k: v.copy() for k, v in x.items()}
     if done:
@@ -343,9 +360,145 @@ def test_tier_control_matches_reference_arithmetic(kind, seed):
             want["node_future"][4] -= x["task_req"][p].sum(0)
         want["tried"][:] = want["prov"][:] = want["excl"][:] = False
         want["phase"] += 1
-    assert flags == [int(done), int(has_work), int(want["phase"][0])]
+    np.testing.assert_array_equal(work.numpy(), want_work)
+    assert read.tolist() == step_flags.tolist() + [int(done), int(has_work),
+                                                   int(want["phase"][0])]
     for k in want:
         np.testing.assert_array_equal(t[k].numpy(), want[k], err_msg=k)
+
+
+def test_tier_control_first_call_of_a_tier():
+    """At a tier's first call (no step yet) the tier counts as progressed:
+    it ends only on an empty work test or a zero step bound."""
+    T, N = 16, 3
+    z = torch.zeros(T, dtype=torch.int32)
+    mask = torch.ones(T, dtype=torch.bool)
+    req = torch.ones((T, 2))
+    for elig, bound, want_done in ((mask, 5, 0), (~mask, 5, 1), (mask, 0, 1)):
+        work, read = k12.tier_buffers(T, "cpu")
+        k12.tier_control(k12.AUCTION, 0, 0, bound, None, z.clone(), z, mask, elig, None,
+                         z, torch.zeros(T, dtype=torch.bool),
+                         torch.zeros(T, dtype=torch.bool), z.clone(), req,
+                         torch.zeros((N, 2)), torch.zeros(N, dtype=torch.bool),
+                         torch.zeros(1, dtype=torch.int32), work, read)
+        assert read.tolist()[:7] == [0] * 7
+        assert read.tolist()[7:] == [want_done, int(bool(elig.any())), want_done]
+        np.testing.assert_array_equal(work.numpy(), elig.numpy())
+
+
+def _reference_work(jsnap, jst, ph, tried):
+    """The mask the reference's `_haswork_fn` reduces for tier `ph`."""
+    import jax.numpy as jnp
+
+    work = (jst.task_state == 0) & jsnap.task_mask & ph.eligible_fn(jsnap, jst)
+    if hasattr(ph, "starving_fn"):
+        tj = jnp.clip(jsnap.task_job, 0, jsnap.num_jobs - 1)
+        work = (work & ph.starving_fn(jsnap, jst)[tj] & (jsnap.task_job >= 0)
+                & ~jnp.asarray(tried))
+    return np.asarray(work)
+
+
+@pytest.mark.parametrize("world", sorted(WORLDS))
+def test_tier_work_matches_reference_haswork(world):
+    """The work mask `tier_control_plain` writes for every tier equals
+    the mask of the reference's `_haswork_fn` (its tier's masks on the
+    same state), on the packed state and on the state the joint cycle
+    ends in, with a `tried` latch set on the evict tiers."""
+    build, actions, _ = WORLDS[world]
+    fields, _ = _fields(build)
+    want, _got, _ = _solve(fields, actions, joint=True)
+    conf = dataclasses.replace(jax_default_conf(), actions=actions)
+    jpolicy, _ = jax_build_policy(conf)
+    policy, _ = build_policy(dataclasses.replace(default_conf(), actions=actions))
+    jphases, phases = jax_joint_phases(jpolicy, actions), build_joint_phases(policy, actions)
+    assert [type(p).__name__ for p in jphases] == [type(p).__name__ for p in phases]
+    jsnap, snap = JaxSnapshot(**fields), from_numpy(fields, "cpu")
+    T, N = snap.num_tasks, snap.num_nodes
+    end = want[0]
+    worked = 0
+    for jst in (jax_init_state(jsnap), jax_init_state(jsnap).replace(
+            task_state=end.task_state, task_node=end.task_node,
+            node_idle=end.node_idle, node_future=end.node_future)):
+        jst = jpolicy.setup_state(jsnap, jst)
+        st = policy.setup_state(snap, init_state(snap))
+        st.task_state = torch.from_numpy(np.asarray(jst.task_state).copy())
+        st.task_node = torch.from_numpy(np.asarray(jst.task_node).copy())
+        st.node_idle = torch.from_numpy(np.asarray(jst.node_idle).copy())
+        st.node_future = torch.from_numpy(np.asarray(jst.node_future).copy())
+        tried = np.zeros(T, bool)
+        tried[::3] = True
+        for ph, jph in zip(phases, jphases):
+            evict = isinstance(ph, EvictPhase)
+            work, read = k12.tier_buffers(T, "cpu")
+            k12.tier_control_plain(
+                k12.EVICT if evict else k12.AUCTION, False, 0, 10, None,
+                st.task_state.clone(), snap.task_state, snap.task_mask,
+                ph.eligible_fn(snap, st), ph.starving_fn(snap, st) if evict else None,
+                snap.task_job, torch.from_numpy(tried.copy()),   # cleared when done
+                torch.zeros(T, dtype=torch.bool), torch.zeros(T, dtype=torch.int32),
+                snap.task_req, st.node_future.clone(), torch.zeros(N, dtype=torch.bool),
+                torch.zeros(1, dtype=torch.int32), work, read)
+            ref = _reference_work(jsnap, jst, jph, tried)
+            np.testing.assert_array_equal(work.numpy(), ref, err_msg=ph.name)
+            assert read[k12.STEP_FLAGS + 1].item() == int(ref.any())
+            worked += int(ref.sum())
+    assert worked > 0
+
+
+def test_joint_step_computes_tier_masks_once(monkeypatch):
+    """Each iteration of the joint loop calls its tier's eligible_fn (and
+    an evict tier's starving_fn) once, launches K12 once and reads one
+    vector; the steps take K12's work mask and call neither again."""
+    fields, _ = _fields(_world_priority_preempt)
+    policy, _ = build_policy(dataclasses.replace(default_conf(), actions=FOUR))
+    calls = {"eligible": 0, "starving": 0, "k12": 0, "reads": 0}
+
+    def counted(key, fn):
+        def wrapper(snap, state):
+            calls[key] += 1
+            return fn(snap, state)
+        return wrapper
+
+    phases = [dataclasses.replace(
+        ph, eligible_fn=counted("eligible", ph.eligible_fn),
+        **({"starving_fn": counted("starving", ph.starving_fn)}
+           if isinstance(ph, EvictPhase) else {}))
+        for ph in build_joint_phases(policy, FOUR)]
+    real = k12.tier_control
+
+    def spy(*args):
+        calls["k12"] += 1
+        return real(*args)
+
+    monkeypatch.setattr(k12, "tier_control", spy)
+    snap = from_numpy(fields, "cpu")
+    state = policy.setup_state(snap, init_state(snap))
+    stats: dict = {}
+    read_buffers = []
+    real_buffers = k12.tier_buffers
+
+    def buffers(T, dev):
+        work, read = real_buffers(T, dev)
+        real_tolist = read.tolist
+
+        def tolist():          # counts the loop's host reads of K12's buffer
+            calls["reads"] += 1
+            return real_tolist()
+
+        read.tolist = tolist
+        read_buffers.append(read)
+        return work, read
+
+    monkeypatch.setattr(k12, "tier_buffers", buffers)
+    joint_ops.joint_rounds(snap, state, phases, policy.predicate_mask(snap),
+                           policy.rank_fn, snap.eps, stats=stats)
+    iterations = sum(t["steps"] + 1 for t in stats["joint_tiers"])
+    evict_iterations = sum(t["steps"] + 1 for t in stats["joint_tiers"]
+                           if t["kind"] == "evict")
+    assert len(read_buffers) == 1
+    assert calls["k12"] == calls["eligible"] == calls["reads"] == iterations
+    assert calls["starving"] == evict_iterations > 1
+    assert any(t["evicted"] for t in stats["joint_tiers"] if t["kind"] == "evict")
 
 
 def test_tier_control_refuses_other_devices():
@@ -353,6 +506,7 @@ def test_tier_control_refuses_other_devices():
     v = torch.zeros(4, dtype=torch.int32, device=meta)
     b = torch.zeros(4, dtype=torch.bool, device=meta)
     f = torch.zeros((4, 4), device=meta)
+    r = torch.zeros(k12.READ, dtype=torch.int64, device=meta)
     with pytest.raises(RuntimeError):
-        k12.tier_control(k12.AUCTION, 0, 0, 1, v[:3], v, v, b, b, None, v, b, b, v,
-                         f, f, b, v[:1])
+        k12.tier_control(k12.AUCTION, 0, 0, 1, None, v, v, b, b, None, v, b, b, v,
+                         f, f, b, v[:1], b, r)
