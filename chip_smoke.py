@@ -17,7 +17,15 @@ and `triton`.  Phases (any failure exits non-zero):
    cell, no ready node, and T = 65,536 with N = 8,192, timed); K8's
    lex_push_many and sort_by_segment on keys of T = 1, 8,192, 16,384,
    16,385 and 65,536 rows with NaN, ±0.0 and ±inf, all-equal keys and 40
-   keys, and segment keys of 1, 3, 512 and 70,000 segments; K10's
+   keys, and segment keys of 1, 3, 512 and 70,000 segments; K8's vtime
+   (`vtime_edge_inputs`: T = 1, 1,023, 8,192, 16,384 and 16,385 with S = 1
+   and S = T, every row invalid, empty segments, zero denominators,
+   column totals past 2^24; two runs equal, equal to the plain version);
+   K2's two passes on `k2_edge_cases` (no eligible row, one at T − 1,
+   1 %, T and N off the row group and node tile, N not a multiple of 16
+   or 4, every node alike so ties span node tiles, quantum on and off,
+   the mask, a dynamic mask with two extra terms, and the words with
+   W = 1, 2 and 8; exactly equal to the plain versions); K10's
    affinity_task_words and affinity_words, K11's resident_words (both
    resident sets and the future set alone) and K2's words form on
    seeded affinity terms (each = plain, K2 given the words = K2 given
@@ -112,7 +120,14 @@ and `triton`.  Phases (any failure exits non-zero):
    bound (a Discard advance), each timed on cycle 2's inputs.
    Outputs exactly equal; kernel / plain / library times (median of
    CUDA-event timed runs after a warm-up) and the least time the card
-   could take.
+   could take (K2 pass 1's from its eligible rows only; the eligible
+   share of each timed round is logged).  K2 and K3 are also timed on
+   the affinity path's recorded round and on the preempt path's round
+   with the most eligible rows, K8 at the preempt path's 8,192 rows:
+   `redesign_order` charges each path's launches at its own shapes
+   where one of these times exists (`PATH_TIMES`; the joint path runs
+   the preempt path's world and no parity world is wider than 8,192
+   rows), else at the line's.
 
 The parity worlds (phase 2) also include config5_affinity_mid (500
 nodes, 5,000 pods, a 1,500-pod wave) under both confs, and
@@ -123,7 +138,10 @@ card (`REDESIGNED`) are marked in the `redesign-order` line.
 
 The line before the `kernels` line gives the script's seconds, and the
 one before it the order a redesign should take the kernels in, those
-already redesigned marked.
+already redesigned marked, with each kernel's excess card time by path.
+Each entry of the `kernels` line carries `launches_by_path` (main,
+host_cycle, affinity, preempt, joint and parity: every parity world's
+card run) and `launches`, their sum.
 The last two lines are the `kernels` JSON object and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -242,7 +260,8 @@ HOST_EVICTED = 20            # pods evicted after the cycle without arrivals
 # with the K2 calls of the same round every 300th round; the joint path
 # every 10th K12 call
 AFFINITY_EVERY = {"resident_words": 1, "affinity_mask": 1, "affinity_task_words": 1,
-                  "affinity_words": 300, "propose_best": 300, "propose_pick": 300}
+                  "affinity_words": 300, "propose_best": 300, "propose_pick": 300,
+                  "resolve": 300, "apply": 300}
 JOINT_EVERY = {"tier_control": 10}
 JOINT_CYCLES = 3
 # the parity world whose card run gives K10's row form its launches
@@ -564,6 +583,69 @@ def phase_k8_edge(device) -> dict:
     return errs
 
 
+def vtime_edge_inputs(device, seed: int = 0):
+    """name → K8 vtime's arguments (seg, base_rank, req, valid, alloc_seg,
+    denom_seg, S) at T = 1, 1,023, 8,192, 16,384 (the one-block limit)
+    and 16,385, each with S = 1 and S = T: segment ids out of range on both
+    sides, about 70 % of the rows valid, integer requests whose column
+    totals pass 2^24, a denominator that is 0 in some segments and dims
+    (the 1e30 and the 0 branch) and, for S = 1, broadcast as drf's is;
+    and at 8,192 rows every row invalid, three non-empty segments of 64,
+    and every denominator 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    R = 4
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def case(T, S, invalid=False, segs=None, zero_denoms=False):
+        seg = (rng.choice(segs, T) if segs is not None
+               else rng.integers(-1, S + 1, T)).astype(np.int32)
+        rank = rng.permutation(T).astype(np.int32)
+        req = rng.integers(0, 4_000_000, (T, R)).astype(np.float32)
+        req[rng.random((T, R)) < 0.2] = 0.0
+        valid = np.zeros(T, bool) if invalid else rng.random(T) < 0.7
+        alloc = rng.integers(0, 50_000_000, (S, R)).astype(np.float32)
+        alloc[rng.random((S, R)) < 0.3] = 0.0
+        denom = rng.integers(1, 90_000_000, (S, R)).astype(np.float32)
+        denom[rng.random((S, R)) < (1.0 if zero_denoms else 0.3)] = 0.0
+        denom_t = on(denom)
+        if S == 1:
+            denom_t = on(denom[0])[None, :].expand(S, R)
+        return (on(seg), on(rank), on(req), on(valid), on(alloc), denom_t, S)
+
+    out = {}
+    for T in (1, 1023, 8192, 16384, 16385):
+        for S in sorted({1, T}):
+            out[f"T{T}_S{S}"] = case(T, S)
+    out["all_invalid_8192"] = case(8192, 64, invalid=True)
+    out["empty_segments_8192"] = case(8192, 64, segs=[0, 5, 63])
+    out["zero_denominators_8192"] = case(8192, 64, zero_denoms=True)
+    return out
+
+
+def phase_vtime_edge(device) -> float:
+    """K8 vtime on its edge inputs: two runs equal each other and the
+    plain version, exactly.  Returns the max abs err."""
+    from kube_batch_tpu_torch.kernels import lex_rank as k8
+
+    err = 0.0
+    for name, args in vtime_edge_inputs(device).items():
+        a, b, want = k8.vtime(*args), k8.vtime(*args), k8.vtime_plain(*args)
+        err = max(err, require_equal(f"vtime edge {name}", [(a, want), (b, want)]))
+        T, R = args[2].shape
+        log(json.dumps({"phase": "vtime-edge", "case": name, "rows": T, "segments": args[6],
+                        "one_launch": T <= k8.CTA_MAX_T,
+                        "valid_rows": int(args[3].sum()),
+                        "column_total_max": float(args[2].double().sum(0).max()),
+                        "big_vtime_rows": int((a >= k8.BIG_VTIME).sum()),
+                        "zero_rows": int((a == 0).sum())}))
+    return err
+
+
 def k2_words_inputs(device, T: int = 4096, N: int = 1024, K: int = 40, K2: int = 36,
                     seed: int = 0):
     """(propose_best's arguments with dyn None, the affinity fields and the
@@ -697,6 +779,88 @@ def phase_words_edge(device) -> dict:
                         "tasks": a[2].shape[0], "nodes": a[3].shape[0],
                         "active": int(best[2].sum()),
                         "vetoed_cells": int((~mask).sum()) if name == "words" else 0}))
+    return errs
+
+
+def k2_edge_cases(device):
+    """name → K2 propose_best's arguments on edge inputs: no eligible row;
+    one eligible row, at T − 1; about 1 % of the rows eligible (the node
+    range split across blocks); T and N that are not multiples of the
+    row group (32) or the node tile (256) and N not a multiple of 16 (no
+    wide loads); every node alike (ties across every node tile); the
+    quantum on and off; the mask, a dynamic mask with two extra score
+    terms, and the affinity words with W = 1, 2 and 8 words a
+    vocabulary."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.kernels import affinity as k10
+
+    rng = np.random.default_rng(7)
+    cases = {}
+    for T, N, K, K2 in ((1000, 1000, 32, 20), (4096, 1024, 40, 36), (777, 301, 250, 200)):
+        args, fields, resident = k2_words_inputs(device, T=T, N=N, K=K, K2=K2,
+                                                 seed=T + N)
+        tw = k10.affinity_task_words(*fields[:5])
+        words = k10.affinity_words(tw, fields[5], fields[6], fields[7], resident)
+        W = max(k10.words(K), k10.words(K2))
+        elig = {"none": np.zeros(T, bool), "last_row": np.arange(T) == T - 1,
+                "sparse": rng.random(T) < 0.01, "most": rng.random(T) < 0.8}
+        for ename, e in elig.items():
+            for quantum in (0.5, 0.0):
+                a = list(args)
+                a[6] = torch.from_numpy(e).to(device)
+                a[11] = quantum
+                cases[f"mask_T{T}_N{N}_{ename}_q{quantum}"] = a
+                w = list(a)
+                w[1] = words
+                cases[f"words_W{W}_T{T}_N{N}_{ename}_q{quantum}"] = w
+        d = list(args)
+        d[1] = torch.from_numpy(rng.random((T, N)) < 0.6).to(device)
+        d[10] = [torch.from_numpy(rng.integers(-3, 4, (T, N)).astype(np.float32)).to(device)
+                 for _ in range(2)]
+        d[6] = torch.from_numpy(rng.random(T) < 0.05).to(device)
+        cases[f"dyn_extras_T{T}_N{N}"] = d
+        # every node alike: each feasible row ties across every node tile
+        same = list(args)
+        cap = torch.full_like(args[8], 8000.0)
+        same[3] = same[7] = torch.full_like(args[7], 4000.0)
+        same[8] = cap
+        same[0] = torch.ones_like(args[0])
+        same[5] = torch.ones_like(args[5])
+        same[6] = torch.from_numpy(rng.random(T) < 0.02).to(device)
+        cases[f"all_alike_T{T}_N{N}"] = same
+    return cases
+
+
+def phase_k2_edge(device) -> dict:
+    """K2's two passes on `k2_edge_cases`: pass 1 equal to its plain
+    version and run twice alike, pass 2 equal to its plain version given
+    pass 1's answer (k = row index mod ties), exactly.  Returns {name:
+    max_abs_err}."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import propose as k2
+
+    errs = {"propose_best": 0.0, "propose_pick": 0.0}
+    for name, a in k2_edge_cases(device).items():
+        best = k2.propose_best(*a)
+        again = k2.propose_best(*a)
+        want = k2.propose_best_plain(*a)
+        errs["propose_best"] = max(errs["propose_best"], require_equal(
+            f"propose_best edge {name}", list(zip(best, want)) + list(zip(again, want))))
+        b, ties, active = best
+        k = torch.remainder(torch.arange(ties.numel(), device=device, dtype=torch.int32),
+                            torch.clamp(ties, min=1))
+        pa = list(a) + [b, active, k]
+        errs["propose_pick"] = max(errs["propose_pick"], require_equal(
+            f"propose_pick edge {name}", [(k2.propose_pick(*pa), k2.propose_pick_plain(*pa))]))
+        T, N = a[0].shape
+        eligible = int(a[6].sum())
+        log(json.dumps({"phase": "k2-edge", "case": name, "tasks": T, "nodes": N,
+                        "eligible": eligible, "eligible_share": round(eligible / T, 6),
+                        "active": int(active.sum()), "max_ties": int(ties.max()),
+                        "multi_tie_rows": int((active & (ties > 1)).sum())}))
     return errs
 
 
@@ -1397,18 +1561,23 @@ def parity_cpu(root: str, world: str):
 def phase_parity(cpu_runs):
     """Every parity world on the card, held against its CPU run
     (`cpu_runs[world]`, an async result of `parity_cpu`); returns the
-    launch counts and the Recorder of ROW_WORLD's card run (the run that
-    gives K10's row form its launches)."""
+    launch counts of all their card runs together and the Recorder of
+    ROW_WORLD's card run (the run that gives K10's row form its
+    launches)."""
     from kube_batch_tpu_torch import kernels
 
     seen = {}
+    parity_counts = {}
     row_counts = row_rec = None
     for world in PARITY_WORLDS:
         t0 = time.perf_counter()
         kernels.reset_counts()
         gpu, refused, rec = _run(world, "cuda", record=True)
+        world_counts = kernels.counts()
+        for name, n in world_counts.items():
+            parity_counts[name] = parity_counts.get(name, 0) + n
         if world == ROW_WORLD:
-            row_counts, row_rec = kernels.counts(), rec
+            row_counts, row_rec = world_counts, rec
         t1 = time.perf_counter()
         cpu, cpu_s = cpu_runs[world].get(timeout=1200)
         t2 = time.perf_counter()
@@ -1451,7 +1620,8 @@ def phase_parity(cpu_runs):
                     "affinity_row_launches": row_counts["affinity_row"]}))
     if row_counts["affinity_row"] <= 0:
         fail(f"{ROW_WORLD}: kernel affinity_row was not launched")
-    return row_counts, row_rec
+    log(json.dumps({"phase": "parity-launches", **parity_counts}))
+    return parity_counts, row_rec
 
 
 # ---------------------------------------------------------------------------
@@ -1985,7 +2155,47 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
     record("waterfill", time_ms(lambda: k7.waterfill(*args)),
            time_ms(lambda: k7.waterfill_plain(*args)),
            bound(Q * 4 + 2 * Q * R * 4 + R * 4 + Q, (Q + 1) * Q * R * 8))
+    preempt_round_timings(rec)
     return out
+
+
+def preempt_round_timings(rec: Recorder) -> None:
+    """K2's two passes and K3 on the auction round of the preempt
+    path's recorded cycles with the most eligible rows (8,192 rows, 512
+    nodes), timed for the redesign order's preempt, joint and parity
+    paths (the joint path runs the same world; no parity world is
+    wider)."""
+    from kube_batch_tpu_torch.kernels import propose as k2
+    from kube_batch_tpu_torch.kernels import resolve as k3
+
+    rounds = {}
+    for name in ("propose_best", "propose_pick", "resolve", "apply"):
+        for cycle, rnd, args in rec.calls[name]:
+            rounds.setdefault((cycle, rnd), {})[name] = args
+    full = [r for r in rounds.values() if len(r) == 4]
+    if not full:
+        log(json.dumps({"phase": "preempt-path-round", "rounds": 0}))
+        return
+    rnd = max(full, key=lambda r: int(r["propose_best"][6].sum()))
+    bargs, pargs, rargs, aargs = (rnd[k] for k in ("propose_best", "propose_pick",
+                                                   "resolve", "apply"))
+    _best, _ties, active = k2.propose_best(*bargs)
+    feas, scan, scan_feas = _work_counts(bargs, k2.propose_pick(*pargs), active)
+    ka = _fresh_apply_args(aargs)
+    line = {"phase": "preempt-path-round", "tasks": bargs[0].shape[0],
+            "nodes": bargs[0].shape[1], "eligible": int(bargs[6].sum()),
+            "request_classes": request_classes(bargs)}
+    for name, fn, b in (
+            ("propose_best", lambda: k2.propose_best(*bargs),
+             propose_best_bound(bargs, feas)),
+            ("propose_pick", lambda: k2.propose_pick(*pargs),
+             propose_pick_bound(pargs, scan, scan_feas)),
+            ("resolve", lambda: k3.resolve(*rargs), resolve_bound(rargs)),
+            ("apply", lambda: k3.apply(*ka), apply_bound(aargs))):
+        ms = time_ms(fn)
+        path_time(name, ("preempt", "joint", "parity"), ms, b[0])
+        line[f"{name}_ms"], line[f"{name}_bound_ms"] = round(ms, 4), round(b[0], 6)
+    log(json.dumps(line))
 
 
 def timing_inputs(rec: Recorder) -> dict:
@@ -2056,10 +2266,9 @@ def _live_width(a, b) -> int:
 
 
 def _work_counts(args, prop, active):
-    """Cells each propose pass must touch, from this round's data: fit
-    checks (eligible rows on real, predicate-passing nodes), feasible
-    cells (scored), and for the pick pass the cells up to each active
-    row's chosen node."""
+    """Cells each propose pass must touch, from this round's data: the
+    feasible cells (scored), and for the pick pass the cells up to each
+    active row's chosen node and the feasible ones among them."""
     import torch
 
     from kube_batch_tpu_torch.kernels.propose import (
@@ -2068,35 +2277,137 @@ def _work_counts(args, prop, active):
         quantum_scale,
     )
 
+    from kube_batch_tpu_torch.kernels.affinity import AffinityWords, affinity_cells_plain
+
     (pred, dyn, req, avail, eps, node_mask, eligible, future, cap, spec,
      extras, quantum) = args
     T, N = pred.shape
     cols = torch.arange(N, device=pred.device)
-    fit_cells = feas_cells = scan_cells = scan_feas = 0
+    feas_cells = scan_cells = scan_feas = 0
     for lo in range(0, T, PLAIN_ROWS):
         rows = slice(lo, min(T, lo + PLAIN_ROWS))
-        e = eligible[rows]
-        static = pred[rows] if dyn is None else pred[rows] & dyn[rows]
+        d = (None if dyn is None else affinity_cells_plain(dyn.rows(rows))
+             if isinstance(dyn, AffinityWords) else dyn[rows])
         feas, _ = masked_scores_plain(
-            pred[rows], None if dyn is None else dyn[rows], req[rows], avail,
-            eps, node_mask, e, future, cap, spec, [x[rows] for x in extras],
+            pred[rows], d, req[rows], avail,
+            eps, node_mask, eligible[rows], future, cap, spec, [x[rows] for x in extras],
             quantum_scale(quantum),
         )
-        fit_cells += int((static & node_mask[None, :] & e[:, None]).sum())
         feas_cells += int(feas.sum())
         scanned = active[rows, None] & (cols[None, :] <= prop[rows, None])
         scan_cells += int(scanned.sum())
         scan_feas += int((scanned & feas).sum())
-    return fit_cells, feas_cells, scan_cells, scan_feas
+    return feas_cells, scan_cells, scan_feas
 
 
-def _score_ops(spec, R: int) -> int:
-    ops = 2  # mask select, quantum floor
+def _node_score_ops(spec, R: int) -> int:
+    """Operations of the node-order score of one request on one node."""
+    ops = 0
     if spec.w_lr is not None:
         ops += 7 * R + 4
     if spec.w_bal is not None:
         ops += 16
     return ops
+
+
+def _score_ops(spec, R: int) -> int:
+    return 2 + _node_score_ops(spec, R)  # mask select, quantum floor
+
+
+def request_classes(args) -> int:
+    """Distinct requests (bitwise) among K2 pass 1's eligible rows: the
+    fit test and the node-order score depend on the request and the node
+    only."""
+    import torch
+
+    req, eligible = args[2], args[6]
+    return int(torch.unique(req[eligible].contiguous().view(torch.int32), dim=0).shape[0])
+
+
+def _masked_cells(pred, node_mask, rows) -> int:
+    """Cells of the rows `rows` whose predicate and node mask pass."""
+    from kube_batch_tpu_torch.kernels.propose import PLAIN_ROWS
+
+    T = pred.shape[0]
+    return sum(int((pred[lo:lo + PLAIN_ROWS] & node_mask[None, :]
+                    & rows[lo:lo + PLAIN_ROWS, None]).sum())
+               for lo in range(0, T, PLAIN_ROWS))
+
+
+def propose_best_bound(args, feas_cells: int):
+    """K2 pass 1's least time on `args`: of the eligible rows only, the
+    predicate mask, the dynamic mask or the task words with their
+    thresholds, the extra score terms and the requests; each node's
+    avail, future, cap and mask (and, in the words form, its words)
+    once; the eligible mask, and the three outputs of every row (a row
+    that is not eligible needs no read for its fixed answer).  The fit
+    test (two compares a resource dim) and the node-order score once per
+    request class of the eligible rows and real node; a select per
+    eligible cell on a real node; the dynamic test (a byte, or the words:
+    two operations a word and three compares) where the predicate and
+    node mask pass on a row that has one; the extra terms, the quantum
+    floor and the max per feasible cell."""
+    from kube_batch_tpu_torch.kernels.affinity import AffinityWords
+    from kube_batch_tpu_torch.kernels.propose import quantum_scale
+
+    pred, dyn, req, _avail, _eps, node_mask, eligible = args[:7]
+    spec, extras, quantum = args[9], args[10], args[11]
+    T, N = pred.shape
+    R = req.shape[1]
+    E, M = int(eligible.sum()), int(node_mask.sum())
+    row_bytes = N + len(extras) * 4 * N + R * 4
+    node_bytes = 3 * N * R * 4 + N
+    test_ops = 0
+    if isinstance(dyn, AffinityWords):
+        nw = dyn.node_words.shape[1]
+        row_bytes += nw * 4 + 8
+        node_bytes += N * nw * 4
+        has_test = eligible & (dyn.task_words != 0).any(dim=1)
+        test_ops = _masked_cells(pred, node_mask, has_test) * (2 * nw + 3)
+    elif dyn is not None:
+        row_bytes += N
+        test_ops = _masked_cells(pred, node_mask, eligible)
+    finish_ops = len(extras) + (2 if quantum_scale(quantum) > 0 else 0) + 1
+    ops = (request_classes(args) * M * (2 * R + _node_score_ops(spec, R)) + E * M
+           + test_ops + feas_cells * finish_ops)
+    return bound(E * row_bytes + node_bytes + T + 9 * T + R * 4, ops)
+
+
+def propose_pick_bound(args, scan_cells: int, scan_feas: int):
+    """K2 pass 2's least time: each active row's cells up to its chosen
+    node (mask and extras), the per-row and per-node inputs once."""
+    pred, req, spec, extras = args[0], args[2], args[9], args[10]
+    T, N = pred.shape
+    R = req.shape[1]
+    n_extra = len(extras) + (args[1] is not None)
+    small = T * R * 4 + 3 * N * R * 4 + N + T
+    return bound(scan_cells + small + 13 * T + n_extra * 4 * scan_cells,
+                 scan_cells * 2 * R + scan_feas * _score_ops(spec, R))
+
+
+def resolve_bound(args):
+    """K3 resolve's least time: the sorted order and node ids, the
+    proposers' requests, the node capacity, the outputs; three float64
+    operations a proposer and dim."""
+    perm, s_node, task_req, avail = args[:4]
+    T, (N, R) = perm.shape[0], avail.shape
+    n_active = int((s_node < N).sum())
+    return bound(16 * T + n_active * R * 4 + N * R * 4 + 2 * T,
+                 n_active * R * 3, F64_OPS_PER_S)
+
+
+def apply_bound(args):
+    """K3 apply's least time: the sorted order, node ids and accept mask,
+    the accepted rows' requests and state, the touched nodes' rows read
+    and written; a float64 add a dim per accepted row."""
+    import torch
+
+    perm, s_node, accept, task_req = args[:4]
+    T, R = task_req.shape
+    n_acc = int(accept.sum())
+    touched = int(torch.unique(s_node[accept[perm]]).numel())
+    return bound(17 * T + n_acc * (R * 4 + 8) + touched * R * 4 * 4, n_acc * R,
+                 F64_OPS_PER_S)
 
 
 def phase_kernels(rec: Recorder):
@@ -2148,39 +2459,30 @@ def phase_kernels(rec: Recorder):
     spec = bargs[9]
     best, ties, active = k2.propose_best(*bargs)
     prop = k2.propose_pick(*pargs)
-    fit_cells, feas_cells, scan_cells, scan_feas = _work_counts(bargs, prop, active)
-    log(json.dumps({"phase": "round-inputs", "eligible": int(bargs[6].sum()),
+    feas_cells, scan_cells, scan_feas = _work_counts(bargs, prop, active)
+    eligible = int(bargs[6].sum())
+    log(json.dumps({"phase": "round-inputs", "eligible": eligible,
+                    "eligible_share": round(eligible / T, 6),
+                    "request_classes": request_classes(bargs),
                     "active": int(active.sum()), "rejected": rejected,
-                    "fit_cells": fit_cells,
                     "feasible_cells": feas_cells, "pick_cells": scan_cells}))
-    sops = _score_ops(spec, R)
-    n_extra = len(bargs[10]) + (bargs[1] is not None)
-    small = T * R * 4 + 3 * N * R * 4 + N + T
     record("propose_best", bargs,
            time_ms(lambda: k2.propose_best(*bargs)),
            time_ms(lambda: k2.propose_best_plain(*bargs), warmup=1, runs=3),
-           bound(T * N + small + 9 * T + n_extra * 4 * T * N,
-                 fit_cells * 2 * R + feas_cells * sops))
+           propose_best_bound(bargs, feas_cells))
     record("propose_pick", pargs,
            time_ms(lambda: k2.propose_pick(*pargs)),
            time_ms(lambda: k2.propose_pick_plain(*pargs), warmup=1, runs=3),
-           bound(scan_cells + small + 13 * T + n_extra * 4 * scan_cells,
-                 scan_cells * 2 * R + scan_feas * sops))
-    n_active = int((rargs[1] < N).sum())
+           propose_pick_bound(pargs, scan_cells, scan_feas))
     record("resolve", rargs,
            time_ms(lambda: k3.resolve(*rargs)),
            time_ms(lambda: k3.resolve_plain(*rargs)),
-           bound(16 * T + n_active * R * 4 + N * R * 4 + 2 * T,
-                 n_active * R * 3, F64_OPS_PER_S))
-    accept, perm, s_node = aargs[2], aargs[0], aargs[1]
-    n_acc = int(accept.sum())
-    touched = int(torch.unique(s_node[accept[perm]]).numel())
+           resolve_bound(rargs))
     ka, pa = _fresh_apply_args(aargs), _fresh_apply_args(aargs)
     record("apply", aargs,
            time_ms(lambda: k3.apply(*ka)),
            time_ms(lambda: k3.apply_plain(*pa)),
-           bound(17 * T + n_acc * (R * 4 + 8) + touched * R * 4 * 4,
-                 n_acc * R, F64_OPS_PER_S))
+           apply_bound(aargs))
 
     # K4, cycle 2's call (the cycle's final node_idle)
     fargs = rec.calls["failure_counts"][-1][2]
@@ -2205,6 +2507,7 @@ def phase_kernels(rec: Recorder):
         fail("main path: the water-fill was never called")
     args = main_timing_input(rec)
     ms, plain_ms, library_ms, b = segment_sum_timing(args)
+    path_time("segment_sum", ("main", "host_cycle"), ms, b[0])
     log(json.dumps({"phase": "kernel-main-path", "name": "segment_sum",
                     "rows": args[1].numel(), "columns": args[0][0].numel(),
                     "segments": args[2], "rows_kept": int((args[1] < args[2]).sum()),
@@ -2274,25 +2577,36 @@ def _rank_timings(rec: Recorder, label: str) -> dict:
         bound(T * (seg.element_size() + rank.element_size() + 16), T * 4 * passes),
     )
     args = widest("vtime")
-    perm_v, s_seg, req, valid, alloc, denom, S = args
-    T, R = req.shape
     out["vtime"] = (
         time_ms(lambda: k8.vtime(*args)),
         time_ms(lambda: k8.vtime_plain(*args)),
         None,
-        bound(T * (8 + 8 + 1 + 4) + int(valid.sum()) * R * 4 + 2 * alloc.numel() * 4,
-              T * R * 4, F64_OPS_PER_S),
+        vtime_bound(args),
     )
     notes = {"lex_push_many": {"rows": keys[0].numel(), "keys": m},
              "sort_by_segment": {"rows": seg.numel(), "segments": S,
                                  "plan": list(k8.sort_plan(seg.numel(), S))},
-             "vtime": {"rows": req.shape[0]}}
+             "vtime": {"rows": args[2].shape[0], "segments": args[6],
+                       "valid_rows": int(args[3].sum()),
+                       "one_launch": args[2].shape[0] <= k8.CTA_MAX_T}}
     for name, (ms, plain_ms, library_ms, b) in out.items():
         log(json.dumps({"phase": f"kernel-{label}", "name": name, **notes[name],
                         "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
                         "library_ms": None if library_ms is None else round(library_ms, 4),
                         "bound_ms": round(b[0], 6), "bound_by": b[1]}))
     return out
+
+
+def vtime_bound(args):
+    """K8 vtime's least time on `args` (seg, base_rank, req, valid,
+    alloc_seg, denom_seg, S): each row's segment, rank and valid flag
+    read and its time written, the valid rows' requests and both [S, R]
+    tables read once; per row and dim a float64 add, the rounding, the
+    division and the max."""
+    seg, _rank, req, valid, alloc, _denom, S = args
+    T, R = req.shape
+    return bound(T * (4 + 4 + 1 + 4) + int(valid.sum()) * R * 4 + 2 * S * R * 4,
+                 T * R * 4, F64_OPS_PER_S)
 
 
 def _path_steps(cycles) -> int:
@@ -2328,7 +2642,10 @@ def phase_rank_kernels(main_rec: Recorder, preempt_rec: Recorder, main_counts,
         if seen.get(key, 0) <= 0:
             fail(f"K8: {key[0]} never met a case with {key[1]} > 0")
     timed = _rank_timings(main_rec, "main-path")
-    _rank_timings(preempt_rec, "preempt-path")
+    # the joint path runs the preempt path's world (8,192 rows), and no
+    # parity world is wider
+    for name, (ms, _plain, _lib, b) in _rank_timings(preempt_rec, "preempt-path").items():
+        path_time(name, ("preempt", "joint", "parity"), ms, b[0])
     return {name: dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                        bound=b, library_ms=library_ms)
             for name, (ms, plain_ms, library_ms, b) in timed.items()}
@@ -2710,6 +3027,69 @@ class JointWindows:
                 **{k: self.out.get(k) for k in ("auction", "evict")}}
 
 
+class PreemptWindows:
+    """Device operations (kernel launches, and the copies and memsets the
+    host issues) per step of the sequential preemption loop, from one
+    window of a preempt-path run traced by torch.profiler: `steps` steps
+    from the `skip`-th K6 call on (past cycle 1's few steps, inside
+    cycle 2's preemption), plus LAUNCH_WARMUP calls for events the tracer
+    misses as it starts.  Every step launches K6 once (`preempt_open` or
+    `preempt_continue`): a step is everything from one K6 kernel to the
+    next.  `hook` sees every K6 call before it launches (a wrapper of
+    both K6 entries); `result()` closes a window still open.  Works on
+    any checkout whose preemption step calls
+    `kernels/preempt_scan.py · preempt_open` or `preempt_continue` once."""
+
+    def __init__(self, steps: int = 40, skip: int = 100) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.steps, self.skip, self.seen, self.prof, self.out = steps, skip, 0, None, None
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+
+    def hook(self, *_args) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.seen += 1
+        if self.seen == self.skip and self.out is None:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+        elif self.prof is not None and self.seen >= self.skip + self.steps + LAUNCH_WARMUP:
+            self._close()
+
+    def _close(self) -> None:
+        import torch
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+        ops = sorted((e for e in self.prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        self.prof = None
+        marks = [i for i, e in enumerate(ops) if "preempt_open" in e.name
+                 or "preempt_continue" in e.name]
+        if len(marks) < 2:
+            self.out = {}
+            return
+        seg = ops[marks[0]:marks[-1]]
+        copies = sum(1 for e in seg if e.name.startswith(("Memcpy", "Memset")))
+        n = len(marks) - 1
+        self.out = {"steps": n, "kernels_per_step": round((len(seg) - copies) / n, 3),
+                    "copies_and_memsets_per_step": round(copies / n, 3),
+                    "launches_per_step": round(len(seg) / n, 3)}
+
+    def result(self):
+        """{"steps", "kernels_per_step", ...}; None when the window never
+        opened, {} when the tracer caught fewer than two steps."""
+        if self.prof is not None:
+            self._close()
+        return self.out
+
+
 def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     """K11 on every call of the affinity path (immediate and FutureIdle
     rounds both met), K10's mask and task words on each of
@@ -2729,10 +3109,12 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     from kube_batch_tpu_torch.kernels import joint_tier as k12
     from kube_batch_tpu_torch.kernels import propose as k2
     from kube_batch_tpu_torch.kernels import resident as k11
+    from kube_batch_tpu_torch.kernels import resolve as k3
 
     checks = {}
     for label, rec, names in (("affinity-path", arec, AFFINITY_KERNELS),
-                              ("affinity-path-k2", arec, ("propose_best", "propose_pick")),
+                              ("affinity-path-k2", arec, ("propose_best", "propose_pick",
+                                                          "resolve", "apply")),
                               ("row-world", row_rec, AFFINITY_ROW),
                               ("joint-path", jrec, JOINT_ONLY)):
         got = check_all(rec, names)
@@ -2834,9 +3216,22 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
                              time_ms(lambda: k2.propose_pick(*mpargs)))
     mask_ms = time_ms(lambda: k10.affinity_mask(*mask_fields, resident))
     words_ms = out["affinity_words"]["ms"]
+    # the work of this round (the mask form has the same cells)
+    _best, _ties, active = k2.propose_best(*margs)
+    feas_cells, scan_cells, scan_feas = _work_counts(
+        margs, k2.propose_pick(*mpargs), active)
+    best_bound = propose_best_bound(bargs, feas_cells)
+    best_mask_bound = propose_best_bound(margs, feas_cells)
+    pick_bound = propose_pick_bound(pargs, scan_cells, scan_feas)
+    path_time("propose_best", ("affinity",), best_ms, best_bound[0])
+    path_time("propose_pick", ("affinity",), pick_ms, pick_bound[0])
+    eligible = int(bargs[6].sum())
     log(json.dumps({
         "phase": "k2-words-form", "tasks": T, "nodes": N, "words": nw,
-        "eligible": int(bargs[6].sum()),
+        "eligible": eligible, "eligible_share": round(eligible / T, 6),
+        "request_classes": request_classes(bargs),
+        "active": int(active.sum()), "feasible_cells": feas_cells,
+        "pick_cells": scan_cells,
         "propose_best_ms": round(best_ms, 4),
         "propose_best_mask_form_ms": round(best_mask_ms, 4),
         "propose_pick_ms": round(pick_ms, 4),
@@ -2849,10 +3244,23 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
                                + pick_mask_ms, 4),
         "max_abs_err": max(best_w, pick_w),
         # pass 1 reads the predicate mask and the words instead of a mask
-        "propose_best_bound_ms": round(bound(T * N + T * nw * 4 + T * 8 + N * nw * 4
-                                             + len(bargs[10]) * 4 * T * N, 0)[0], 6),
-        "propose_best_mask_form_bound_ms": round(bound(2 * T * N + len(bargs[10]) * 4
-                                                       * T * N, 0)[0], 6)}))
+        "propose_best_bound_ms": round(best_bound[0], 6),
+        "propose_best_bound_by": best_bound[1],
+        "propose_best_mask_form_bound_ms": round(best_mask_bound[0], 6),
+        "propose_pick_bound_ms": round(pick_bound[0], 6)}))
+
+    # K3 on the same round of the affinity path
+    rargs = arec.calls["resolve"][-1][2]
+    aargs = arec.calls["apply"][-1][2]
+    ka = _fresh_apply_args(aargs)
+    for name, fn, b in (("resolve", lambda: k3.resolve(*rargs), resolve_bound(rargs)),
+                        ("apply", lambda: k3.apply(*ka), apply_bound(aargs))):
+        ms = time_ms(fn)
+        path_time(name, ("affinity",), ms, b[0])
+        log(json.dumps({"phase": "kernel-affinity-path", "name": name,
+                        "proposers": int((rargs[1] < N).sum()),
+                        "accepted": int(aargs[2].sum()), "ms": round(ms, 4),
+                        "bound_ms": round(b[0], 6), "bound_by": b[1]}))
 
     # K10's row form: a call of ROW_WORLD's cycle 2
     args = second_cycle(row_rec, "affinity_row")[0]
@@ -2973,30 +3381,59 @@ def _tier_control_bytes(args, done: bool) -> int:
     return n
 
 
+# (ms, bound ms) of a kernel timed at one path's own shapes, by kernel and
+# path (filled as the phases time them); redesign_order takes them over
+# the kernels line's ms and bound, which are the main path's or, for a
+# kernel off it, its own path's
+PATH_TIMES: dict = {}
+
+
+def path_time(name: str, paths, ms: float, bound_ms: float) -> None:
+    for p in paths:
+        PATH_TIMES.setdefault(name, {})[p] = (ms, bound_ms)
+
+
 # kernels redesigned for this card, and by which change; a later redesign
 # takes the next unmarked kernel of the order
 REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "PR 5",
               "lex_push_many": "PR 6", "sort_by_segment": "PR 6",
               "affinity_mask": "PR 6", "affinity_words": "PR 6",
               "tier_control": "PR 7", "resident_words": "PR 7",
-              "affinity_task_words": "PR 7"}
+              "affinity_task_words": "PR 7", "propose_best": "PR 8", "vtime": "PR 8"}
 
 
-def redesign_order(kernels_line) -> tuple[list, str | None]:
+def excess_by_path(k, path_times) -> dict:
+    """path → launches × (ms − bound ms) of one kernels-line entry, at
+    the path's own shapes where `path_times` has them, else at the
+    line's."""
+    times = path_times.get(k["name"], {})
+    out = {}
+    for p, n in k["launches_by_path"].items():
+        ms, b = times.get(p, (k["ms"], k["bound_ms"]))
+        out[p] = n * (ms - b)
+    return out
+
+
+def redesign_order(kernels_line, path_times=None) -> tuple[list, str | None]:
     """The kernels in the order a redesign should take them: first those
     slower than their library form, largest factor first; then the rest
-    by launches × (ms − bound_ms), the card time above the bound over
-    the path's launches.  Kernels already redesigned are marked; the
-    second value names the first that is not."""
+    by the sum over paths of launches × (ms − bound_ms), the card time
+    above the bound over every path's launches, each at its path's own
+    shapes where this script times it there (`path_times`, by default
+    PATH_TIMES).  Kernels already redesigned are marked; the second
+    value names the first that is not."""
+    path_times = PATH_TIMES if path_times is None else path_times
     slower = sorted((k for k in kernels_line
                      if k["library_ms"] is not None and k["ms"] > k["library_ms"]),
                     key=lambda k: -k["ms"] / k["library_ms"])
+    excess = {k["name"]: excess_by_path(k, path_times) for k in kernels_line}
     rest = sorted((k for k in kernels_line if k not in slower),
-                  key=lambda k: -k["launches"] * (k["ms"] - k["bound_ms"]))
+                  key=lambda k: -sum(excess[k["name"]].values()))
     order = ([{"name": k["name"], "library_factor": round(k["ms"] / k["library_ms"], 3)}
               for k in slower]
              + [{"name": k["name"],
-                 "excess_ms": round(k["launches"] * (k["ms"] - k["bound_ms"]), 1)}
+                 "excess_ms": round(sum(excess[k["name"]].values()), 1),
+                 "by_path": {p: round(v, 1) for p, v in excess[k["name"]].items() if v}}
                 for k in rest])
     for k in order:
         if k["name"] in REDESIGNED:
@@ -3033,7 +3470,10 @@ def main() -> int:
         edge_errs = phase_edge_inputs(device)
         edge_errs.update(phase_k8_edge(device))
         edge_errs.update(phase_words_edge(device))
-        row_counts, row_rec = phase_parity(cpu_parity)
+        edge_errs["vtime"] = phase_vtime_edge(device)
+        for name, err in phase_k2_edge(device).items():
+            edge_errs[name] = max(edge_errs[name], err)
+        parity_counts, row_rec = phase_parity(cpu_parity)
         # the full-size paths once the parity workers are done: their
         # host times are not shared with the CPU twins
         ppool.close()
@@ -3060,18 +3500,16 @@ def main() -> int:
 
     for name, err in list(edge_errs.items()) + list(k2_errs.items()):
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    paths = {"main": counts, "host_cycle": host_counts, "affinity": affinity_counts,
+             "preempt": preempt_counts, "joint": joint_counts, "parity": parity_counts}
     kernels_line = []
     for name, (route, source, replaces) in KERNELS.items():
         r = records[name]
-        launches = (preempt_counts[name] if name in PREEMPT_KERNELS
-                    else host_counts[name] if name in HOST_CYCLE_ONLY
-                    else affinity_counts[name] if name in AFFINITY_KERNELS
-                    else row_counts[name] if name in AFFINITY_ROW
-                    else joint_counts[name] if name in JOINT_ONLY
-                    else counts[name])
+        by_path = {p: c[name] for p, c in paths.items()}
         kernels_line.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

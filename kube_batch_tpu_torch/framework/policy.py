@@ -28,7 +28,6 @@ from kube_batch_tpu_torch.ops.assignment import (
     AllocState,
     LexOrder,
     rank_from_keys,
-    sort_by_segment,
 )
 
 #: node-order kinds the propose kernel computes itself
@@ -49,12 +48,10 @@ def virtual_start_times(
     tasks) / denom (≙ kube_batch_tpu framework/policy.py ·
     virtual_start_times).  The within-segment prefix is float64 (the
     api/snapshot.py precision rule) and rounds once, with the segment's
-    allocation, to float32.  Kernel K8: its (segment, rank) radix sort,
-    then its vtime tail (`kernels/lex_rank.py`)."""
-    segk = torch.where(valid, torch.clamp(seg, 0, num_segs - 1), num_segs)
-    perm, s_seg = sort_by_segment(segk, base_rank, num_segs)
-    return lex_rank.vtime(perm, s_seg, req, valid, alloc_seg, denom_seg,
-                          num_segs)
+    allocation, to float32.  Kernel K8's `vtime` (`kernels/lex_rank.py`):
+    the sort by (segment, rank) and the scan in one launch up to 16,384
+    rows."""
+    return lex_rank.vtime(seg, base_rank, req, valid, alloc_seg, denom_seg, num_segs)
 
 
 class TensorPolicy:

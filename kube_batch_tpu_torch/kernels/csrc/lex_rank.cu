@@ -50,19 +50,49 @@
 //   does, 256 rows at a time.  One memset per key zeroes the counts,
 //   published prefixes and tickets.
 //
-// kb_vtime: over rows sorted by (segment, base rank), before[i] = the
-// float64 sum of the valid requests of earlier rows of i's segment, then
-// start = f32(alloc_seg + before), ratio = start / max(denom, 1e-9)
-// (__fdiv_rn) where denom > 0, else 1e30 or 0, the max over resource
-// dims scattered to out[perm[i]].  The prefix is global and blocked:
-// vtime_tile_sums adds each 1024-row tile's requests, vtime_prefix writes
-// every row's exclusive prefix (the earlier tiles' sums plus a block scan),
-// and vtime_finish subtracts the prefix at the row's segment start (found
-// by binary search).  For integer-valued requests whose column totals stay
-// below 2**53 every partial sum is exact, so this equals the plain
-// version's global cumsum bit for bit in any order of addition (the
-// float64 rule of api/snapshot.py).  There is no thread-per-segment walk:
-// the default conf has three segments over 65,536 rows.
+// kb_vtime: the weighted-fair-queueing virtual start times of one call of
+// framework/policy.py · virtual_start_times, in one launch of one
+// 1,024-thread block (cta_vtime_kernel) when T <= 16,384 and the key
+// seg·T + rank fits 32 bits.  The block
+//   1. makes each row's segment key from valid and seg (valid ? clamp(seg,
+//      0, S - 1) : S) and its code key·T + base_rank;
+//   2. sorts the codes by the one-block radix of cta_seg_kernel (the same
+//      shared-memory rows, passes and skipped constant digits);
+//   3. per resource dimension, runs a segmented float64 scan over the
+//      sorted rows: each thread owns a run of ceil(T / 1,024) consecutive
+//      rows (up to 16; instantiated for 8 and 16), sums its run from its
+//      last segment start, and a block scan of the (segment started, sum)
+//      pairs gives each run the sum that flows into it; a row's prefix is
+//      then the sum of the valid requests of the earlier rows of its
+//      segment (rows of segment S, the invalid ones, add 0);
+//   4. start = f32(alloc_seg + before), ratio = start / max(denom, 1e-9)
+//      (__fdiv_rn) where denom > 0, else 1e30 or 0; the running max over
+//      dims stays in the thread's registers and is scattered to
+//      out[perm[i]] at the end.
+// A thread's run is contiguous, so reading it from the shared sort arrays
+// conflicts across banks: each row's id and segment are read there once
+// into registers, not once a dimension.  The float64 rows (8,192 x R x 8
+// bytes) do not fit in shared memory: a run's requests are read from
+// device memory once a dimension, all in flight together.  Bound: neither
+// bytes (16,384 rows are under 0.4 MB) nor operations; what the call cost
+// before was launches (a where, a clamp, the sort and three tail
+// kernels), and this is one.
+//
+// kb_vtime_sorted, the wider form (T > 16,384, the main path's 65,536
+// rows, after kb_sort_by_segment): over rows sorted by (segment, base
+// rank), the same prefix and ratio, max over dims, scattered to
+// out[perm[i]].  The prefix is global and blocked: vtime_tile_sums adds
+// each 1024-row tile's requests, vtime_prefix writes every row's exclusive
+// prefix (the earlier tiles' sums plus a block scan), and vtime_finish
+// subtracts the prefix at the row's segment start (found by binary
+// search).  Like kb_vtime it reads alloc_seg and denom_seg at their
+// strides (drf's denominator is one row broadcast over the segments).
+//
+// Both forms take the float64 rule of api/snapshot.py: for integer-valued
+// requests whose column totals stay below 2**53 every partial sum is
+// exact, so the segmented scan, the blocked global prefix less the prefix
+// at the segment's start, and the plain version's global cumsum less the
+// same are equal bit for bit, in any order of addition.
 //
 // No entry reads anything back on the host or allocates: the caller gives
 // the scratch, sized from the shapes alone.
@@ -325,6 +355,166 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) cta_seg_kernel(
     perm_out[i] = id[i];
     seg_out[i] = c[i] / (uint32_t)T;
   }
+}
+
+// -- vtime in one block -------------------------------------------------------
+
+// A run of sorted rows in the segmented scan: whether a segment starts in
+// it, and the sum since its last start (since its first row when none does).
+struct SegSum {
+  int start;
+  double sum;
+};
+
+__device__ __forceinline__ SegSum seg_combine(SegSum a, SegSum b) {
+  return {a.start | b.start, b.start ? b.sum : a.sum + b.sum};
+}
+
+__device__ __forceinline__ SegSum seg_shfl_up(SegSum v, int o) {
+  return {__shfl_up_sync(FULL, v.start, o), __shfl_up_sync(FULL, v.sum, o)};
+}
+
+// Exclusive segmented scan of one run per thread across the block, in
+// thread order.  Every thread of the block calls it.
+__device__ SegSum cta_seg_exclusive(SegSum v, SegSum* warp_tot) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  SegSum incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const SegSum t = seg_shfl_up(incl, o);
+    if (lane >= o) incl = seg_combine(t, incl);
+  }
+  SegSum excl = seg_shfl_up(incl, 1);
+  if (lane == 0) excl = {0, 0.0};
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {   // CTA_WARPS == 32: one warp total a lane
+    SegSum wi = warp_tot[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const SegSum t = seg_shfl_up(wi, o);
+      if (lane >= o) wi = seg_combine(t, wi);
+    }
+    SegSum we = seg_shfl_up(wi, 1);
+    if (lane == 0) we = {0, 0.0};
+    warp_tot[lane] = we;
+  }
+  __syncthreads();
+  const SegSum out = seg_combine(warp_tot[warp], excl);
+  __syncthreads();   // warp_tot is written again by the next call
+  return out;
+}
+static_assert(CTA_WARPS == 32, "one warp scans the warp totals");
+
+struct VtimeArgs {
+  const int32_t* seg;     // i32[T] segment per task
+  const int32_t* rank;    // i32[T] base rank, in [0, T)
+  const float* req;       // f32[T, R], contiguous
+  const bool* valid;      // bool[T]
+  const float* alloc;     // f32[S, R] at strides (alloc_s0, alloc_s1)
+  const float* denom;     // f32[S, R] at strides (denom_s0, denom_s1)
+  int64_t alloc_s0, alloc_s1, denom_s0, denom_s1;
+  int T, R, S, passes;
+};
+
+// The virtual start times of T <= PER·CTA_THREADS rows, (S + 1)·T <= 2^32.
+// After the sort each thread owns a run of PER or fewer consecutive
+// sorted rows and keeps, in registers, their row ids, clamped segments,
+// segment-start and valid bits and running max: the shared code and id
+// arrays are read once per row (a thread's run is contiguous, so those
+// reads conflict across banks, and once is what they cost), and every
+// loop over a run is unrolled so that its loads are in flight together.
+template <int PER>
+__global__ void __launch_bounds__(CTA_THREADS, 1) cta_vtime_kernel(
+    VtimeArgs a, float* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ CtaShared sh;
+  __shared__ SegSum warp_tot[CTA_WARPS];
+  const int T = a.T, S = a.S;
+  const CtaRows r = cta_rows(smem, T);
+  if (threadIdx.x == 0) {
+    sh.all_and = 0xffffffffu;
+    sh.any_or = 0u;
+  }
+  __syncthreads();
+  uint32_t all_and = 0xffffffffu, any_or = 0u;
+  for (int i = threadIdx.x; i < T; i += CTA_THREADS) {
+    const int s = a.seg[i];
+    const uint32_t key = a.valid[i] ? (uint32_t)(s < 0 ? 0 : (s > S - 1 ? S - 1 : s))
+                                    : (uint32_t)S;
+    const uint32_t v = key * (uint32_t)T + (uint32_t)a.rank[i];
+    r.code[0][i] = v;
+    r.id[0][i] = (uint16_t)i;
+    all_and &= v;
+    any_or |= v;
+  }
+  const uint32_t varies = cta_varying_bits(all_and, any_or, sh);
+  int cur = 0;
+  for (int p = 0; p < a.passes; ++p) {
+    if (!((varies >> (8 * p)) & 0xffu)) continue;   // every row shares this digit
+    cta_pass(cur ? r.code[1] : r.code[0], cur ? r.id[1] : r.id[0],
+             cur ? r.code[0] : r.code[1], cur ? r.id[0] : r.id[1], T, 8 * p, sh);
+    cur ^= 1;
+  }
+  __syncthreads();
+  const uint32_t* code = cur ? r.code[1] : r.code[0];
+  const uint16_t* id = cur ? r.id[1] : r.id[0];
+  const int per = (T + CTA_THREADS - 1) / CTA_THREADS;
+  const int lo = min(T, (int)threadIdx.x * per), hi = min(T, lo + per);
+  // the run: row ids, clamped segments (segment S, the invalid rows, is
+  // clamped to S - 1 as the plain version clamps it), and bit j of `head`
+  // / `valid` for row lo + j: it starts a segment / it is valid
+  int row[PER], seg[PER];
+  uint32_t head = 0, valid = 0;
+  uint32_t prev = lo > 0 && lo < hi ? code[lo - 1] / (uint32_t)T : 0xffffffffu;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int i = lo + j;
+    row[j] = 0;
+    seg[j] = 0;
+    if (i < hi) {
+      const uint32_t g = code[i] / (uint32_t)T;
+      row[j] = id[i];
+      seg[j] = g > (uint32_t)(S - 1) ? S - 1 : (int)g;
+      head |= (uint32_t)(i == 0 || g != prev) << j;
+      valid |= (uint32_t)(g < (uint32_t)S) << j;
+      prev = g;
+    }
+  }
+  float mx[PER];
+  for (int c = 0; c < a.R; ++c) {
+    float x[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      x[j] = (valid >> j) & 1u ? a.req[(size_t)row[j] * a.R + c] : 0.0f;
+    SegSum run = {0, 0.0};
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      if (lo + j < hi) {
+        if ((head >> j) & 1u) run = {1, (double)x[j]};
+        else run.sum += (double)x[j];
+      }
+    }
+    double before = cta_seg_exclusive(run, warp_tot).sum;
+    float al[PER], dn[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      al[j] = lo + j < hi ? a.alloc[seg[j] * a.alloc_s0 + c * a.alloc_s1] : 0.0f;
+      dn[j] = lo + j < hi ? a.denom[seg[j] * a.denom_s0 + c * a.denom_s1] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      if (lo + j < hi) {
+        if ((head >> j) & 1u) before = 0.0;
+        const float st = (float)((double)al[j] + before);
+        const float ratio = dn[j] > 0.0f ? __fdiv_rn(st, fmaxf(dn[j], 1e-9f))
+                                         : (st > 0.0f ? 1e30f : 0.0f);
+        mx[j] = c == 0 ? ratio : fmaxf(mx[j], ratio);
+        before += (double)x[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j)
+    if (lo + j < hi) out[row[j]] = mx[j];
 }
 
 size_t cta_smem_bytes(int64_t T) { return (size_t)T * 12; }
@@ -626,8 +816,9 @@ __global__ void vtime_prefix(const int64_t* __restrict__ perm,
 __global__ void vtime_finish(const int64_t* __restrict__ perm,
                              const int64_t* __restrict__ s_seg, int64_t T, int R,
                              const double* __restrict__ excl,
-                             const float* __restrict__ alloc_seg,
-                             const float* __restrict__ denom_seg, int S,
+                             const float* __restrict__ alloc_seg, int64_t alloc_s0,
+                             int64_t alloc_s1, const float* __restrict__ denom_seg,
+                             int64_t denom_s0, int64_t denom_s1, int S,
                              float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= T) return;
@@ -641,8 +832,8 @@ __global__ void vtime_finish(const int64_t* __restrict__ perm,
   float m = 0.0f;
   for (int c = 0; c < R; ++c) {
     const double before = excl[i * R + c] - excl[lo * R + c];
-    const float st = (float)((double)alloc_seg[s * R + c] + before);
-    const float den = denom_seg[s * R + c];
+    const float st = (float)((double)alloc_seg[s * alloc_s0 + c * alloc_s1] + before);
+    const float den = denom_seg[s * denom_s0 + c * denom_s1];
     const float ratio = den > 0.0f ? __fdiv_rn(st, fmaxf(den, 1e-9f))
                                    : (st > 0.0f ? 1e30f : 0.0f);
     m = c == 0 ? ratio : fmaxf(m, ratio);
@@ -720,18 +911,51 @@ extern "C" int kb_sort_by_segment(const int32_t* seg, const int32_t* rank, int64
   return (int)cudaGetLastError();
 }
 
-extern "C" int kb_vtime(const int64_t* perm, const int64_t* s_seg,
-                        const float* req, const bool* valid, int64_t T, int R,
-                        const float* alloc_seg, const float* denom_seg, int S,
-                        double* tile_sum, double* excl, float* out,
+// One launch: T <= CTA_MAX_T, (S + 1)·T <= 2^32, `passes` = the 8-bit
+// digits of the largest code (S + 1)·T - 1, 1 <= R <= MAX_R, S >= 1.
+extern "C" int kb_vtime(const int32_t* seg, const int32_t* rank, const float* req,
+                        const bool* valid, const float* alloc, int64_t alloc_s0,
+                        int64_t alloc_s1, const float* denom, int64_t denom_s0,
+                        int64_t denom_s1, int T, int R, int S, int passes, float* out,
                         void* stream) {
+  if (T == 0) return 0;
+  if (T > CTA_MAX_T || R < 1 || R > MAX_R || S < 1 || passes < 1 || passes > 4 ||
+      (uint64_t)(S + 1) * (uint64_t)T > (1ull << 32))
+    return (int)cudaErrorInvalidValue;
+  static const int optin8 = cta_smem_optin(cta_vtime_kernel<8>);
+  static const int optin16 = cta_smem_optin(cta_vtime_kernel<16>);
+  if (optin8) return optin8;
+  if (optin16) return optin16;
+  VtimeArgs a;
+  a.seg = seg; a.rank = rank; a.req = req; a.valid = valid;
+  a.alloc = alloc; a.denom = denom;
+  a.alloc_s0 = alloc_s0; a.alloc_s1 = alloc_s1; a.denom_s0 = denom_s0; a.denom_s1 = denom_s1;
+  a.T = T; a.R = R; a.S = S; a.passes = passes;
+  if (T <= 8 * CTA_THREADS)
+    cta_vtime_kernel<8><<<1, CTA_THREADS, cta_smem_bytes(T), (cudaStream_t)stream>>>(a, out);
+  else
+    cta_vtime_kernel<16><<<1, CTA_THREADS, cta_smem_bytes(T), (cudaStream_t)stream>>>(a, out);
+  return (int)cudaGetLastError();
+}
+
+// The wide form's tail, over rows already sorted by kb_sort_by_segment.
+// scratch: (ceil(T / VT_TILE) + T)·R doubles, the tile sums then the
+// rows' exclusive prefixes.
+extern "C" int kb_vtime_sorted(const int64_t* perm, const int64_t* s_seg,
+                               const float* req, const bool* valid, int64_t T, int R,
+                               const float* alloc, int64_t alloc_s0, int64_t alloc_s1,
+                               const float* denom, int64_t denom_s0, int64_t denom_s1,
+                               int S, double* scratch, float* out, void* stream) {
   if (T == 0) return 0;
   if (R > MAX_R) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned tiles = (unsigned)((T + VT_TILE - 1) / VT_TILE);
+  double* tile_sum = scratch;
+  double* excl = scratch + (size_t)tiles * R;
   vtime_tile_sums<<<tiles, BLOCK, 0, s>>>(perm, req, valid, T, R, tile_sum);
   vtime_prefix<<<tiles, BLOCK, 0, s>>>(perm, req, valid, T, R, tile_sum, excl);
   vtime_finish<<<(unsigned)((T + 255) / 256), 256, 0, s>>>(
-      perm, s_seg, T, R, excl, alloc_seg, denom_seg, S, out);
+      perm, s_seg, T, R, excl, alloc, alloc_s0, alloc_s1, denom, denom_s0, denom_s1, S,
+      out);
   return (int)cudaGetLastError();
 }

@@ -18,10 +18,13 @@ design are noted in the source.
   key seg·T + rank over the bits that key needs (seg in
   [0, num_segments], rank in [0, T)): returns (perm, sorted seg ids).
   One launch up to 16,384 rows.
-* `vtime(perm, s_seg, req, valid, alloc_seg, denom_seg, num_segs)` —
-  over rows sorted by (segment, base rank): the float64 within-segment
-  prefix of the valid requests, the start times and their ratio to the
-  fair-share denominator, max over resource dims, in task order.
+* `vtime(seg, base_rank, req, valid, alloc_seg, denom_seg, num_segs)` —
+  one call of framework/policy.py · virtual_start_times: rows sorted by
+  (segment key, base rank), the float64 within-segment prefix of the
+  valid requests, the start times and their ratio to the fair-share
+  denominator, max over resource dims, in task order.  One launch up to
+  16,384 rows (the sort and the scan in one block); above, the
+  `sort_by_segment` of the segment key and a three-kernel tail.
 
 Each wrapper runs its plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other.
@@ -40,7 +43,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "kb_lex_push_many": [_P, _I, _P, _L, _P, _P, _P, _P],
     "kb_sort_by_segment": [_P, _P, _L, _I, _I, _I, _P, _P, _P, _P],
-    "kb_vtime": [_P, _P, _P, _P, _L, _I, _P, _P, _I, _P, _P, _P, _P],
+    "kb_vtime": [_P, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I, _I, _I, _I, _P, _P],
+    "kb_vtime_sorted": [_P, _P, _P, _P, _L, _I, _P, _L, _L, _P, _L, _L, _I, _P, _P, _P],
 }
 CTA_MAX_T = 16384   # rows a one-block sort holds in shared memory
 TILE = 2048         # rows per block of a wide pass
@@ -178,7 +182,19 @@ def sort_by_segment(seg: torch.Tensor, rank: torch.Tensor, num_segments: int):
     return perm, s_seg
 
 
-def vtime_plain(perm, s_seg, req, valid, alloc_seg, denom_seg, num_segs: int):
+def segment_key(seg, valid, num_segs: int):
+    """The sort's segment of each row: its segment clamped into [0, S)
+    when valid, S (after every segment) when not."""
+    return torch.where(valid, torch.clamp(seg, 0, num_segs - 1), num_segs)
+
+
+def vtime_plain(seg, base_rank, req, valid, alloc_seg, denom_seg, num_segs: int):
+    perm, s_seg = sort_by_segment_plain(segment_key(seg, valid, num_segs), base_rank,
+                                        num_segs)
+    return vtime_sorted_plain(perm, s_seg, req, valid, alloc_seg, denom_seg, num_segs)
+
+
+def vtime_sorted_plain(perm, s_seg, req, valid, alloc_seg, denom_seg, num_segs: int):
     r = torch.where(valid[:, None], req, 0.0)
     before, _ = segment_exclusive_prefix(s_seg, r[perm])
     s = torch.clamp(s_seg, 0, num_segs - 1)
@@ -193,32 +209,65 @@ def vtime_plain(perm, s_seg, req, valid, alloc_seg, denom_seg, num_segs: int):
     return out
 
 
-def vtime(perm: torch.Tensor, s_seg: torch.Tensor, req: torch.Tensor,
+_VTIME_DTYPES = (torch.int32, torch.int32, torch.float32, torch.bool, torch.float32,
+                 torch.float32)
+
+
+def _vtime_args_ok(seg, base_rank, req, valid, alloc_seg, denom_seg, num_segs) -> bool:
+    """One pass of cheap attribute tests (a call at 65,536 rows is mostly
+    host time): the dtypes, the shapes, the card, the contiguous rows."""
+    T, R = req.shape
+    return ((seg.dtype, base_rank.dtype, req.dtype, valid.dtype, alloc_seg.dtype,
+             denom_seg.dtype) == _VTIME_DTYPES
+            and seg.shape == base_rank.shape == valid.shape == (T,)
+            and alloc_seg.shape == denom_seg.shape == (num_segs, R)
+            and 1 <= R <= MAX_R and num_segs >= 1
+            and seg.is_cuda and base_rank.is_cuda and valid.is_cuda
+            and alloc_seg.is_cuda and denom_seg.is_cuda
+            and seg.is_contiguous() and base_rank.is_contiguous()
+            and valid.is_contiguous() and req.is_contiguous())
+
+
+def vtime(seg: torch.Tensor, base_rank: torch.Tensor, req: torch.Tensor,
           valid: torch.Tensor, alloc_seg: torch.Tensor, denom_seg: torch.Tensor,
           num_segs: int) -> torch.Tensor:
-    """f32[T] virtual start times in task order, from rows sorted by
-    (segment, base rank) (`perm`, `s_seg` of sort_by_segment; invalid
-    rows in segment num_segs), requests f32[T, R], and the segments'
-    allocation and denominator f32[S, R]."""
-    if not _cuda(perm, "vtime"):
-        return vtime_plain(perm, s_seg, req, valid, alloc_seg, denom_seg, num_segs)
+    """f32[T] virtual start times in task order: seg and base_rank i32[T]
+    (base_rank a dense rank, in [0, T)), requests f32[T, R], valid
+    bool[T] (all four contiguous), the segments' allocation and
+    denominator f32[S, R] (any strides; S = num_segs >= 1, 1 <= R <=
+    MAX_R), all on the card.  Nothing is converted: other arguments
+    raise.  Up to CTA_MAX_T rows (and (S + 1)·T <= 2^32) one launch,
+    which allocates nothing but the output; above, `sort_by_segment` and
+    the three-kernel tail."""
+    if not _cuda(req, "vtime"):
+        return vtime_plain(seg, base_rank, req, valid, alloc_seg, denom_seg, num_segs)
+    if not _vtime_args_ok(seg, base_rank, req, valid, alloc_seg, denom_seg, num_segs):
+        raise ValueError(
+            "vtime takes int32 seg and base_rank, float32 req, bool valid (contiguous, "
+            "T rows) and float32 alloc_seg and denom_seg of [num_segs, R], on the card; "
+            f"got {[(x.dtype, tuple(x.shape), x.device.type) for x in (seg, base_rank, req, valid, alloc_seg, denom_seg)]}, "
+            f"num_segs = {num_segs}")
     T, R = req.shape
-    if R > MAX_R:
-        raise ValueError(f"vtime: at most {MAX_R} resource dims, got {R}")
-    dev = perm.device
+    dev = req.device
     out = torch.empty(T, dtype=torch.float32, device=dev)
     if T == 0:
         return out
-    c = [x.contiguous() for x in (perm.long(), s_seg.long(), req.float(),
-                                  valid.to(torch.bool))]
-    alloc = alloc_seg.float().contiguous()
-    denom = denom_seg.float().contiguous()
-    tiles = -(-T // VT_TILE)
-    scratch = torch.empty((tiles + T) * R, dtype=torch.float64, device=dev)
-    err = _fn("kb_vtime")(*(build.ptr(x) for x in c), T, R, build.ptr(alloc),
-                          build.ptr(denom), num_segs, build.ptr(scratch),
-                          build.ptr(scratch[tiles * R:]), build.ptr(out),
-                          build.stream_handle(dev))
+    code_bytes, _bits, passes = sort_plan(T, num_segs)
+    if T <= CTA_MAX_T and code_bytes == 4:
+        err = _fn("kb_vtime")(seg.data_ptr(), base_rank.data_ptr(), req.data_ptr(),
+                              valid.data_ptr(), alloc_seg.data_ptr(), alloc_seg.stride(0),
+                              alloc_seg.stride(1), denom_seg.data_ptr(), denom_seg.stride(0),
+                              denom_seg.stride(1), T, R, num_segs, passes, out.data_ptr(),
+                              build.stream_handle(dev))
+    else:
+        perm, s_seg = sort_by_segment(segment_key(seg, valid, num_segs), base_rank,
+                                      num_segs)
+        scratch = torch.empty((-(-T // VT_TILE) + T) * R, dtype=torch.float64, device=dev)
+        err = _fn("kb_vtime_sorted")(
+            perm.data_ptr(), s_seg.data_ptr(), req.data_ptr(), valid.data_ptr(), T, R,
+            alloc_seg.data_ptr(), alloc_seg.stride(0), alloc_seg.stride(1),
+            denom_seg.data_ptr(), denom_seg.stride(0), denom_seg.stride(1), num_segs,
+            scratch.data_ptr(), out.data_ptr(), build.stream_handle(dev))
     build.check(err, "vtime")
     vtime.launches += 1
     return out

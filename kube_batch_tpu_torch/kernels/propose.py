@@ -45,6 +45,22 @@ NEG_INF = -1e30
 MAX_SCORE = 10.0
 #: Rows per chunk of the plain version (bounds its [rows, N] temporaries).
 PLAIN_ROWS = 4096
+#: pass 1's listed rows per work item, and the work items it splits the
+#: row groups into at most beyond one each (csrc/propose.cu)
+BEST_ROWS = 32
+BEST_ITEMS_TARGET = 1024
+
+
+def best_scratch_bytes(T: int) -> int:
+    """Scratch of pass 1 (csrc/propose.cu · scratch_layout): the count,
+    the eligible rows' list, a counter per row group and the partials of
+    split row groups."""
+    def align(n):
+        return (n + 255) // 256 * 256
+
+    groups = -(-T // BEST_ROWS)
+    P = BEST_ROWS * (groups + BEST_ITEMS_TARGET)
+    return 256 + align(T * 4) + align(groups * 4) + 2 * align(P * 4) + P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,7 +235,7 @@ def _launch_args(pred, dyn, req, avail, eps, node_mask, eligible, future,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _COMMON = [_P] * 14 + [_I] * 6 + [_F, _I, _F, _I, _I, _F]
 _SIGNATURES = {
-    "kb_propose_best": _COMMON + [_P, _P, _P, _P],
+    "kb_propose_best": _COMMON + [_P, _P, _P, _P, _P],
     "kb_propose_pick": _COMMON + [_P, _P, _P, _P, _P],
 }
 
@@ -239,7 +255,10 @@ def _check_device(req) -> bool:
 
 def propose_best(pred, dyn, req, avail, eps, node_mask, eligible, future,
                  cap, spec: ScoreSpec, extras, score_quantum: float):
-    """(best f32[T], ties i32[T], active bool[T]) — pass 1."""
+    """(best f32[T], ties i32[T], active bool[T]) — pass 1.  On the card
+    only the eligible rows are walked (listed by the kernel itself); the
+    others get the plain version's answer for a row with no feasible
+    node."""
     if not _check_device(req):
         return propose_best_plain(pred, dyn, req, avail, eps, node_mask,
                                   eligible, future, cap, spec, extras,
@@ -252,8 +271,9 @@ def propose_best(pred, dyn, req, avail, eps, node_mask, eligible, future,
     best = torch.empty(T, dtype=torch.float32, device=req.device)
     ties = torch.empty(T, dtype=torch.int32, device=req.device)
     active = torch.empty(T, dtype=torch.bool, device=req.device)
+    scratch = torch.empty(best_scratch_bytes(T), dtype=torch.uint8, device=req.device)
     err = fn(*args, build.ptr(best), build.ptr(ties), build.ptr(active),
-             build.stream_handle(req.device))
+             build.ptr(scratch), build.stream_handle(req.device))
     build.check(err, "propose_best")
     propose_best.launches += 1
     return best, ties, active

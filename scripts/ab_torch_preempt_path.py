@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's preempt path, its joint path, its affinity path and
-kernels K7 and K6 in two or more checkouts, in turns, on one card.
+kernels K7, K6, K2's pass 1 and K8's virtual start times in two or more
+checkouts, in turns, on one card.
 
     python3 scripts/ab_torch_preempt_path.py PARENT CHANGE CHANGE PARENT
 
@@ -13,8 +14,12 @@ process of its own): the preempt path's cycle-2 inputs that chip_smoke.py
 times (`timing_inputs`: K6 `preempt_open`'s no-fit opening step with the
 most eligible tasks and K7's widest float sum, 8,192 rows) and the main
 path's widest float sum (config 5 full, 65,536 rows; `main_timing_input`),
-with the segment index each sum was given.  They are saved to a
-temporary directory inside this checkout for the runs that follow.
+with the segment index each sum was given; the widest recorded
+`virtual_start_times` call of each of the two paths (8,192 and 65,536
+rows); K2 `propose_best`'s inputs on the main path's cycle-2 round that
+chip_smoke times (`_pick_round`) and on the affinity path's last recorded
+round (the affinity words, cycle 2).  They are saved to a temporary
+directory inside this checkout for the runs that follow.
 
 Then, for each checkout in the order given, a fresh process run from it
 drives, on the card with that checkout's own kernels (built into its own
@@ -29,7 +34,16 @@ drives, on the card with that checkout's own kernels (built into its own
   * K7's segment_sum on both recorded sums and K6's preempt_open on the
     recorded step (median of 7 CUDA-event runs after 2 warm-ups; a
     checkout whose segment_sum takes no index is called without one),
-    each output held against the plain version;
+    K2's propose_best on both recorded rounds (the affinity round in the
+    words form and given the mask of the same cells) and
+    `framework/policy.py · virtual_start_times` on both recorded calls
+    (the whole call: a parent's sort and tail, or one launch), each
+    output held against the plain version;
+  * on the preempt path, K8's launches a preemption step (lex_push_many,
+    sort_by_segment, vtime) and the device operations a step
+    (`chip_smoke.PreemptWindows` of this script's own checkout: 40 steps
+    of cycle 2 traced by torch.profiler, marked by each step's one K6
+    launch);
   * the device operations per joint step by tier kind, on 40 auction
     steps of the joint run's cycle 1 and 40 evict steps of its cycle 2
     traced with torch.profiler by this script's own checkout's
@@ -37,8 +51,8 @@ drives, on the card with that checkout's own kernels (built into its own
     `tier_control(kind, gated, step, ...)` (called once an iteration).
 One JSON line per run gives each cycle's solve ms, binds, evictions and
 each loop's or joint tier's steps and ms per step (the affinity path:
-auction rounds and solve ms per round), the kernel times and the
-launches per joint step;
+auction rounds and solve ms per round), the kernel times, the
+launches per joint step and per preemption step;
 a last line says whether every run made the same decisions (binds,
 evictions and ready jobs of every cycle, as sets).  Runs in one call
 share one card, so the checkouts compare; calls on different machines
@@ -61,15 +75,44 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke
 
+
+def cpu(args):
+    return [a.cpu() if torch.is_tensor(a) else a for a in args]
+
+
+def widest_vtime(rec):
+    return max((a for _c, _r, a in rec.calls["vtime"]), key=lambda a: a[2].shape[0])
+
+
+def portable_k2(args):
+    # propose_best's arguments in types torch.load takes back: the score
+    # spec as its weights, the affinity words as their fields
+    pred, dyn, req, avail, eps, node_mask, elig, future, cap, spec, extras, q = args
+    if dyn is not None and not torch.is_tensor(dyn):
+        dyn = {"node_words": dyn.node_words.cpu(), "task_words": dyn.task_words.cpu(),
+               "thr": dyn.thr.cpu(), "K": dyn.K, "K2": dyn.K2}
+    elif dyn is not None:
+        dyn = dyn.cpu()
+    return {"tensors": cpu([pred, req, avail, eps, node_mask, elig, future, cap]),
+            "dyn": dyn, "spec": [spec.w_lr, spec.w_bal, spec.d0, spec.d1],
+            "extras": cpu(extras), "quantum": q}
+
+
 device = torch.device("cuda")
 chip_smoke.phase_card_and_build()
 _cycles, rec, _cache, _ssn = chip_smoke.preempt_cycles("cuda", record=True)
-picked = chip_smoke.timing_inputs(rec)
+picked = {k: cpu(v) for k, v in chip_smoke.timing_inputs(rec).items()}
+picked["vtime_preempt"] = cpu(widest_vtime(rec))
 del rec
 _counts, mrec = chip_smoke.phase_main_path(device)
-picked["segment_sum_main"] = chip_smoke.main_timing_input(mrec)
-torch.save({k: [a.cpu() if torch.is_tensor(a) else a for a in v]
-            for k, v in picked.items()}, sys.argv[1])
+picked["segment_sum_main"] = cpu(chip_smoke.main_timing_input(mrec))
+picked["vtime_main"] = cpu(widest_vtime(mrec))
+picked["k2_main"] = portable_k2(chip_smoke._pick_round(mrec)[0]["propose_best"])
+del mrec
+_counts, arec = chip_smoke.phase_affinity_path(device)
+picked["k2_affinity"] = portable_k2(arec.calls["propose_best"][-1][2])
+del arec
+torch.save(picked, sys.argv[1])
 """
 
 _RUN = r"""
@@ -77,8 +120,12 @@ import importlib.util, inspect, json, os, sys, time
 sys.path.insert(0, ".")
 import torch
 import chip_smoke
+from kube_batch_tpu_torch import kernels
+from kube_batch_tpu_torch.framework.policy import virtual_start_times
+from kube_batch_tpu_torch.kernels import affinity as k10
 from kube_batch_tpu_torch.kernels import joint_tier
 from kube_batch_tpu_torch.kernels import preempt_scan as k6
+from kube_batch_tpu_torch.kernels import propose as k2
 from kube_batch_tpu_torch.kernels import segment_sum as k7
 from kube_batch_tpu_torch.scheduler import Scheduler
 
@@ -104,9 +151,31 @@ def loops(stats):
     return out
 
 
+def traced_k6(real, window):
+    def wrapper(*args):
+        window.hook()
+        return real(*args)
+
+    # the wrapper counts its launches on its module's global name
+    wrapper.launches = real.launches
+    return wrapper
+
+
 t0 = time.perf_counter()
 paths = {}
+step_window = counter.PreemptWindows()
+real_k6 = (k6.preempt_open, k6.preempt_continue)
+k6.preempt_open, k6.preempt_continue = (traced_k6(f, step_window) for f in real_k6)
+kernels.reset_counts()
 cycles, _rec, _cache, sessions = chip_smoke.preempt_cycles("cuda", record=False)
+preempt_counts = kernels.counts()
+k6.preempt_open, k6.preempt_continue = real_k6
+step_ops = step_window.result()
+steps = sum(loop["steps"] for c in cycles for key in ("preempt_steps", "reclaim_steps")
+            for loop in c["rounds"].get(key, []))
+preempt_launches = {"steps": steps, **{
+    k: {"launches": preempt_counts[k], "per_step": round(preempt_counts[k] / max(steps, 1), 3)}
+    for k in ("lex_push_many", "sort_by_segment", "vtime")}}
 paths["sequential"] = [
     {"solve_ms": c["timings"]["solve_ms"], "binds": c["binds"], "evicted": c["evicted"],
      "ready": ready(s, c["job_ready"]), "loops": loops(c["rounds"])}
@@ -179,9 +248,54 @@ if not torch.equal(out, k6.preempt_open_plain(*args)):
     raise SystemExit("preempt_open: the kernel differs from the plain version")
 kern["preempt_open"] = {"ms": chip_smoke.time_ms(lambda: k6.preempt_open(*args)),
                         "out": out.tolist()}
+
+
+def k2_args(p):
+    pred, req, avail, eps, node_mask, elig, future, cap = (x.to(dev) for x in p["tensors"])
+    dyn = p["dyn"]
+    if isinstance(dyn, dict):
+        dyn = k10.AffinityWords(node_words=dyn["node_words"].to(dev),
+                                task_words=dyn["task_words"].to(dev),
+                                thr=dyn["thr"].to(dev), K=dyn["K"], K2=dyn["K2"])
+    elif dyn is not None:
+        dyn = dyn.to(dev)
+    w_lr, w_bal, d0, d1 = p["spec"]
+    return [pred, dyn, req, avail, eps, node_mask, elig, future, cap,
+            k2.ScoreSpec(w_lr=w_lr, w_bal=w_bal, d0=d0, d1=d1),
+            [x.to(dev) for x in p["extras"]], p["quantum"]]
+
+
+# K2 pass 1: the main path's round (no dynamic predicate) and the
+# affinity path's last recorded round, in the words form and given the
+# mask of the same cells
+k2_cases = {"k2_main": k2_args(inputs["k2_main"]), "k2_affinity": k2_args(inputs["k2_affinity"])}
+words = k2_cases["k2_affinity"][1]
+mask_form = list(k2_cases["k2_affinity"])
+mask_form[1] = torch.cat([k10.affinity_cells_plain(words.rows(slice(lo, lo + 4096)))
+                          for lo in range(0, words.task_words.shape[0], 4096)])
+k2_cases["k2_affinity_mask_form"] = mask_form
+for name, a in k2_cases.items():
+    out = k2.propose_best(*a)
+    for x, y in zip(out, k2.propose_best_plain(*a)):
+        if not torch.equal(x, y):
+            raise SystemExit(f"{name}: propose_best differs from the plain version")
+    kern[name] = {"ms": chip_smoke.time_ms(lambda: k2.propose_best(*a)),
+                  "eligible": int(a[6].sum()),
+                  "out": [out[0].double().sum().item(), int(out[1].sum()), int(out[2].sum())]}
+# K8 vtime: one virtual_start_times call at the preempt path's and the
+# main path's widths, against the same call on the CPU (the plain version)
+for name in ("vtime_preempt", "vtime_main"):
+    args = [a.to(dev) if torch.is_tensor(a) else a for a in inputs[name]]
+    out = virtual_start_times(*args)
+    if not torch.equal(out.cpu(), virtual_start_times(*inputs[name])):
+        raise SystemExit(f"{name}: virtual_start_times differs from the plain version")
+    kern[name] = {"ms": chip_smoke.time_ms(lambda: virtual_start_times(*args)),
+                  "rows": args[2].shape[0], "out": out.double().sum().item()}
 print("RESULT " + json.dumps({"paths": paths, "kernels": kern, "s": paths_s,
                               "segment_sum_takes_index": with_index,
-                              "joint_launches": launches}))
+                              "joint_launches": launches,
+                              "preempt_launches": preempt_launches,
+                              "preempt_step_ops": step_ops}))
 """
 
 
@@ -228,7 +342,11 @@ def main(trees: list[str]) -> int:
                 "run": i, "tree": tree, "seconds": round(r["s"], 1),
                 "segment_sum_takes_index": r["segment_sum_takes_index"],
                 "kernels_ms": {k: round(v["ms"], 4) for k, v in r["kernels"].items()},
+                "k2_eligible": {k: v["eligible"] for k, v in r["kernels"].items()
+                                if "eligible" in v},
                 "joint_launches": r["joint_launches"],
+                "preempt_launches": r["preempt_launches"],
+                "preempt_step_ops": r["preempt_step_ops"],
                 **{kind: [{"solve_ms": round(c["solve_ms"], 1), "binds": len(c["binds"]),
                            "evicted": len(c["evicted"]), "ready_jobs": len(c["ready"]),
                            "loops": [{"loop": lp["loop"], "steps": lp["steps"],
