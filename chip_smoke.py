@@ -22,10 +22,17 @@ and `triton`.  Phases (any failure exits non-zero):
    and S = T, every row invalid, empty segments, zero denominators,
    column totals past 2^24; two runs equal, equal to the plain version);
    K2's two passes on `k2_edge_cases` (no eligible row, one at T − 1,
-   1 %, T and N off the row group and node tile, N not a multiple of 16
-   or 4, every node alike so ties span node tiles, quantum on and off,
-   the mask, a dynamic mask with two extra terms, and the words with
-   W = 1, 2 and 8; exactly equal to the plain versions); K10's
+   1 %, T and N off the row group and node tile, N not a multiple of 16,
+   32 or 4, every node alike so ties span node tiles and chunks, quantum
+   on and off, the mask, a dynamic mask with two extra terms, and the
+   words with W = 1, 2 and 8, and at N = 8,192 1 %, 7.5 % and every row
+   eligible in both forms; pass 2 reads pass 1's tie summaries, with k
+   the row index mod ties and k = ties − 1; exactly equal to the plain
+   versions); K5's one-launch node choice on `k5_edge_inputs` (equal
+   ranks, nodes tied on k, no feasible node, a fit with no victim, a run
+   past LONG_RUN, no victim; T = 8,192 with N = 512, N = 8,192, and T =
+   20,000 on the sort-then-walk route; each also on the radix route;
+   exactly equal to the plain version); K10's
    affinity_task_words and affinity_words, K11's resident_words (both
    resident sets and the future set alone) and K2's words form on
    seeded affinity terms (each = plain, K2 given the words = K2 given
@@ -246,8 +253,11 @@ PREEMPT_WAVE = (
 RESEARCH_WEIGHT = 4.0
 WAVE_PREFIXES = tuple(w[0] for w in PREEMPT_WAVE)
 # the recorder keeps every 25th segment sum or count and K8 call of the
-# preempt path, and every 10th K8 call of the main path
+# preempt path (every sort_by_segment call: since K5 sorts its own
+# victims, the segment indexes' few sorts are the path's only ones), and
+# every 10th K8 call of the main path
 PREEMPT_EVERY = {name: 25 for name in ("segment_sum", "segment_count") + RANK_KERNELS}
+PREEMPT_EVERY["sort_by_segment"] = 1
 MAIN_EVERY = {name: 10 for name in RANK_KERNELS}
 # the host-cycle phase: config 5 full, 4 cycles, churn between them
 HOST_CYCLES = 4
@@ -771,10 +781,11 @@ def phase_words_edge(device) -> dict:
             f"propose_best edge {name} against the mask form",
             list(zip(best, k2.propose_best(*ref)))))
         pa = pick_args(a, best)
-        prop = k2.propose_pick(*pa)
+        prop = k2.propose_pick(*with_scratch(pa))
         errs["propose_pick"] = max(errs["propose_pick"], require_equal(
-            f"propose_pick edge {name}", [(prop, k2.propose_pick_plain(*pa)),
-                                          (prop, k2.propose_pick(*pick_args(ref, best)))]))
+            f"propose_pick edge {name}", [
+                (prop, k2.propose_pick_plain(*pa)),
+                (prop, k2.propose_pick(*with_scratch(pick_args(ref, best))))]))
         log(json.dumps({"phase": "k2-words-edge", "case": name,
                         "tasks": a[2].shape[0], "nodes": a[3].shape[0],
                         "active": int(best[2].sum()),
@@ -830,38 +841,134 @@ def k2_edge_cases(device):
         same[5] = torch.ones_like(args[5])
         same[6] = torch.from_numpy(rng.random(T) < 0.02).to(device)
         cases[f"all_alike_T{T}_N{N}"] = same
+    # pass 2's chunk summaries at the main path's node count, 1 %, 7.5 %
+    # and every row eligible, both forms
+    T, N = 2048, 8192
+    args, fields, resident = k2_words_inputs(device, T=T, N=N, K=40, K2=36, seed=T + N)
+    tw = k10.affinity_task_words(*fields[:5])
+    words = k10.affinity_words(tw, fields[5], fields[6], fields[7], resident)
+    for ename, share in (("1pct", 0.01), ("7.5pct", 0.075), ("all", 1.0)):
+        for quantum in (0.5, 0.0):
+            a = list(args)
+            a[6] = torch.from_numpy(rng.random(T) < share).to(device)
+            a[11] = quantum
+            cases[f"mask_T{T}_N{N}_{ename}_q{quantum}"] = a
+            w = list(a)
+            w[1] = words
+            cases[f"words_T{T}_N{N}_{ename}_q{quantum}"] = w
     return cases
 
 
 def phase_k2_edge(device) -> dict:
     """K2's two passes on `k2_edge_cases`: pass 1 equal to its plain
-    version and run twice alike, pass 2 equal to its plain version given
-    pass 1's answer (k = row index mod ties), exactly.  Returns {name:
-    max_abs_err}."""
+    version and run twice alike, pass 2 (from pass 1's chunk summaries)
+    equal to its plain version given pass 1's answer, with k = row index
+    mod ties and with k = ties - 1 (the last tie), exactly.  Returns
+    {name: max_abs_err}."""
     import torch
 
     from kube_batch_tpu_torch.kernels import propose as k2
 
     errs = {"propose_best": 0.0, "propose_pick": 0.0}
     for name, a in k2_edge_cases(device).items():
-        best = k2.propose_best(*a)
+        T, N = a[0].shape
+        scratch = k2.best_scratch(T, N, device)
         again = k2.propose_best(*a)
+        best = k2.propose_best(*a, scratch)
         want = k2.propose_best_plain(*a)
         errs["propose_best"] = max(errs["propose_best"], require_equal(
             f"propose_best edge {name}", list(zip(best, want)) + list(zip(again, want))))
         b, ties, active = best
-        k = torch.remainder(torch.arange(ties.numel(), device=device, dtype=torch.int32),
-                            torch.clamp(ties, min=1))
-        pa = list(a) + [b, active, k]
-        errs["propose_pick"] = max(errs["propose_pick"], require_equal(
-            f"propose_pick edge {name}", [(k2.propose_pick(*pa), k2.propose_pick_plain(*pa))]))
-        T, N = a[0].shape
+        rows = torch.arange(ties.numel(), device=device, dtype=torch.int32)
+        for kname, k in (("row_mod_ties", torch.remainder(rows, torch.clamp(ties, min=1))),
+                         ("last_tie", torch.clamp(ties - 1, min=0))):
+            pa = list(a) + [b, active, k]
+            errs["propose_pick"] = max(errs["propose_pick"], require_equal(
+                f"propose_pick edge {name} {kname}",
+                [(k2.propose_pick(*pa, scratch), k2.propose_pick_plain(*pa))]))
         eligible = int(a[6].sum())
         log(json.dumps({"phase": "k2-edge", "case": name, "tasks": T, "nodes": N,
                         "eligible": eligible, "eligible_share": round(eligible / T, 6),
                         "active": int(active.sum()), "max_ties": int(ties.max()),
                         "multi_tie_rows": int((active & (ties > 1)).sum())}))
     return errs
+
+
+def k5_edge_inputs(device, T: int, N: int, case: str, seed: int = 0, R: int = 4):
+    """K5 victim_prefix's arguments on seeded inputs of one edge case:
+    `random` (with a dynamic row), `equal_ranks` (ranks drawn from T / 50
+    values: the sort breaks ties by row), `tied_k` (every node alike, so
+    the lowest allowed index wins among equal k), `no_feasible` (a
+    request no prefix covers: out = [0, 0, ...]), `fits_no_victim`
+    (FutureIdle fits the preemptor on some nodes: k = 0), `long_run` (one
+    node holds 1,000 victims: past LONG_RUN, the block takes the radix
+    route) and `no_victims`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + T + N)
+    node = rng.integers(-1, N, T).astype(np.int32)
+    req = rng.integers(0, 5, (T, R)).astype(np.float32) * 1000
+    future = rng.integers(-6, 3, (N, R)).astype(np.float32) * 1000
+    rank = rng.permutation(T).astype(np.int32)
+    victims = (rng.random(T) < 0.6) & (node >= 0)
+    pred = rng.random((T, N)) < 0.9
+    p = int(rng.integers(0, T))
+    req[p] = rng.integers(1, 6, R) * 1000
+    dyn = rng.random(N) < 0.9 if case == "random" else None
+    if case == "equal_ranks":
+        rank = rng.integers(0, max(1, T // 50), T).astype(np.int32)
+    elif case == "tied_k":
+        node = (np.arange(T) % max(1, min(N, T // 8))).astype(np.int32)
+        victims = node >= 0
+        req[:] = 1000.0
+        future[:] = -1000.0
+    elif case == "no_feasible":
+        req[p] = 1e9
+    elif case == "fits_no_victim":
+        future[rng.random(N) < 0.1] = 1e6
+    elif case == "long_run":
+        node[rng.choice(T, min(T, 1000), replace=False)] = N // 2
+        victims = node >= 0
+    elif case == "no_victims":
+        victims[:] = False
+    victims[p] = False   # the preemptor is pending, never its own victim
+
+    def dev(x):
+        return torch.from_numpy(x).to(device)
+
+    return (dev(victims), dev(node), dev(rank), dev(req), dev(future),
+            dev(np.full(R, 1e-3, np.float32)), torch.tensor(p, device=device),
+            dev(req), dev(pred), dev(rng.random(N) < 0.95), dev(rng.random(N) < 0.05),
+            None if dyn is None else dev(dyn))
+
+
+K5_EDGE_CASES = ("random", "equal_ranks", "tied_k", "no_feasible", "fits_no_victim",
+                 "long_run", "no_victims")
+
+
+def phase_k5_edge(device) -> float:
+    """K5 on `k5_edge_inputs` at the preempt path's width (T = 8,192, N =
+    512), at the main path's node count (N = 8,192) and above the
+    one-block limit (T = 20,000: K8's sort, then the walk): the kernel on
+    its own route and on the radix route, exactly equal to the plain
+    version.  Returns the largest error."""
+    from kube_batch_tpu_torch.kernels import victim_prefix as k5
+
+    err = 0.0
+    for T, N in ((8192, 512), (4096, 8192), (20000, 512), (1, 3)):
+        for case in K5_EDGE_CASES:
+            args = k5_edge_inputs(device, T, N, case)
+            want = k5.victim_prefix_plain(*args)
+            got = k5.victim_prefix(*args)
+            err = max(err, require_equal(f"victim_prefix edge {case} T{T} N{N}", [
+                (got, want), (k5.victim_prefix(*args, route=k5.ROUTE_RADIX), want)]))
+            out = got[N:].tolist()
+            log(json.dumps({"phase": "k5-edge", "case": case, "tasks": T, "nodes": N,
+                            "one_launch": T <= k5.CTA_MAX_T, **victim_prefix_work(args),
+                            "n_best": out[0], "feasible": out[1], "k_best": int(got[out[0]]),
+                            "fits_no_victim": out[4]}))
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -1098,7 +1205,13 @@ _SNAPSHOT_ARGS = {
     "affinity_words": tuple(range(4)),
     "affinity_task_words": tuple(range(5)),
     "tier_control": (6, 7, 10, 14),
+    "victim_prefix": (1, 3, 7),  # task_node, task_req (and its preemptor rows)
 }
+# K2's arguments recorded: pass 1's and pass 2's without their shared
+# scratch (84 MB a round at the main path's shapes, reused by the caching
+# allocator once freed); `with_scratch` fills a fresh one for a recorded
+# pass 2.
+_RECORDED = {"propose_best": 12, "propose_pick": 15}
 
 
 def _keep(a):
@@ -1193,6 +1306,7 @@ class Recorder:
         shared = _SNAPSHOT_ARGS.get(name, ())
         every = self.every.get(name, 1)
         hook = self.hooks.get(name)
+        arity = _RECORDED.get(name)
 
         def wrapper(*args):
             if name == "predicate_mask":
@@ -1204,7 +1318,7 @@ class Recorder:
             if self.seen[name] % every == 0 and not traced:
                 kept = tuple(_keep(a) if i in mutated
                              else self._cycle_clone(a) if i in shared else a
-                             for i, a in enumerate(args))
+                             for i, a in enumerate(args[:arity]))
                 self.calls[name].append((self.cycle, self.round, kept))
             return fn(*args)
 
@@ -1242,6 +1356,17 @@ def _fresh_tier_args(args):
             for i, a in enumerate(args)]
 
 
+def with_scratch(pargs):
+    """A recorded K2 pass-2 call's arguments and a scratch its pass 1 has
+    filled: pass 1 runs again on pass 2's first twelve arguments, which
+    are its own (the recorder keeps no scratch)."""
+    from kube_batch_tpu_torch.kernels import propose as k2
+
+    scratch = k2.best_scratch(pargs[2].shape[0], pargs[3].shape[0], pargs[2].device)
+    k2.propose_best(*pargs[:12], scratch)
+    return tuple(pargs[:15]) + (scratch,)
+
+
 def resident_pairs(got, want):
     """(kernel, plain) pairs of every table of two ResidentWords, which
     must agree in shape and in which tables exist."""
@@ -1272,8 +1397,11 @@ def check_call(name: str, args):
     from kube_batch_tpu_torch.kernels import victim_prefix as k5
 
     if name == "victim_prefix":
-        k, out = k5.victim_prefix(*args)
-        err = require_equal(name, list(zip((k, out), k5.victim_prefix_plain(*args))))
+        buf = k5.victim_prefix(*args)
+        err = require_equal(name, [(buf, k5.victim_prefix_plain(*args)),
+                                   (buf, k5.victim_prefix(*args, route=k5.ROUTE_RADIX))])
+        N = args[4].shape[0]
+        k, out = buf[:N], buf[N:]
         return err, {"nodes_some_victims": int(((k > 0) & (k < k5.BIG_K)).sum()),
                      "nodes_no_prefix": int((k == k5.BIG_K).sum()),
                      "node_found": int(out[1])}
@@ -1310,7 +1438,7 @@ def check_call(name: str, args):
         return err, {"active": int(active.sum()),
                      "multi_tie_rows": int((active & (ties > 1)).sum())}
     if name == "propose_pick":
-        out = k2.propose_pick(*args)
+        out = k2.propose_pick(*with_scratch(args))
         err = require_equal(name, [(out, k2.propose_pick_plain(*args))])
         active, k = args[13], args[14]
         return err, {"active": int(active.sum()),
@@ -2103,19 +2231,13 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
         return [a for c, _r, a in rec.calls[name] if c == first]
 
     # K5: the opening step with the most candidate victims
-    args = max(cycle2("victim_prefix"),
-               key=lambda a: int((a[1] < a[3].shape[0]).sum()))
-    perm, s_node, req, future, preq, eps, ok = args
-    N, R = future.shape
-    k, _out = k5.victim_prefix(*args)
-    seg_len = torch.bincount(s_node[s_node < N], minlength=N)[:N]
-    walked = int(torch.where(k == 0, 0, torch.minimum(k.long(), seg_len)).sum())
+    args = max(cycle2("victim_prefix"), key=lambda a: int(a[0].sum()))
     record("victim_prefix", time_ms(lambda: k5.victim_prefix(*args)),
-           time_ms(lambda: k5.victim_prefix_plain(*args)),
-           bound(walked * (16 + 4 * R) + 2 * N * R * 4 + N + N * 4 + 20,
-                 walked * R * 2, F64_OPS_PER_S))
+           time_ms(lambda: k5.victim_prefix_plain(*args)), victim_prefix_bound(args))
     log(json.dumps({"phase": "kernel-note", "name": "victim_prefix",
-                    "victims": int((s_node < N).sum()), "rows_walked": walked}))
+                    **victim_prefix_work(args),
+                    "radix_route_ms": round(time_ms(lambda: k5.victim_prefix(
+                        *args, route=k5.ROUTE_RADIX)), 4)}))
 
     # K6: the opening step with the most eligible tasks and no direct fit
     args = timing_inputs(rec)["preempt_open"]
@@ -2159,6 +2281,38 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
     return out
 
 
+def victim_prefix_work(args) -> dict:
+    """What K5 does on `args`: the candidate victims, the longest node
+    run, and the rows its walk reads (a node that fits with no victim
+    reads none; otherwise its run up to the first k that fits)."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import victim_prefix as k5
+
+    victims, task_node, future = args[0], args[1], args[4]
+    N = future.shape[0]
+    runs = torch.bincount(task_node[victims].long(), minlength=N)[:N]
+    k = k5.victim_prefix_plain(*args)[:N].long()
+    walked = int(torch.where(k == 0, 0, torch.minimum(k, runs)).sum())
+    return {"victims": int(victims.sum()), "longest_run": int(runs.max()),
+            "rows_walked": walked}
+
+
+def victim_prefix_bound(args):
+    """K5's least time on `args`: the victims mask of every row, each
+    victim's node and rank, the requests of the rows walked, FutureIdle,
+    the preemptor's request and predicate row, the node_ok, excl and
+    dyn_row masks read once; k and the choice written once; a float64
+    add and a compare a resource dim for each row walked."""
+    T = args[0].shape[0]
+    N, R = args[4].shape
+    work = victim_prefix_work(args)
+    masks = 3 + (args[11] is not None)
+    return bound(T + work["victims"] * 8 + work["rows_walked"] * R * 4 + N * R * 4
+                 + 3 * R * 4 + 8 + masks * N + (N + 5) * 4,
+                 work["rows_walked"] * R * 2, F64_OPS_PER_S)
+
+
 def preempt_round_timings(rec: Recorder) -> None:
     """K2's two passes and K3 on the auction round of the preempt
     path's recorded cycles with the most eligible rows (8,192 rows, 512
@@ -2180,7 +2334,8 @@ def preempt_round_timings(rec: Recorder) -> None:
     bargs, pargs, rargs, aargs = (rnd[k] for k in ("propose_best", "propose_pick",
                                                    "resolve", "apply"))
     _best, _ties, active = k2.propose_best(*bargs)
-    feas, scan, scan_feas = _work_counts(bargs, k2.propose_pick(*pargs), active)
+    pa = with_scratch(pargs)
+    feas, scan, scan_feas = _work_counts(bargs, k2.propose_pick(*pa), active)
     ka = _fresh_apply_args(aargs)
     line = {"phase": "preempt-path-round", "tasks": bargs[0].shape[0],
             "nodes": bargs[0].shape[1], "eligible": int(bargs[6].sum()),
@@ -2188,7 +2343,7 @@ def preempt_round_timings(rec: Recorder) -> None:
     for name, fn, b in (
             ("propose_best", lambda: k2.propose_best(*bargs),
              propose_best_bound(bargs, feas)),
-            ("propose_pick", lambda: k2.propose_pick(*pargs),
+            ("propose_pick", lambda: k2.propose_pick(*pa),
              propose_pick_bound(pargs, scan, scan_feas)),
             ("resolve", lambda: k3.resolve(*rargs), resolve_bound(rargs)),
             ("apply", lambda: k3.apply(*ka), apply_bound(aargs))):
@@ -2267,11 +2422,13 @@ def _live_width(a, b) -> int:
 
 def _work_counts(args, prop, active):
     """Cells each propose pass must touch, from this round's data: the
-    feasible cells (scored), and for the pick pass the cells up to each
-    active row's chosen node and the feasible ones among them."""
+    feasible cells (scored), and for the pick pass the cells of the chunk
+    (CHUNK_N nodes) that holds each active row's chosen node and the
+    feasible ones among them."""
     import torch
 
     from kube_batch_tpu_torch.kernels.propose import (
+        CHUNK_N,
         PLAIN_ROWS,
         masked_scores_plain,
         quantum_scale,
@@ -2294,7 +2451,8 @@ def _work_counts(args, prop, active):
             quantum_scale(quantum),
         )
         feas_cells += int(feas.sum())
-        scanned = active[rows, None] & (cols[None, :] <= prop[rows, None])
+        scanned = active[rows, None] & (cols[None, :] // CHUNK_N
+                                        == (prop[rows] // CHUNK_N)[:, None])
         scan_cells += int(scanned.sum())
         scan_feas += int((scanned & feas).sum())
     return feas_cells, scan_cells, scan_feas
@@ -2335,7 +2493,8 @@ def _masked_cells(pred, node_mask, rows) -> int:
 
 
 def propose_best_bound(args, feas_cells: int):
-    """K2 pass 1's least time on `args`: of the eligible rows only, the
+    """K2 pass 1's least time on `args` (with the eligible list and the
+    chunk summaries it writes for pass 2): of the eligible rows only, the
     predicate mask, the dynamic mask or the task words with their
     thresholds, the extra score terms and the requests; each node's
     avail, future, cap and mask (and, in the words form, its words)
@@ -2348,7 +2507,7 @@ def propose_best_bound(args, feas_cells: int):
     node mask pass on a row that has one; the extra terms, the quantum
     floor and the max per feasible cell."""
     from kube_batch_tpu_torch.kernels.affinity import AffinityWords
-    from kube_batch_tpu_torch.kernels.propose import quantum_scale
+    from kube_batch_tpu_torch.kernels.propose import CHUNK_N, chunk_ties_bytes, quantum_scale
 
     pred, dyn, req, _avail, _eps, node_mask, eligible = args[:7]
     spec, extras, quantum = args[9], args[10], args[11]
@@ -2370,19 +2529,38 @@ def propose_best_bound(args, feas_cells: int):
     finish_ops = len(extras) + (2 if quantum_scale(quantum) > 0 else 0) + 1
     ops = (request_classes(args) * M * (2 * R + _node_score_ops(spec, R)) + E * M
            + test_ops + feas_cells * finish_ops)
-    return bound(E * row_bytes + node_bytes + T + 9 * T + R * 4, ops)
+    # and, for pass 2, the eligible list and each listed row's chunk
+    # summaries written
+    summaries = E * (4 + -(-N // CHUNK_N) * (4 + chunk_ties_bytes()))
+    return bound(E * row_bytes + node_bytes + T + 9 * T + R * 4 + summaries, ops)
 
 
 def propose_pick_bound(args, scan_cells: int, scan_feas: int):
-    """K2 pass 2's least time: each active row's cells up to its chosen
-    node (mask and extras), the per-row and per-node inputs once."""
-    pred, req, spec, extras = args[0], args[2], args[9], args[10]
+    """K2 pass 2's least time on the work it now needs: the eligible
+    mask and the answer of every row; of each listed row its slot and
+    active flag, of each active row its best, k, request and chunk
+    summaries (max f32 and a tie count per CHUNK_N nodes); of each active
+    row's one chunk (`scan_cells` cells) the masks, extras, words and
+    node rows; a compare and an add a chunk summary, the fit a cell and
+    the score a feasible cell."""
+    from kube_batch_tpu_torch.kernels.affinity import AffinityWords
+    from kube_batch_tpu_torch.kernels.propose import CHUNK_N, chunk_ties_bytes
+
+    pred, dyn, req, spec, extras = args[0], args[1], args[2], args[9], args[10]
+    eligible, active = args[6], args[13]
     T, N = pred.shape
     R = req.shape[1]
-    n_extra = len(extras) + (args[1] is not None)
-    small = T * R * 4 + 3 * N * R * 4 + N + T
-    return bound(scan_cells + small + 13 * T + n_extra * 4 * scan_cells,
-                 scan_cells * 2 * R + scan_feas * _score_ops(spec, R))
+    E, A, C = int(eligible.sum()), int(active.sum()), -(-N // CHUNK_N)
+    cell = 1 + 1 + len(extras) * 4 + 3 * R * 4   # pred, node mask, extras, node rows
+    row = 8 + R * 4 + C * (4 + chunk_ties_bytes())
+    if isinstance(dyn, AffinityWords):
+        nw = dyn.node_words.shape[1]
+        cell += nw * 4
+        row += nw * 4 + 8
+    elif dyn is not None:
+        cell += 1
+    return bound(T + 4 * T + E * 5 + A * row + scan_cells * cell,
+                 A * C * 2 + scan_cells * 2 * R + scan_feas * _score_ops(spec, R))
 
 
 def resolve_bound(args):
@@ -2458,7 +2636,8 @@ def phase_kernels(rec: Recorder):
         "propose_best", "propose_pick", "resolve", "apply"))
     spec = bargs[9]
     best, ties, active = k2.propose_best(*bargs)
-    prop = k2.propose_pick(*pargs)
+    pick_a = with_scratch(pargs)
+    prop = k2.propose_pick(*pick_a)
     feas_cells, scan_cells, scan_feas = _work_counts(bargs, prop, active)
     eligible = int(bargs[6].sum())
     log(json.dumps({"phase": "round-inputs", "eligible": eligible,
@@ -2471,7 +2650,7 @@ def phase_kernels(rec: Recorder):
            time_ms(lambda: k2.propose_best_plain(*bargs), warmup=1, runs=3),
            propose_best_bound(bargs, feas_cells))
     record("propose_pick", pargs,
-           time_ms(lambda: k2.propose_pick(*pargs)),
+           time_ms(lambda: k2.propose_pick(*pick_a)),
            time_ms(lambda: k2.propose_pick_plain(*pargs), warmup=1, runs=3),
            propose_pick_bound(pargs, scan_cells, scan_feas))
     record("resolve", rargs,
@@ -2566,16 +2745,20 @@ def _rank_timings(rec: Recorder, label: str) -> dict:
         # digits of a few operations each per key
         bound(T * (4 * m + (0 if perm is None else 8) + 8 + 4), T * 4 * 4 * m),
     )
-    seg, rank, S = widest("sort_by_segment")
-    T = seg.numel()
-    key64 = seg.long() * T + rank.long()
-    passes = k8.sort_plan(T, S)[2]
-    out["sort_by_segment"] = (
-        time_ms(lambda: k8.sort_by_segment(seg, rank, S)),
-        time_ms(lambda: k8.sort_by_segment_plain(seg, rank, S)),
-        time_ms(lambda: torch.sort(key64, stable=True)),
-        bound(T * (seg.element_size() + rank.element_size() + 16), T * 4 * passes),
-    )
+    notes = {}
+    if rec.calls["sort_by_segment"]:   # a path may sort nothing but its segment indexes
+        seg, rank, S = widest("sort_by_segment")
+        T = seg.numel()
+        key64 = seg.long() * T + rank.long()
+        passes = k8.sort_plan(T, S)[2]
+        out["sort_by_segment"] = (
+            time_ms(lambda: k8.sort_by_segment(seg, rank, S)),
+            time_ms(lambda: k8.sort_by_segment_plain(seg, rank, S)),
+            time_ms(lambda: torch.sort(key64, stable=True)),
+            bound(T * (seg.element_size() + rank.element_size() + 16), T * 4 * passes),
+        )
+        notes["sort_by_segment"] = {"rows": seg.numel(), "segments": S,
+                                    "plan": list(k8.sort_plan(seg.numel(), S))}
     args = widest("vtime")
     out["vtime"] = (
         time_ms(lambda: k8.vtime(*args)),
@@ -2583,12 +2766,10 @@ def _rank_timings(rec: Recorder, label: str) -> dict:
         None,
         vtime_bound(args),
     )
-    notes = {"lex_push_many": {"rows": keys[0].numel(), "keys": m},
-             "sort_by_segment": {"rows": seg.numel(), "segments": S,
-                                 "plan": list(k8.sort_plan(seg.numel(), S))},
-             "vtime": {"rows": args[2].shape[0], "segments": args[6],
-                       "valid_rows": int(args[3].sum()),
-                       "one_launch": args[2].shape[0] <= k8.CTA_MAX_T}}
+    notes.update({"lex_push_many": {"rows": keys[0].numel(), "keys": m},
+                  "vtime": {"rows": args[2].shape[0], "segments": args[6],
+                            "valid_rows": int(args[3].sum()),
+                            "one_launch": args[2].shape[0] <= k8.CTA_MAX_T}})
     for name, (ms, plain_ms, library_ms, b) in out.items():
         log(json.dumps({"phase": f"kernel-{label}", "name": name, **notes[name],
                         "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
@@ -2925,31 +3106,58 @@ def phase_joint_path(device, seq_cycles, n_cycles: int = JOINT_CYCLES):
 LAUNCH_WARMUP = 4
 
 
+def _step_kind(seg) -> str | None:
+    """"opening" / "continuing" for an eviction step's device events (the
+    one K6 kernel it launches says which), else None."""
+    for e in seg:
+        if "preempt_open" in e.name:
+            return "opening"
+        if "preempt_continue" in e.name:
+            return "continuing"
+    return None
+
+
+def _by_step_kind(segs) -> dict:
+    """Device operations per opening and per continuing eviction step,
+    over the segments (one a step) that launched K6."""
+    out = {}
+    for kind in ("opening", "continuing"):
+        lens = [len(seg) for seg in segs if _step_kind(seg) == kind]
+        if lens:
+            out[f"{kind}_steps"] = len(lens)
+            out[f"launches_per_{kind}_step"] = round(sum(lens) / len(lens), 3)
+    return out
+
+
 def _ops_per_step(ops, calls, kind: int) -> dict:
     """Device operations per iteration of `kind` in one traced window:
     `ops` the window's device events in time order, `calls` the (kind,
     step) of the K12 calls it holds.  An iteration is everything from
     one K12 kernel to the next; iterations that end their tier (the next
-    call starts a tier: step 0) run no step and are left out.  The
-    tracer may miss the first events after it starts: the K12 kernels
-    are matched to the calls from the window's end, and the calls whose
-    kernel is missing are not counted.  None when they do not match."""
+    call starts a tier: step 0) run no step and are left out.  Evict
+    iterations are also counted apart as opening and continuing steps.
+    The tracer may miss the first events after it starts: the K12
+    kernels are matched to the calls from the window's end, and the
+    calls whose kernel is missing are not counted.  None when they do not
+    match."""
     starts = [i for i, e in enumerate(ops) if "joint_tier" in e.name]
     lost = len(calls) - len(starts)
     if not 0 <= lost <= LAUNCH_WARMUP:
         return None
     calls = calls[lost:]
     steps = kernels = copies = 0
+    segs = []
     for i, (k, _step) in enumerate(calls):
         if k != kind or (i + 1 < len(calls) and calls[i + 1][1] == 0):
             continue
         seg = ops[starts[i]:starts[i + 1] if i + 1 < len(starts) else len(ops)]
+        segs.append(seg)
         n_copies = sum(1 for e in seg if e.name.startswith(("Memcpy", "Memset")))
         steps, kernels, copies = steps + 1, kernels + len(seg) - n_copies, copies + n_copies
     n = max(steps, 1)
     return {"steps": steps, "kernels_per_step": round(kernels / n, 3),
             "copies_and_memsets_per_step": round(copies / n, 3),
-            "launches_per_step": round((kernels + copies) / n, 3)}
+            "launches_per_step": round((kernels + copies) / n, 3), **_by_step_kind(segs)}
 
 
 class JointWindows:
@@ -3080,7 +3288,8 @@ class PreemptWindows:
         n = len(marks) - 1
         self.out = {"steps": n, "kernels_per_step": round((len(seg) - copies) / n, 3),
                     "copies_and_memsets_per_step": round(copies / n, 3),
-                    "launches_per_step": round(len(seg) / n, 3)}
+                    "launches_per_step": round(len(seg) / n, 3),
+                    **_by_step_kind([ops[a:b] for a, b in zip(marks, marks[1:])])}
 
     def result(self):
         """{"steps", "kernels_per_step", ...}; None when the window never
@@ -3208,18 +3417,19 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     mpargs = (pargs[0], mask) + tuple(pargs[2:])
     best_w = require_equal("propose_best words against mask form", list(zip(
         k2.propose_best(*bargs), k2.propose_best(*margs))))
+    pa, mpa = with_scratch(pargs), with_scratch(mpargs)
     pick_w = require_equal("propose_pick words against mask form", [
-        (k2.propose_pick(*pargs), k2.propose_pick(*mpargs))])
+        (k2.propose_pick(*pa), k2.propose_pick(*mpa))])
     best_ms, best_mask_ms = (time_ms(lambda: k2.propose_best(*bargs)),
                              time_ms(lambda: k2.propose_best(*margs)))
-    pick_ms, pick_mask_ms = (time_ms(lambda: k2.propose_pick(*pargs)),
-                             time_ms(lambda: k2.propose_pick(*mpargs)))
+    pick_ms, pick_mask_ms = (time_ms(lambda: k2.propose_pick(*pa)),
+                             time_ms(lambda: k2.propose_pick(*mpa)))
     mask_ms = time_ms(lambda: k10.affinity_mask(*mask_fields, resident))
     words_ms = out["affinity_words"]["ms"]
     # the work of this round (the mask form has the same cells)
     _best, _ties, active = k2.propose_best(*margs)
     feas_cells, scan_cells, scan_feas = _work_counts(
-        margs, k2.propose_pick(*mpargs), active)
+        margs, k2.propose_pick(*mpa), active)
     best_bound = propose_best_bound(bargs, feas_cells)
     best_mask_bound = propose_best_bound(margs, feas_cells)
     pick_bound = propose_pick_bound(pargs, scan_cells, scan_feas)
@@ -3399,7 +3609,8 @@ REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "P
               "lex_push_many": "PR 6", "sort_by_segment": "PR 6",
               "affinity_mask": "PR 6", "affinity_words": "PR 6",
               "tier_control": "PR 7", "resident_words": "PR 7",
-              "affinity_task_words": "PR 7", "propose_best": "PR 8", "vtime": "PR 8"}
+              "affinity_task_words": "PR 7", "propose_best": "PR 8", "vtime": "PR 8",
+              "victim_prefix": "PR 9", "propose_pick": "PR 9"}
 
 
 def excess_by_path(k, path_times) -> dict:
@@ -3471,6 +3682,7 @@ def main() -> int:
         edge_errs.update(phase_k8_edge(device))
         edge_errs.update(phase_words_edge(device))
         edge_errs["vtime"] = phase_vtime_edge(device)
+        edge_errs["victim_prefix"] = phase_k5_edge(device)
         for name, err in phase_k2_edge(device).items():
             edge_errs[name] = max(edge_errs[name], err)
         parity_counts, row_rec = phase_parity(cpu_parity)

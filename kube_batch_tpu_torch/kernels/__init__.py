@@ -6,7 +6,7 @@
 | K2 | propose.propose_best, propose.propose_pick | CUDA C++ | ops/assignment.py · allocate_rounds (propose half), _round_robin_proposals |
 | K3 | resolve.resolve, resolve.apply | CUDA C++ | ops/assignment.py · _resolve_conflicts, _segment_prefix, apply step |
 | K4 | failure_counts.failure_counts | Triton | framework/fit_errors.py · failure_counts |
-| K5 | victim_prefix.victim_prefix | CUDA C++ | ops/preemption.py · _min_victims_per_node, choose_node |
+| K5 | victim_prefix.victim_prefix (the opening step's node choice: sort, walk, mask, choice) | CUDA C++ | ops/preemption.py · _min_victims_per_node, choose_node |
 | K6 | preempt_scan.preempt_open, preempt_scan.preempt_continue | CUDA C++ | ops/preemption.py · preemption_rounds (the step's scans) |
 | K7 | segment_sum.segment_sum, segment_sum.segment_count, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
 | K8 | lex_rank.lex_push_many, lex_rank.sort_by_segment, lex_rank.vtime | CUDA C++ | framework/policy.py · rank_fn, virtual_start_times; ops/assignment.py · rank_from_keys |

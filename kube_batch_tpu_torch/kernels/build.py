@@ -8,7 +8,9 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 
 A library is built at first use, from the sources in this checkout, into
 `kernels/_build/` (listed in .gitignore), under a name that carries the
-hash of its source and flags, so an edited source is rebuilt.
+hash of its source, the local headers it includes (`#include "x.cuh"`,
+e.g. `csrc/cta_sort.cuh`) and the flags, so an edited source or header
+is rebuilt.
 `build_all()` starts one `nvcc` per source at once and waits for all of
 them.  Nothing here runs at import time: the CPU tests import every
 module of the package on a machine without `nvcc`.
@@ -23,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,10 +59,27 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen: list[str]) -> list[str]:
+    """`path` and the local headers it includes, recursively, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return seen
+
+
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src, []):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -54,9 +54,27 @@
 //     of 65,536 rows eligible this is 6-8x faster than a block per row
 //     group over every node, and 1.5-1.9x with 7.5 %
 //     (scripts/check_torch_k2_k8.py, its `no_split` design).
-// Pass 2 uses one warp per row and stops at the chosen tie, reading on
-// average half a row.
-//
+//   * Each warp also leaves, per listed row and per CHUNK_N = 32 nodes of
+//     a tile it scores, the chunk's (max, count tied at the max) in the
+//     scratch, indexed by the row's slot in the list: its own partial,
+//     before the warps are combined.  A tile is scored by one block, so
+//     split row groups need no combine.  At T = 65,536 and N = 8,192 that
+//     is 84 MB (5 B an entry) for every listed row.
+// Pass 2 (a warp a listed row, the grid sized for T since the host does
+// not read the list's length) needs those scores again only to find the
+// (k+1)-th tie.  Before, it read its row from node 0 and rescored every
+// cell up to the chosen tie, half a row on average (4,096 cells of seven
+// IEEE divisions each at N = 8,192).  Now the warp reads the row's chunk
+// summaries, counts the ties of every chunk whose max is the row's best
+// (exact: the best is the max of the chunk maxima), finds the chunk that
+// holds the (k+1)-th tie by a warp prefix, and rescores only that
+// chunk's 32 cells, with pass 1's functions, to pick the node.  A
+// summary per 256-node tile (CHUNK_N = TILE_N, the warps combined in
+// shared memory) takes an eighth of the scratch and leaves pass 1 as
+// fast (within 1.2 %), but pass 2 then rescores 256 cells and took
+// 1.2-2.0x as long; per 32 nodes both passes together were faster in
+// every case scripts/check_torch_k5_pick.py times (its `chunk256`; on an
+// H100 80GB HBM3 at 700 W).
 // The inter-pod affinity predicate comes as a bool[T, N] mask (`dyn`) or,
 // as the auction rounds give it, as words (kernel K10's
 // kb_affinity_words): a lane holds its row's words and thresholds in
@@ -78,6 +96,7 @@
 
 #include <cstdint>
 #include <math.h>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -94,7 +113,13 @@ constexpr int WARP_N = TILE_N / WARPS;  // nodes of a tile a warp scores
 constexpr int GROUP = 16;             // cells a lane reads at once
 constexpr int ITEMS_TARGET = 1024;    // split row groups until this many items
 constexpr int COMPACT_THREADS = 1024;
+// the nodes of a tie summary: pass 1 leaves each listed row's (max, ties)
+// over every CHUNK_N consecutive nodes, pass 2 rescores one such chunk
+constexpr int CHUNK_N = WARP_N;
+constexpr int CHUNK_WARPS = CHUNK_N / WARP_N;   // warps of a tile that score a chunk
 static_assert(WARP_N % GROUP == 0, "a warp's nodes are whole groups");
+static_assert(CHUNK_N % WARP_N == 0 && TILE_N % CHUNK_N == 0, "chunks of whole warps");
+using ChunkTies = std::conditional_t<(CHUNK_N < 256), uint8_t, uint16_t>;
 static_assert(TILE_N == THREADS, "a thread stages one node's mask byte a tile");
 
 struct Args {
@@ -304,10 +329,12 @@ __device__ __forceinline__ void finish_row(const Args& a, int t, float mf, int c
 
 // -- pass 1: the eligible rows ------------------------------------------------
 
-// Scratch of pass 1 (kernels/propose.py · best_scratch_bytes computes the
-// same size): count i32 | rows i32[T] | counters i32[groups] | partial
-// max f32[P] | ties i32[P] | infeasible u8[P], P = ROWS·(groups +
-// ITEMS_TARGET), groups = ceil(T / ROWS).
+// Scratch of the two passes (kernels/propose.py · best_scratch_bytes
+// computes the same size): count i32 | rows i32[T] | counters i32[groups]
+// | partial max f32[P] | ties i32[P] | infeasible u8[P] | chunk max
+// f32[T][C] | chunk ties u8[T][C] (u16 for chunks of 256), P = ROWS·(groups + ITEMS_TARGET),
+// groups = ceil(T / ROWS), C = ceil(N / CHUNK_N); the chunk summaries are
+// indexed by the row's slot in the eligible list.
 struct Scratch {
   int32_t* count;
   int32_t* rows;
@@ -315,14 +342,21 @@ struct Scratch {
   float* pm;
   int32_t* pc;
   uint8_t* pi;
+  float* cm;
+  ChunkTies* cc;
+  int C;
 };
 
 size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
 
-Scratch scratch_layout(void* base, int T) {
+__host__ __device__ __forceinline__ int chunks(int N) { return (N + CHUNK_N - 1) / CHUNK_N; }
+
+Scratch scratch_layout(void* base, int T, int N) {
   Scratch s;
   const size_t groups = ((size_t)T + ROWS - 1) / ROWS;
   const size_t P = (size_t)ROWS * (groups + ITEMS_TARGET);
+  s.C = chunks(N);
+  const size_t TC = (size_t)T * s.C;
   uint8_t* p = (uint8_t*)base;
   s.count = (int32_t*)p;
   p += 256;
@@ -335,6 +369,10 @@ Scratch scratch_layout(void* base, int T) {
   s.pc = (int32_t*)p;
   p += align256(P * 4);
   s.pi = (uint8_t*)p;
+  p += align256(P);
+  s.cm = (float*)p;
+  p += align256(TC * 4);
+  s.cc = (ChunkTies*)p;
   return s;
 }
 
@@ -489,6 +527,8 @@ __global__ void __launch_bounds__(THREADS) propose_best_kernel(
   __shared__ float s_m[WARPS][ROWS];
   __shared__ int s_c[WARPS][ROWS];
   __shared__ int s_inf[WARPS][ROWS];
+  __shared__ float s_tm[WARPS][ROWS];   // a tile's warp partials, for the summaries
+  __shared__ int s_tc[WARPS][ROWS];
   __shared__ int s_last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool words = W > 0 && a.tw;
@@ -593,7 +633,10 @@ __global__ void __launch_bounds__(THREADS) propose_best_kernel(
         }
       }
       __syncthreads();
-      // a lane a row: its masks, words and extra terms on each node
+      // a lane a row: its masks, words and extra terms on each node; the
+      // (max, ties) of this warp's WARP_N nodes
+      float tm = -INFINITY;
+      int tc = 0;
       if (has_row) {
 #pragma unroll 1
         for (int gi = 0; gi < WARP_N / GROUP; ++gi) {
@@ -621,13 +664,31 @@ __global__ void __launch_bounds__(THREADS) propose_best_kernel(
               }
               const float sc_ = finish_score(a, s_base[cls][ln], f4_at(x0, b),
                                              f4_at(x1, b), feas);
-              if (feas) combine(m, c, sc_, 1);
+              if (feas) combine(tm, tc, sc_, 1);
               else infeas = 1;
             }
           }
         }
+        combine(m, c, tm, tc);
       }
+      s_tm[warp][lane] = tm;
+      s_tc[warp][lane] = tc;
       __syncthreads();   // tile k's buffer and the class scores are free
+      // The tie summary of each chunk of the tile, for pass 2: a chunk is
+      // scored by one block (split row groups need no combine), its
+      // warps' partials combined in a fixed order.  The next tile writes
+      // s_tm only after its first barrier.
+      if (warp < TILE_N / CHUNK_N && has_row) {
+        const int j = k * (TILE_N / CHUNK_N) + warp;
+        float cm_ = -INFINITY;
+        int cc_ = 0;
+        for (int w = warp * CHUNK_WARPS; w < (warp + 1) * CHUNK_WARPS; ++w)
+          combine(cm_, cc_, s_tm[w][lane], s_tc[w][lane]);
+        if (j < sc.C) {
+          sc.cm[(size_t)slot * sc.C + j] = cm_;
+          sc.cc[(size_t)slot * sc.C + j] = (ChunkTies)cc_;
+        }
+      }
     }
     // the eight warps' partials of each row
     s_m[warp][lane] = m;
@@ -671,60 +732,93 @@ __global__ void __launch_bounds__(THREADS) propose_best_kernel(
   }
 }
 
+// Pass 2: a warp a listed eligible row (slot blockIdx.x·WARPS + warp of
+// pass 1's list); the block's rows of its stride that are not eligible
+// get the fixed answer 0 first, and a warp past the list's length has
+// nothing more to do.
 template <int W>
 __global__ void __launch_bounds__(THREADS) propose_pick_kernel(
-    Args a, const float* __restrict__ best, const uint8_t* __restrict__ active,
+    Args a, Scratch sc, const float* __restrict__ best, const uint8_t* __restrict__ active,
     const int32_t* __restrict__ kth, int32_t* __restrict__ prop) {
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
-  if (t >= a.T) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = blockIdx.x * THREADS + threadIdx.x; t < a.T; t += gridDim.x * THREADS)
+    if (!a.eligible[t]) prop[t] = 0;
+  const int slot = blockIdx.x * WARPS + warp;
+  if (slot >= *sc.count) return;
+  const int t = sc.rows[slot];
   if (!active[t]) {
     if (lane == 0) prop[t] = 0;
     return;
   }
-  RowReq q;
-  load_row(a, t, true, q);
-  const bool elig = a.eligible[t] != 0;
   const float b = best[t];
-  // the row's affinity words, staged in shared memory for the warp
-  __shared__ uint32_t s_tw[THREADS / 32][W > 0 ? 5 * W : 1];
-  uint32_t* tw = s_tw[threadIdx.x >> 5];
-  int thr0 = 0, thr1 = 0;
-  bool test = false;
-  if (W > 0 && a.tw) {
-    const int stride = words_stride(a);
-    for (int j = lane; j < 5 * W; j += 32)
-      tw[j] = word_at<W>(a, a.tw + (size_t)t * stride, j / W, j % W);
-    __syncwarp();
-    thr0 = a.thr[(size_t)t * 2];
-    thr1 = a.thr[(size_t)t * 2 + 1];
-    uint32_t any = 0;
-    for (int j = 0; j < 5 * W; ++j) any |= tw[j];
-    test = any != 0;
-  }
   int target = kth[t];
-  int chosen = 0;
-  for (int n0 = 0; n0 < a.N; n0 += 32) {
-    int n = n0 + lane;
-    bool tied = false;
-    if (n < a.N) {
-      NodeRow nr;
-      load_node(a, n, nr);
-      Words<W> nw;
-      if (test) load_words<W>(a, a.nwd, n, nw);
-      bool feas;
-      float s = masked_score<W>(a, t, n, q, elig, nr, test ? tw : nullptr, thr0, thr1,
-                                nw, feas);
-      tied = feas && s >= b;
+  // The chunk that holds the (target+1)-th tie: a chunk's ties count where
+  // its max is the row's best (the best is the max over the chunks, and a
+  // chunk's max is never above it), summed by a warp prefix.
+  const float* cm = sc.cm + (size_t)slot * sc.C;
+  const ChunkTies* cc = sc.cc + (size_t)slot * sc.C;
+  int chunk = -1;
+  for (int j0 = 0; j0 < sc.C; j0 += 32) {
+    const int j = j0 + lane;
+    const int cnt = j < sc.C && cm[j] == b ? (int)cc[j] : 0;
+    int incl = cnt;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
     }
-    unsigned mask = __ballot_sync(0xffffffffu, tied);
-    int pc = __popc(mask);
-    if (target < pc) {
-      for (int j = 0; j < target; ++j) mask &= mask - 1;
-      chosen = n0 + __ffs(mask) - 1;
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (target < total) {
+      const int l = __ffs(__ballot_sync(0xffffffffu, incl > target)) - 1;
+      target -= __shfl_sync(0xffffffffu, incl - cnt, l);
+      chunk = j0 + l;
       break;
     }
-    target -= pc;
+    target -= total;
+  }
+  int chosen = 0;
+  if (chunk >= 0) {
+    // rescore that chunk's nodes, 32 at a time, with pass 1's functions
+    RowReq q;
+    load_row(a, t, true, q);
+    // the row's affinity words, staged in shared memory for the warp
+    __shared__ uint32_t s_tw[WARPS][W > 0 ? 5 * W : 1];
+    uint32_t* tw = s_tw[warp];
+    int thr0 = 0, thr1 = 0;
+    bool test = false;
+    if (W > 0 && a.tw) {
+      const int stride = words_stride(a);
+      for (int j = lane; j < 5 * W; j += 32)
+        tw[j] = word_at<W>(a, a.tw + (size_t)t * stride, j / W, j % W);
+      __syncwarp();
+      thr0 = a.thr[(size_t)t * 2];
+      thr1 = a.thr[(size_t)t * 2 + 1];
+      uint32_t any = 0;
+      for (int j = 0; j < 5 * W; ++j) any |= tw[j];
+      test = any != 0;
+    }
+    const int hi = min(a.N, (chunk + 1) * CHUNK_N);
+    for (int n0 = chunk * CHUNK_N; n0 < hi; n0 += 32) {
+      const int n = n0 + lane;
+      bool tied = false;
+      if (n < hi) {
+        NodeRow nr;
+        load_node(a, n, nr);
+        Words<W> nw;
+        if (test) load_words<W>(a, a.nwd, n, nw);
+        bool feas;
+        const float s_ = masked_score<W>(a, t, n, q, true, nr, test ? tw : nullptr, thr0,
+                                         thr1, nw, feas);
+        tied = feas && s_ >= b;
+      }
+      unsigned mask = __ballot_sync(0xffffffffu, tied);
+      const int pc = __popc(mask);
+      if (target < pc) {
+        for (int j = 0; j < target; ++j) mask &= mask - 1;
+        chosen = n0 + __ffs(mask) - 1;
+        break;
+      }
+      target -= pc;
+    }
   }
   if (lane == 0) prop[t] = chosen;
 }
@@ -784,7 +878,8 @@ int launch_best(const Args& a, const Scratch& sc, float* best, int32_t* ties,
 
 }  // namespace
 
-// scratch: best_scratch_bytes(T) bytes (kernels/propose.py), any contents.
+// scratch: best_scratch_bytes(T, N) bytes (kernels/propose.py), any
+// contents; pass 1 leaves the eligible list and the tie summaries in it.
 extern "C" int kb_propose_best(
     const uint8_t* pred, const uint8_t* dyn, const float* req, const float* avail,
     const float* eps, const uint8_t* node_mask, const uint8_t* eligible,
@@ -798,7 +893,7 @@ extern "C" int kb_propose_best(
   Args a = make_args(pred, dyn, req, avail, eps, node_mask, eligible, future, cap,
                      extra0, extra1, tw, thr, nwd, KW, K2W, T, N, R, has_lr, w_lr,
                      has_bal, w_bal, d0, d1, inv_q);
-  const Scratch sc = scratch_layout(scratch, T);
+  const Scratch sc = scratch_layout(scratch, T, N);
   compact_eligible<<<1, COMPACT_THREADS, 0, stream>>>(eligible, T, aligned16(eligible), sc);
   int err = 0;
   switch (words_case(a)) {
@@ -811,6 +906,7 @@ extern "C" int kb_propose_best(
   return (int)cudaGetLastError();
 }
 
+// scratch: the one pass 1 of this round filled.
 extern "C" int kb_propose_pick(
     const uint8_t* pred, const uint8_t* dyn, const float* req, const float* avail,
     const float* eps, const uint8_t* node_mask, const uint8_t* eligible,
@@ -818,19 +914,20 @@ extern "C" int kb_propose_pick(
     const uint32_t* tw, const int32_t* thr, const uint32_t* nwd, int KW, int K2W,
     int T, int N, int R, int has_lr, float w_lr, int has_bal, float w_bal, int d0,
     int d1, float inv_q, const float* best, const uint8_t* active, const int32_t* kth,
-    int32_t* prop, cudaStream_t stream) {
+    int32_t* prop, void* scratch, cudaStream_t stream) {
   if (R > MAX_R || KW > 8 || K2W > 8) return -1;
   if (T == 0) return 0;
   Args a = make_args(pred, dyn, req, avail, eps, node_mask, eligible, future, cap,
                      extra0, extra1, tw, thr, nwd, KW, K2W, T, N, R, has_lr, w_lr,
                      has_bal, w_bal, d0, d1, inv_q);
-  const int rows_per_block = THREADS / 32;
-  const unsigned blocks = (T + rows_per_block - 1) / rows_per_block;
+  const Scratch sc = scratch_layout(scratch, T, N);
+  // a warp for each row the list can hold: the host does not read its length
+  const unsigned blocks = (T + WARPS - 1) / WARPS;
   switch (words_case(a)) {
-    case 0: propose_pick_kernel<0><<<blocks, THREADS, 0, stream>>>(a, best, active, kth, prop); break;
-    case 1: propose_pick_kernel<1><<<blocks, THREADS, 0, stream>>>(a, best, active, kth, prop); break;
-    case 2: propose_pick_kernel<2><<<blocks, THREADS, 0, stream>>>(a, best, active, kth, prop); break;
-    default: propose_pick_kernel<8><<<blocks, THREADS, 0, stream>>>(a, best, active, kth, prop);
+    case 0: propose_pick_kernel<0><<<blocks, THREADS, 0, stream>>>(a, sc, best, active, kth, prop); break;
+    case 1: propose_pick_kernel<1><<<blocks, THREADS, 0, stream>>>(a, sc, best, active, kth, prop); break;
+    case 2: propose_pick_kernel<2><<<blocks, THREADS, 0, stream>>>(a, sc, best, active, kth, prop); break;
+    default: propose_pick_kernel<8><<<blocks, THREADS, 0, stream>>>(a, sc, best, active, kth, prop);
   }
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,14 @@ does about that is noted in the source.
 * `propose_pick` (pass 2): per active row, the (k+1)-th tied node in node
   order; 0 for inactive rows.
 
+On the card the two passes share one scratch buffer (`best_scratch(T, N,
+device)`, sized from T and N only): pass 1 lists the eligible rows there
+and leaves each listed row's (max, ties) over every CHUNK_N nodes, and
+pass 2 reads them to rescore only the chunk that holds the chosen tie.
+Both take it as their last argument; pass 1 allocates its own when given
+None, pass 2 raises without one.  On the CPU it is None and ignored.
+`pick_by_chunks_plain` renders pass 2's selection from the summaries.
+
 `dyn`, the dynamic predicate, is None, a bool[T, N] mask, or the inter-pod
 affinity predicate as `kernels/affinity.py · AffinityWords`, whose cells
 the kernel tests itself (K10's cell test, in K2's tiles).
@@ -49,18 +57,38 @@ PLAIN_ROWS = 4096
 #: row groups into at most beyond one each (csrc/propose.cu)
 BEST_ROWS = 32
 BEST_ITEMS_TARGET = 1024
+#: nodes of a tie summary pass 1 leaves for pass 2: a warp's share of a
+#: node tile (csrc/propose.cu · CHUNK_N)
+CHUNK_N = 32
 
 
-def best_scratch_bytes(T: int) -> int:
-    """Scratch of pass 1 (csrc/propose.cu · scratch_layout): the count,
-    the eligible rows' list, a counter per row group and the partials of
-    split row groups."""
+def chunk_ties_bytes(chunk: int = CHUNK_N) -> int:
+    """Bytes of a summary's tie count: u8 below 256 nodes, else u16."""
+    return 1 if chunk < 256 else 2
+
+
+def best_scratch_bytes(T: int, N: int, chunk: int = CHUNK_N) -> int:
+    """Scratch of the two passes (csrc/propose.cu · scratch_layout): the
+    count, the eligible rows' list, a counter per row group, the partials
+    of split row groups, and each listed row's chunk summaries (max f32
+    and a tie count per `chunk` nodes; a build of propose.cu with another
+    CHUNK_N takes its own)."""
     def align(n):
         return (n + 255) // 256 * 256
 
     groups = -(-T // BEST_ROWS)
     P = BEST_ROWS * (groups + BEST_ITEMS_TARGET)
-    return 256 + align(T * 4) + align(groups * 4) + 2 * align(P * 4) + P
+    TC = T * -(-N // chunk)
+    return (256 + align(T * 4) + align(groups * 4) + 2 * align(P * 4) + align(P)
+            + align(TC * 4) + TC * chunk_ties_bytes(chunk))
+
+
+def best_scratch(T: int, N: int, device) -> torch.Tensor | None:
+    """The scratch of one round's two passes on the card (None on the
+    CPU, whose plain versions need none)."""
+    if torch.device(device).type == "cpu":
+        return None
+    return torch.empty(best_scratch_bytes(T, N), dtype=torch.uint8, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +225,44 @@ def propose_pick_plain(pred, dyn, req, avail, eps, node_mask, eligible,
     return prop
 
 
+def chunk_summaries_plain(feas, s, chunk: int = CHUNK_N):
+    """(max f32[rows, C], ties i32[rows, C]) of the feasible scores of
+    every `chunk` consecutive nodes (C = ceil(N / chunk)): -inf and 0
+    where a chunk has no feasible cell."""
+    rows, N = s.shape
+    C = -(-N // chunk)
+    pad = C * chunk - N
+    sm = torch.where(feas, s, float("-inf"))
+    sm = torch.nn.functional.pad(sm, (0, pad), value=float("-inf")).view(rows, C, chunk)
+    fp = torch.nn.functional.pad(feas, (0, pad), value=False).view(rows, C, chunk)
+    m = sm.max(dim=2).values
+    return m, (fp & (sm == m[:, :, None])).sum(dim=2).int()
+
+
+def pick_by_chunks_plain(feas, s, best, active, k, chunk: int = CHUNK_N):
+    """Pass 2 as the kernel does it, from the chunk summaries: per active
+    row the chunk holding the (k+1)-th tie (ties counted where a chunk's
+    max is the row's best), then that chunk's nodes rescored; 0 for
+    inactive rows.  `feas` and `s` are the rows' masked, floored scores
+    (masked_scores_plain)."""
+    rows, N = s.shape
+    cmax, cties = chunk_summaries_plain(feas, s, chunk)
+    cnt = torch.where(cmax == best[:, None], cties, 0)
+    incl = torch.cumsum(cnt, dim=1)
+    k = k.long()
+    j = torch.argmax((incl > k[:, None]).to(torch.uint8), dim=1)
+    found = active & (incl[:, -1] > k)
+    target = k - (incl - cnt).gather(1, j[:, None])[:, 0]
+    node = j[:, None] * chunk + torch.arange(chunk, device=s.device)
+    inside = node < N
+    nodec = torch.clamp(node, max=N - 1)
+    tied = inside & feas.gather(1, nodec) & (s.gather(1, nodec) >= best[:, None])
+    pick = tied & (torch.cumsum(tied.int(), dim=1) == (target + 1)[:, None])
+    within = torch.argmax(pick.to(torch.uint8), dim=1)
+    chosen = node.gather(1, within[:, None])[:, 0]
+    return torch.where(found & pick.any(dim=1), chosen, 0).int()
+
+
 def _launch_args(pred, dyn, req, avail, eps, node_mask, eligible, future,
                  cap, spec, extras, score_quantum):
     if len(extras) > 2:
@@ -236,7 +302,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _COMMON = [_P] * 14 + [_I] * 6 + [_F, _I, _F, _I, _I, _F]
 _SIGNATURES = {
     "kb_propose_best": _COMMON + [_P, _P, _P, _P, _P],
-    "kb_propose_pick": _COMMON + [_P, _P, _P, _P, _P],
+    "kb_propose_pick": _COMMON + [_P, _P, _P, _P, _P, _P],
 }
 
 
@@ -254,11 +320,12 @@ def _check_device(req) -> bool:
 
 
 def propose_best(pred, dyn, req, avail, eps, node_mask, eligible, future,
-                 cap, spec: ScoreSpec, extras, score_quantum: float):
+                 cap, spec: ScoreSpec, extras, score_quantum: float, scratch=None):
     """(best f32[T], ties i32[T], active bool[T]) — pass 1.  On the card
     only the eligible rows are walked (listed by the kernel itself); the
     others get the plain version's answer for a row with no feasible
-    node."""
+    node.  `scratch` (`best_scratch`, or None: one of its own) receives
+    the list and the chunk summaries pass 2 reads."""
     if not _check_device(req):
         return propose_best_plain(pred, dyn, req, avail, eps, node_mask,
                                   eligible, future, cap, spec, extras,
@@ -267,11 +334,14 @@ def propose_best(pred, dyn, req, avail, eps, node_mask, eligible, future,
     args, _keep = _launch_args(pred, dyn, req, avail, eps, node_mask,
                                eligible, future, cap, spec, extras,
                                score_quantum)
-    T = req.shape[0]
+    T, N = req.shape[0], avail.shape[0]
     best = torch.empty(T, dtype=torch.float32, device=req.device)
     ties = torch.empty(T, dtype=torch.int32, device=req.device)
     active = torch.empty(T, dtype=torch.bool, device=req.device)
-    scratch = torch.empty(best_scratch_bytes(T), dtype=torch.uint8, device=req.device)
+    if scratch is None:
+        scratch = best_scratch(T, N, req.device)
+    elif scratch.numel() < best_scratch_bytes(T, N) or scratch.device != req.device:
+        raise ValueError("propose_best: scratch smaller than best_scratch_bytes(T, N)")
     err = fn(*args, build.ptr(best), build.ptr(ties), build.ptr(active),
              build.ptr(scratch), build.stream_handle(req.device))
     build.check(err, "propose_best")
@@ -281,12 +351,19 @@ def propose_best(pred, dyn, req, avail, eps, node_mask, eligible, future,
 
 def propose_pick(pred, dyn, req, avail, eps, node_mask, eligible, future,
                  cap, spec: ScoreSpec, extras, score_quantum: float,
-                 best, active, k):
-    """prop_node i32[T] — pass 2 (k = active_rank mod max(ties, 1))."""
+                 best, active, k, scratch=None):
+    """prop_node i32[T] — pass 2 (k = active_rank mod max(ties, 1)).  On
+    the card `scratch` is the one pass 1 of this round filled (its list
+    and chunk summaries), with pass 1's inputs; without it pass 2
+    raises."""
     if not _check_device(req):
         return propose_pick_plain(pred, dyn, req, avail, eps, node_mask,
                                   eligible, future, cap, spec, extras,
                                   score_quantum, best, active, k)
+    T, N = req.shape[0], avail.shape[0]
+    if (scratch is None or scratch.numel() < best_scratch_bytes(T, N)
+            or scratch.device != req.device):
+        raise ValueError("propose_pick needs the scratch pass 1 of this round filled")
     fn = _fn("kb_propose_pick")
     args, _keep = _launch_args(pred, dyn, req, avail, eps, node_mask,
                                eligible, future, cap, spec, extras,
@@ -294,7 +371,7 @@ def propose_pick(pred, dyn, req, avail, eps, node_mask, eligible, future,
     best, active, k = best.contiguous(), active.contiguous(), k.int().contiguous()
     prop = torch.empty(req.shape[0], dtype=torch.int32, device=req.device)
     err = fn(*args, build.ptr(best), build.ptr(active), build.ptr(k),
-             build.ptr(prop), build.stream_handle(req.device))
+             build.ptr(prop), build.ptr(scratch), build.stream_handle(req.device))
     build.check(err, "propose_pick")
     propose_pick.launches += 1
     return prop

@@ -235,17 +235,19 @@ def auction_round(
         if dyn_predicate_fn is not None else None
     )
     extras = score_spec.extra_terms(snap, state, resident)
+    # pass 1 leaves the eligible list and its tie summaries here for pass 2
+    scratch = propose.best_scratch(snap.num_tasks, snap.num_nodes, snap.device)
     best, cnt, active = propose.propose_best(
         predicate_mask, dyn, snap.task_req, avail, eps, snap.node_mask,
         eligible, state.node_future, snap.node_cap, score_spec, extras,
-        score_quantum,
+        score_quantum, scratch,
     )
     rank = rank_fn(snap, state)
     k = tie_ordinal(active, rank, cnt)
     prop_node = propose.propose_pick(
         predicate_mask, dyn, snap.task_req, avail, eps, snap.node_mask,
         eligible, state.node_future, snap.node_cap, score_spec, extras,
-        score_quantum, best, active, k,
+        score_quantum, best, active, k, scratch,
     )
     accept, perm, s_node = resolve_conflicts(
         prop_node, active, rank, snap.task_req, avail, eps,

@@ -23,8 +23,10 @@ Per step, on the step's device:
   is evictable and whether any eligible task fits some node directly;
   with a plan open on node n (`preempt_continue`), the sacrifice-first
   victim on n;
-* kernel K5 (kernels/victim_prefix.py), when a plan opens: per node the
-  fewest victims whose release fits, the chosen node, its first victim;
+* kernel K5 (kernels/victim_prefix.py), when a plan opens, in one
+  launch: the candidate victims sorted by (node, sacrifice), per node the
+  fewest victims whose release fits, the preemptor's node mask, the
+  chosen node and its first victim;
 * plain torch glue for the rank (B7), the veto masks and the updates,
   with the segment sums of the vetoes in kernel K7.
 
@@ -54,7 +56,7 @@ from kube_batch_tpu_torch.api.snapshot import SnapshotTensors, fits
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels import preempt_scan as _k6
 from kube_batch_tpu_torch.kernels import victim_prefix as _k5
-from kube_batch_tpu_torch.ops.assignment import AllocState, sort_by_segment
+from kube_batch_tpu_torch.ops.assignment import AllocState
 
 BIG_K = _k5.BIG_K
 
@@ -73,21 +75,19 @@ def min_victims_per_node(
     eps: torch.Tensor,
     ok: torch.Tensor,             # bool[N] nodes the plan may open on
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(k i32[N], out i32[5]) of kernel K5: for every node the fewest
-    victims, taken in sacrifice order, whose release makes the preemptor
-    fit (0 when it fits with none, BIG_K when no prefix does), and the
-    chosen node with its first victim (≙ kube_batch_tpu
-    ops/preemption.py · _min_victims_per_node and choose_node).
-
-    Sacrifice order is -rank; the sort key T-1-rank gives the same order
-    within [0, T), as sort_by_segment needs.  Non-victims go to segment
-    N and sort last."""
-    T = victims.shape[0]
+    """(k i32[N], out i32[5]) of kernel K5 for a given request and node
+    mask: for every node the fewest victims, taken in sacrifice order,
+    whose release makes the preemptor fit (0 when it fits with none,
+    BIG_K when no prefix does), and the chosen node with its first victim
+    (≙ kube_batch_tpu ops/preemption.py · _min_victims_per_node and
+    choose_node).  `evict_step` calls K5 itself, with the preemptor's
+    row of the request table and of the predicate mask."""
     N = future.shape[0]
-    vnode = torch.where(victims, snap.task_node, N)
-    perm, s_node = sort_by_segment(vnode, T - 1 - rank, N)
-    return _k5.victim_prefix(perm, s_node, snap.task_req, future,
-                             preemptor_req, eps, ok)
+    p = torch.zeros((), dtype=torch.int64, device=future.device)
+    buf = _k5.victim_prefix(victims, snap.task_node, rank, snap.task_req, future, eps,
+                            p, preemptor_req[None, :], ok[None, :], ok,
+                            torch.zeros_like(ok), None)
+    return buf[:N], buf[N:]
 
 
 def _request_sum(mask: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
@@ -206,11 +206,11 @@ def evict_step(
         n = n_t
         progressed_t = have_p
     else:
-        ok = predicate_mask[p] & node_ok & ~excl
-        if dyn_row is not None:
-            ok = ok & dyn_row
-        _k, out = min_victims_per_node(snap, st.node_future, victims, rank,
-                                       preq, eps, ok)
+        # K5: the victims' sort, every node's fewest victims, the node mask
+        # predicate_mask[p] & node_ok & ~excl (& dyn_row) and the choice
+        out = _k5.victim_prefix(victims, snap.task_node, rank, snap.task_req,
+                                st.node_future, eps, p, snap.task_req, predicate_mask,
+                                node_ok, excl, dyn_row)[N:]
         n = out[0].long()
         node_found = out[1].bool()
         v, any_vic, fit_now = out[2].long(), out[3].bool(), out[4].bool()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's preempt path, its joint path, its affinity path and
-kernels K7, K6, K2's pass 1 and K8's virtual start times in two or more
-checkouts, in turns, on one card.
+kernels K7, K6, K2's two passes, K5's node choice and K8's virtual start
+times in two or more checkouts, in turns, on one card.
 
     python3 scripts/ab_torch_preempt_path.py PARENT CHANGE CHANGE PARENT
 
@@ -18,8 +18,13 @@ with the segment index each sum was given; the widest recorded
 `virtual_start_times` call of each of the two paths (8,192 and 65,536
 rows); K2 `propose_best`'s inputs on the main path's cycle-2 round that
 chip_smoke times (`_pick_round`) and on the affinity path's last recorded
-round (the affinity words, cycle 2).  They are saved to a temporary
-directory inside this checkout for the runs that follow.
+round (the affinity words, cycle 2), and K2 `propose_pick`'s on those two
+rounds and on the preempt path's round with the most eligible rows; the
+inputs of the preempt path's cycle-2 opening step with the most
+candidate victims (K5's node choice: the victims, their nodes and ranks,
+the preemptor as a device scalar and its node-mask inputs).  They are
+saved to a temporary directory inside this checkout for the runs that
+follow.
 
 Then, for each checkout in the order given, a fresh process run from it
 drives, on the card with that checkout's own kernels (built into its own
@@ -35,15 +40,21 @@ drives, on the card with that checkout's own kernels (built into its own
     recorded step (median of 7 CUDA-event runs after 2 warm-ups; a
     checkout whose segment_sum takes no index is called without one),
     K2's propose_best on both recorded rounds (the affinity round in the
-    words form and given the mask of the same cells) and
+    words form and given the mask of the same cells), propose_pick on
+    those rounds and the preempt path's (a checkout whose pass 2 takes
+    pass 1's scratch is given one that pass 1 has just filled), the
+    opening step's node choice (a checkout whose K5 takes the preemptor
+    and the mask inputs: its one call; else the mask composed with
+    torch and `ops/preemption.py · min_victims_per_node`, which sorts
+    with K8 and launches K5) and
     `framework/policy.py · virtual_start_times` on both recorded calls
     (the whole call: a parent's sort and tail, or one launch), each
     output held against the plain version;
   * on the preempt path, K8's launches a preemption step (lex_push_many,
-    sort_by_segment, vtime) and the device operations a step
-    (`chip_smoke.PreemptWindows` of this script's own checkout: 40 steps
-    of cycle 2 traced by torch.profiler, marked by each step's one K6
-    launch);
+    sort_by_segment, vtime) and the device operations a step, and a
+    opening and a continuing step apart (`chip_smoke.PreemptWindows` of
+    this script's own checkout: 40 steps of cycle 2 traced by
+    torch.profiler, marked by each step's one K6 launch);
   * the device operations per joint step by tier kind, on 40 auction
     steps of the joint run's cycle 1 and 40 evict steps of its cycle 2
     traced with torch.profiler by this script's own checkout's
@@ -98,25 +109,39 @@ def portable_k2(args):
             "extras": cpu(extras), "quantum": q}
 
 
+def portable_pick(args):
+    # propose_pick's: pass 1's, then best, active and k
+    return {**portable_k2(args[:12]), "pick": cpu(args[12:15])}
+
+
 device = torch.device("cuda")
 chip_smoke.phase_card_and_build()
 _cycles, rec, _cache, _ssn = chip_smoke.preempt_cycles("cuda", record=True)
 picked = {k: cpu(v) for k, v in chip_smoke.timing_inputs(rec).items()}
 picked["vtime_preempt"] = cpu(widest_vtime(rec))
+first = min(c for c, _r, _a in rec.calls["predicate_mask"])
+picked["k5"] = cpu(max((a for c, _r, a in rec.calls["victim_prefix"] if c == first),
+                       key=lambda a: int(a[0].sum())))
+from kube_batch_tpu_torch.kernels import victim_prefix as k5
+picked["k5_want"] = k5.victim_prefix_plain(*picked["k5"])
+picked["pick_preempt"] = portable_pick(max((a for _c, _r, a in rec.calls["propose_pick"]),
+                                           key=lambda a: int(a[6].sum())))
 del rec
 _counts, mrec = chip_smoke.phase_main_path(device)
 picked["segment_sum_main"] = cpu(chip_smoke.main_timing_input(mrec))
 picked["vtime_main"] = cpu(widest_vtime(mrec))
 picked["k2_main"] = portable_k2(chip_smoke._pick_round(mrec)[0]["propose_best"])
+picked["pick_main"] = portable_pick(chip_smoke._pick_round(mrec)[0]["propose_pick"])
 del mrec
 _counts, arec = chip_smoke.phase_affinity_path(device)
 picked["k2_affinity"] = portable_k2(arec.calls["propose_best"][-1][2])
+picked["pick_affinity"] = portable_pick(arec.calls["propose_pick"][-1][2])
 del arec
 torch.save(picked, sys.argv[1])
 """
 
 _RUN = r"""
-import importlib.util, inspect, json, os, sys, time
+import importlib.util, inspect, json, os, sys, time, types
 sys.path.insert(0, ".")
 import torch
 import chip_smoke
@@ -127,6 +152,8 @@ from kube_batch_tpu_torch.kernels import joint_tier
 from kube_batch_tpu_torch.kernels import preempt_scan as k6
 from kube_batch_tpu_torch.kernels import propose as k2
 from kube_batch_tpu_torch.kernels import segment_sum as k7
+from kube_batch_tpu_torch.kernels import victim_prefix as k5
+from kube_batch_tpu_torch.ops import preemption as ops_preemption
 from kube_batch_tpu_torch.scheduler import Scheduler
 
 spec = importlib.util.spec_from_file_location(
@@ -282,6 +309,49 @@ for name, a in k2_cases.items():
     kern[name] = {"ms": chip_smoke.time_ms(lambda: k2.propose_best(*a)),
                   "eligible": int(a[6].sum()),
                   "out": [out[0].double().sum().item(), int(out[1].sum()), int(out[2].sum())]}
+# K2 pass 2 on the main, affinity (both forms) and preempt rounds
+takes_scratch = "scratch" in inspect.signature(k2.propose_pick).parameters
+pick_cases = {name: (k2_args(inputs[name]), [x.to(dev) for x in inputs[name]["pick"]])
+              for name in ("pick_main", "pick_affinity", "pick_preempt")}
+pick_mask = list(pick_cases["pick_affinity"][0])
+pick_mask[1] = mask_form[1]
+pick_cases["pick_affinity_mask_form"] = (pick_mask, pick_cases["pick_affinity"][1])
+for name, (a, extra) in pick_cases.items():
+    if takes_scratch:
+        scratch = k2.best_scratch(a[2].shape[0], a[3].shape[0], dev)
+        k2.propose_best(*a, scratch)
+        pick_call = (lambda a, extra, scratch: lambda: k2.propose_pick(*a, *extra, scratch))(
+            a, extra, scratch)
+    else:
+        pick_call = (lambda a, extra: lambda: k2.propose_pick(*a, *extra))(a, extra)
+    out = pick_call()
+    if not torch.equal(out, k2.propose_pick_plain(*a, *extra)):
+        raise SystemExit(f"{name}: propose_pick differs from the plain version")
+    kern[name] = {"ms": chip_smoke.time_ms(pick_call), "active": int(extra[1].sum()),
+                  "out": out.double().sum().item()}
+# K5: the opening step's node choice, as each checkout's evict_step makes it
+k5_args = [a.to(dev) if torch.is_tensor(a) else a for a in inputs["k5"]]
+(victims, task_node, rank, req, future, eps, p, preq_rows, pred, node_ok, excl,
+ dyn_row) = k5_args
+N = future.shape[0]
+if len(inspect.signature(k5.victim_prefix).parameters) >= 12:
+    def choose():
+        return k5.victim_prefix(*k5_args)
+else:
+    snap5 = types.SimpleNamespace(task_node=task_node, task_req=req)
+    preq = preq_rows[p]   # evict_step takes it before the branch
+
+    def choose():
+        ok = pred[p] & node_ok & ~excl
+        if dyn_row is not None:
+            ok = ok & dyn_row
+        return torch.cat(ops_preemption.min_victims_per_node(
+            snap5, future, victims, rank, preq, eps, ok))
+out = choose()
+if not torch.equal(out.cpu(), inputs["k5_want"]):
+    raise SystemExit("node choice: differs from the plain version")
+kern["k5_node_choice"] = {"ms": chip_smoke.time_ms(choose), "victims": int(victims.sum()),
+                          "out": out.tolist()}
 # K8 vtime: one virtual_start_times call at the preempt path's and the
 # main path's widths, against the same call on the CPU (the plain version)
 for name in ("vtime_preempt", "vtime_main"):

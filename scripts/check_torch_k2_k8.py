@@ -128,9 +128,9 @@ def _variant_sources() -> dict:
     return out
 
 
-def _pass1_caller(lib, device, with_scratch: bool):
-    """propose_best through `lib`'s kb_propose_best (the parent's takes no
-    scratch)."""
+def _pass1_caller(lib, device):
+    """propose_best through `lib`'s kb_propose_best, given a scratch of
+    this checkout's size (at least what any earlier tree needs)."""
     import ctypes
 
     import torch
@@ -140,18 +140,17 @@ def _pass1_caller(lib, device, with_scratch: bool):
 
     fn = lib.kb_propose_best
     sig = k2._SIGNATURES["kb_propose_best"]
-    fn.argtypes = sig if with_scratch else sig[:-2] + [ctypes.c_void_p]
+    fn.argtypes = sig
     fn.restype = ctypes.c_int
 
     def call(*args):
         la, _keep = k2._launch_args(*args)
-        T = args[2].shape[0]
+        T, N = args[2].shape[0], args[3].shape[0]
         best = torch.empty(T, dtype=torch.float32, device=device)
         ties = torch.empty(T, dtype=torch.int32, device=device)
         active = torch.empty(T, dtype=torch.bool, device=device)
-        extra = ([build.ptr(torch.empty(k2.best_scratch_bytes(T), dtype=torch.uint8,
-                                        device=device))] if with_scratch else [])
-        build.check(fn(*la, build.ptr(best), build.ptr(ties), build.ptr(active), *extra,
+        scratch = k2.best_scratch(T, N, device)
+        build.check(fn(*la, build.ptr(best), build.ptr(ties), build.ptr(active), build.ptr(scratch),
                        build.stream_handle(device)), "propose_best (other design)")
         return best, ties, active
 
@@ -171,7 +170,7 @@ def k2_timings(device, parent: str | None) -> None:
         sources["parent"] = os.path.join(parent, "kube_batch_tpu_torch", "kernels", "csrc",
                                          "propose.cu")
     libs = _build_libs(device, sources)
-    others = {name: _pass1_caller(lib, device, name != "parent") for name, lib in libs.items()}
+    others = {name: _pass1_caller(lib, device) for name, lib in libs.items()}
     args, fields, resident = chip_smoke.k2_words_inputs(device, *K2_SHAPE, K=32, K2=32)
     tw = k10.affinity_task_words(*fields[:5])
     words = k10.affinity_words(tw, fields[5], fields[6], fields[7], resident)
@@ -181,7 +180,8 @@ def k2_timings(device, parent: str | None) -> None:
         a = list(args)
         a[1] = words if form == "words" else None
         a[6] = torch.from_numpy(rng.random(T) < share).to(device)
-        got = k2.propose_best(*a)
+        scratch = k2.best_scratch(T, N, device)
+        got = k2.propose_best(*a, scratch)
         chip_smoke.require_equal(f"propose_best {form} {share}",
                                  list(zip(got, k2.propose_best_plain(*a))))
         for name, call in others.items():
@@ -191,7 +191,7 @@ def k2_timings(device, parent: str | None) -> None:
         prop = k2.propose_pick(*a, best, active,
                                torch.remainder(torch.arange(T, device=device,
                                                             dtype=torch.int32),
-                                               torch.clamp(ties, min=1)))
+                                               torch.clamp(ties, min=1)), scratch)
         feas, _scan, _scan_feas = chip_smoke._work_counts(a, prop, active)
         b = chip_smoke.propose_best_bound(a, feas)
         eligible = int(a[6].sum())

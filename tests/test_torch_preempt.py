@@ -508,7 +508,8 @@ def test_new_wrappers_refuse_other_devices():
     vec = torch.zeros(4, device=meta)
     mask = torch.zeros(4, dtype=torch.bool, device=meta)
     with pytest.raises(RuntimeError):
-        k5.victim_prefix(idx, idx, req, req, vec, vec, mask)
+        k5.victim_prefix(mask, idx.int(), idx.int(), req, req, vec, idx[0], req, mask[None],
+                         mask, mask, None)
     with pytest.raises(RuntimeError):
         k6.preempt_continue(idx.int(), mask, idx.int(), 0)
     with pytest.raises(RuntimeError):
