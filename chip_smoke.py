@@ -32,7 +32,19 @@ and `triton`.  Phases (any failure exits non-zero):
    ranks, nodes tied on k, no feasible node, a fit with no victim, a run
    past LONG_RUN, no victim; T = 8,192 with N = 512, N = 8,192, and T =
    20,000 on the sort-then-walk route; each also on the radix route;
-   exactly equal to the plain version); K10's
+   exactly equal to the plain version); K3's resolve on `k3_edge_inputs`
+   (T = 1, 33, 16,384, 16,385, 65,536, 131,072 and 262,144 with one node
+   taking every proposer, every proposer on a node of its own, tied
+   ranks (the sort by rank), a serialize mask and one_per_node, on the
+   blocks the kernel chooses (262,144 rows on the device-memory
+   scratch); kept, perm, s_node and the cancelled count exactly equal to
+   the plain version); K1 on `k1_edge_snap` (vocabularies 1, 31, 32, 33
+   and 100 columns wide, N = 1,000, 8,191 and 8,192, pins at nodes 0 and
+   N − 1, all predicates on and the default flags, and the 256 flag
+   combinations at width 33) and on `k1_hostname_snap` (a label per node
+   at N = 8,192, selectors naming hundreds of them: many tiles of words);
+   exactly equal to the plain version, and the hostname world also to
+   the reference's own products (`predicate_matmul`)); K10's
    affinity_task_words and affinity_words, K11's resident_words (both
    resident sets and the future set alone) and K2's words form on
    seeded affinity terms (each = plain, K2 given the words = K2 given
@@ -971,6 +983,201 @@ def phase_k5_edge(device) -> float:
     return err
 
 
+K3_EDGE_T = (1, 33, 16384, 16385, 65536, 131072, 262144)
+K3_EDGE_CASES = ("one_node", "distinct", "tied", "serialize", "one_per_node")
+
+
+def k3_edge_inputs(device, T: int, case: str, seed: int = 0, R: int = 4):
+    """One resolve call's arguments (prop_node, active, rank, task_req,
+    avail, eps, one_per_node, serialize_mask, cancelled): every proposer on
+    one node, every proposer on a node of its own (N = T, up to 65,536
+    nodes; the other rows inactive), or half the proposers on node 0 and
+    the rest spread, with ranks tied in 64 values, a serialize mask or
+    one_per_node.  Integer-valued requests (some below
+    eps); node 0's capacity takes about a third of its run."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 100003 + T)
+    N = min(T, 65536) if case == "distinct" else (8192 if T >= 16384 else 64)
+    active = torch.rand(T, generator=g) < 0.9
+    if case == "one_node":
+        prop = torch.zeros(T, dtype=torch.int32)
+    elif case == "distinct":
+        n_act = min(T, N)
+        active = torch.zeros(T, dtype=torch.bool)
+        rows = torch.randperm(T, generator=g)[:n_act]
+        active[rows] = True
+        prop = torch.zeros(T, dtype=torch.int32)
+        prop[rows] = torch.randperm(N, generator=g)[:n_act].int()
+    else:
+        prop = torch.randint(0, N, (T,), generator=g, dtype=torch.int32)
+        prop[torch.rand(T, generator=g) < 0.5] = 0
+    prop[~active] = torch.randint(0, 4 * N, (int((~active).sum()),), generator=g,
+                                  dtype=torch.int32)      # never read
+    rank = (torch.randint(0, min(64, T), (T,), generator=g) if case == "tied"
+            else torch.randperm(T, generator=g)).int()
+    scale = torch.tensor([500.0, float(1 << 30), 1.0, 1.0])[:R]
+    req = torch.randint(1, 9, (T, R), generator=g).float() * scale
+    req[torch.rand(T, R, generator=g) < 0.1] = 0.0
+    avail = torch.randint(4, 40, (N, R), generator=g).float() * scale
+    on0 = int((active & (prop == 0)).sum())
+    avail[0] = scale * max(4, int(on0 * 4.5 / 3))
+    eps = torch.full((R,), 0.5)
+    ser = torch.rand(T, generator=g) < 0.3 if case == "serialize" else None
+    cancelled = torch.zeros(3, dtype=torch.int64)
+    args = (prop, active, rank, req, avail, eps, case == "one_per_node", ser, cancelled)
+    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def phase_k3_edge(device) -> float:
+    """K3 resolve on `k3_edge_inputs` at every T of K3_EDGE_T and case:
+    kept, perm, s_node and the cancelled count exactly equal to the plain
+    version, on the blocks and the storage the kernel chooses (ranks that
+    are a permutation go by the rank-order scatter, tied ones by the sort
+    by rank).  Returns the largest error."""
+    from kube_batch_tpu_torch.kernels import resolve as k3
+
+    err = 0.0
+    for T in K3_EDGE_T:
+        blocks, scratch = k3.plan(T) if device.type == "cuda" else (None, None)
+        for case in K3_EDGE_CASES:
+            args = k3_edge_inputs(device, T, case)
+            got, want, counts = resolve_pair(args)
+            err = max(err, require_equal(f"resolve edge {case} T{T}", list(zip(got, want))))
+            log(json.dumps({"phase": "k3-edge", "case": case, "tasks": T,
+                            "nodes": args[4].shape[0], "blocks": blocks,
+                            "scratch_bytes": scratch, **counts}))
+    return err
+
+
+K1_EDGE_WIDTHS = (1, 31, 32, 33, 100)
+K1_EDGE_NODES = (1000, 8191, 8192)
+
+
+def k1_edge_snap(device, T: int, N: int, width: int, seed: int = 0):
+    """The fields K1 reads, every vocabulary `width` columns wide (0/1
+    multi-hots), volume pins at nodes 0 and N - 1 and a few others,
+    unready and pressured nodes."""
+    import types
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 7919 + T * 31 + N + width)
+
+    def hot(M, W, p):
+        return (torch.rand(M, W, generator=g) < p).float().to(device)
+
+    pins = torch.full((T,), -1, dtype=torch.int32)
+    rows = torch.arange(T)
+    pins[rows % 7 == 0] = 0
+    pins[rows % 11 == 0] = N - 1
+    pins[rows % 13 == 0] = torch.randint(0, N, (int((rows % 13 == 0).sum()),),
+                                         generator=g, dtype=torch.int32)
+    return types.SimpleNamespace(
+        task_sel=hot(T, width, min(0.3, 2.0 / width)), node_labels=hot(N, width, 0.7),
+        task_tol=hot(T, width, 0.6), node_taints=hot(N, width, min(0.2, 0.5 / width)),
+        task_ports=hot(T, width, min(0.2, 1.0 / width)),
+        node_ports=hot(N, width, min(0.2, 1.0 / width)),
+        node_ready=(torch.rand(N, generator=g) < 0.95).to(device),
+        node_pressure=hot(N, 3, 0.05), task_vol_node=pins.to(device),
+        task_vol_groups=hot(T, width, min(0.2, 0.5 / width)),
+        vol_group_sel=hot(width, width, 0.2),
+        num_tasks=T, num_nodes=N, device=torch.device(device))
+
+
+def k1_hostname_snap(device, T: int, N: int, seed: int = 0):
+    """The fields K1 reads for a cluster whose nodes each carry a label of
+    their own (kubernetes.io/hostname: label column n on node n, N + 8
+    label columns with 8 shared ones): a third of the tasks select one
+    node's hostname, a third a shared label, some both; volume groups
+    that allow a few hundred hostnames each; 40 taint and 40 port
+    columns.  So the selector's used words span the whole vocabulary."""
+    import types
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 7919 + T * 31 + N)
+    L, V, P, G = N + 8, 40, 40, 3
+
+    def hot(M, W, p):
+        return (torch.rand(M, W, generator=g) < p).float()
+
+    node_labels = torch.zeros(N, L)
+    node_labels[torch.arange(N), torch.arange(N)] = 1.0
+    node_labels[:, N:] = hot(N, 8, 0.5)
+    rows = torch.arange(T)
+    task_sel = torch.zeros(T, L)
+    pick = rows % 3 == 0
+    task_sel[rows[pick], torch.randint(0, N, (int(pick.sum()),), generator=g)] = 1.0
+    shared = (rows % 3 == 1) | (rows % 5 == 0)
+    task_sel[rows[shared], N + torch.randint(0, 8, (int(shared.sum()),), generator=g)] = 1.0
+    group_sel = torch.zeros(G, L)
+    for k in range(G):
+        group_sel[k, torch.randint(0, N, (300,), generator=g)] = 1.0
+        group_sel[k, N + k] = 1.0
+    pins = torch.full((T,), -1, dtype=torch.int32)
+    pins[rows % 7 == 0] = 0
+    pins[rows % 11 == 0] = N - 1
+    fields = dict(
+        task_sel=task_sel, node_labels=node_labels, task_tol=hot(T, V, 0.6),
+        node_taints=hot(N, V, 0.05), task_ports=hot(T, P, 0.05), node_ports=hot(N, P, 0.05),
+        node_ready=torch.rand(N, generator=g) < 0.95, node_pressure=hot(N, 3, 0.05),
+        task_vol_node=pins, task_vol_groups=hot(T, G, 0.2), vol_group_sel=group_sel)
+    return types.SimpleNamespace(**{k: v.to(device) for k, v in fields.items()},
+                                 num_tasks=T, num_nodes=N, device=torch.device(device))
+
+
+def phase_k1_edge(device) -> float:
+    """K1 on `k1_edge_snap` at every width of K1_EDGE_WIDTHS and node
+    count of K1_EDGE_NODES (2,049 task rows) with every predicate on and
+    with the default flags, on `k1_hostname_snap` at 8,192 and 8,191
+    nodes (also against `predicate_matmul`), and every one of the 256
+    flag combinations at width 33 and 1,000 nodes: exactly equal to the
+    plain version.  Returns the largest error."""
+    import itertools
+
+    from kube_batch_tpu_torch.kernels import predicate_mask as k1
+
+    def flags_of(on):
+        return k1.PredicateFlags(selector=on[0], taints=on[1], ports=on[2], ready=on[3],
+                                 pressure=tuple(on[4:7]), volume=on[7])
+
+    err = 0.0
+    for width in K1_EDGE_WIDTHS:
+        for N in K1_EDGE_NODES:
+            snap = k1_edge_snap(device, 2049, N, width)
+            for flags in (flags_of((True,) * 8), k1.PredicateFlags()):
+                got = k1.predicate_mask(snap, flags)
+                err = max(err, require_equal(f"predicate_mask edge width {width} N{N}",
+                                             [(got, k1.predicate_mask_plain(snap, flags))]))
+            log(json.dumps({"phase": "k1-edge", "width": width, "nodes": N, "tasks": 2049,
+                            "feasible_cells": int(got.sum()),
+                            "vetoed_cells": int((~got).sum())}))
+    for N in (8192, 8191):
+        snap = k1_hostname_snap(device, 2049, N)
+        for flags in (flags_of((True,) * 8), k1.PredicateFlags()):
+            got = k1.predicate_mask(snap, flags)
+            err = max(err, require_equal(
+                f"predicate_mask edge hostname N{N}",
+                [(got, k1.predicate_mask_plain(snap, flags)),
+                 (got, predicate_matmul(snap, flags))]))
+        sel_words = int((k1.pack_words(snap.task_sel) != 0).any(dim=0).sum())
+        log(json.dumps({"phase": "k1-edge-hostname", "nodes": N, "tasks": 2049,
+                        "label_columns": snap.node_labels.shape[1],
+                        "used_selector_words": sel_words,
+                        "feasible_cells": int(got.sum()), "vetoed_cells": int((~got).sum())}))
+    snap = k1_edge_snap(device, 512, 1000, 33)
+    vetoed = []
+    for on in itertools.product((False, True), repeat=8):
+        got = k1.predicate_mask(snap, flags_of(on))
+        err = max(err, require_equal(f"predicate_mask edge flags {on}",
+                                     [(got, k1.predicate_mask_plain(snap, flags_of(on)))]))
+        vetoed.append(int((~got).sum()))
+    log(json.dumps({"phase": "k1-edge-flags", "combinations": len(vetoed),
+                    "distinct_vetoed_counts": len(set(vetoed))}))
+    return err
+
+
 # ---------------------------------------------------------------------------
 # worlds
 # ---------------------------------------------------------------------------
@@ -1174,7 +1381,7 @@ _MUTATED = {
     "predicate_mask": (0,),      # the snapshot
     "propose_best": (3, 7),      # avail, node_future
     "propose_pick": (3, 7),
-    "resolve": (3,),             # avail
+    "resolve": (4, 8),           # avail, cancelled
     "apply": (4, 5, 8, 9),       # node_future, node_idle, task_state, task_node
     "failure_counts": (2,),      # node_idle
     "victim_prefix": (),
@@ -1381,6 +1588,37 @@ def resident_pairs(got, want):
     return pairs
 
 
+def resolve_pair(args):
+    """K3 resolve and its plain version on `args`, each adding to its own copy
+    of the cancelled counter: ((kept, perm, s_node[, cancelled]) of the
+    kernel, the same of the plain version, {what: count})."""
+    from kube_batch_tpu_torch.kernels import resolve as k3
+
+    head, cancelled = args[:8], args[8]
+    ck = None if cancelled is None else cancelled.clone()
+    cp = None if cancelled is None else cancelled.clone()
+    got = k3.resolve(*head, ck)
+    want = k3.resolve_plain(*head, cp)
+    if cancelled is not None:
+        got, want = got + (ck,), want + (cp,)
+    active, N = args[1], args[4].shape[0]
+    kept = got[0]
+    return got, want, {"proposers": int(active.sum()), "kept": int(kept.sum()),
+                       "rejected": int((active & ~kept).sum()),
+                       "longest_run": longest_run(args),
+                       "cancelled": 0 if cancelled is None else int((cp - cancelled)[0])}
+
+
+def longest_run(args) -> int:
+    """The most proposers of one resolve call on one node."""
+    import torch
+
+    prop, active, N = args[0], args[1], args[4].shape[0]
+    if not bool(active.any()):
+        return 0
+    return int(torch.bincount(prop[active].long(), minlength=N).max())
+
+
 def check_call(name: str, args):
     """Run kernel and plain version on `args`; require equal outputs.
     Returns (max_abs_err, {what: count of non-trivial outputs})."""
@@ -1427,7 +1665,9 @@ def check_call(name: str, args):
     if name == "predicate_mask":
         snap = args[0]
         out = k1.predicate_mask(*args)
-        err = require_equal(name, [(out, k1.predicate_mask_plain(*args))])
+        # the plain version, and the reference's own products and compares
+        err = require_equal(name, [(out, k1.predicate_mask_plain(*args)),
+                                   (out, predicate_matmul(*args))])
         real = snap.task_mask[:, None] & snap.node_mask[None, :]
         return err, {"real_cells": int(real.sum()),
                      "vetoed_cells": int((real & ~out).sum())}
@@ -1444,13 +1684,8 @@ def check_call(name: str, args):
         return err, {"active": int(active.sum()),
                      "picked_past_first_tie": int((active & (k > 0)).sum())}
     if name == "resolve":
-        perm, s_node, avail = args[0], args[1], args[3]
-        out = k3.resolve(*args)
-        err = require_equal(name, [(out, k3.resolve_plain(*args))])
-        proposers = int((s_node < avail.shape[0]).sum())
-        accepted = int(out[perm][s_node < avail.shape[0]].sum())
-        return err, {"proposers": proposers, "accepted": accepted,
-                     "rejected": proposers - accepted}
+        got, want, counts = resolve_pair(args)
+        return require_equal(name, list(zip(got, want))), counts
     if name == "apply":
         a_k, a_p = _fresh_apply_args(args), _fresh_apply_args(args)
         k3.apply(*a_k)
@@ -2389,8 +2624,9 @@ def preempt_open_bound(args):
 
 def _pick_round(rec: Recorder):
     """The last cycle's auction round whose resolve rejected the most
-    proposals, among rounds that applied placements: its (propose_best,
-    propose_pick, resolve, apply) inputs and that count."""
+    proposals before its watermark, among rounds that applied
+    placements: its (propose_best, propose_pick, resolve, apply) inputs
+    and that count."""
     from kube_batch_tpu_torch.kernels import resolve as k3
 
     last = max(c for c, _, _ in rec.calls["predicate_mask"])
@@ -2403,9 +2639,10 @@ def _pick_round(rec: Recorder):
     for _rnd, calls in sorted(by_round.items()):
         if len(calls) < 4:
             continue
-        perm, s_node, avail = (calls["resolve"][i] for i in (0, 1, 3))
-        real = s_node < avail.shape[0]
-        rej = int(real.sum()) - int(k3.resolve(*calls["resolve"])[perm][real].sum())
+        prop, active, rank, req, avail, eps, opn, ser = calls["resolve"][:8]
+        perm, s_node = k3.sort_plain(prop, active, rank, avail.shape[0])
+        rej = int(active.sum()) - int(
+            k3.prefix_accept_plain(perm, s_node, req, avail, eps, opn, ser).sum())
         if rej > best_rej:
             best, best_rej = calls, rej
     if best is None:
@@ -2564,14 +2801,16 @@ def propose_pick_bound(args, scan_cells: int, scan_feas: int):
 
 
 def resolve_bound(args):
-    """K3 resolve's least time: the sorted order and node ids, the
-    proposers' requests, the node capacity, the outputs; three float64
-    operations a proposer and dim."""
-    perm, s_node, task_req, avail = args[:4]
-    T, (N, R) = perm.shape[0], avail.shape
-    n_active = int((s_node < N).sum())
-    return bound(16 * T + n_active * R * 4 + N * R * 4 + 2 * T,
-                 n_active * R * 3, F64_OPS_PER_S)
+    """K3 resolve's least time: the sort keys of every row read (node,
+    active flag, rank: 9 bytes) and the serialize mask if any, the
+    (node, rank) order written (perm and s_node, 16 bytes a row) with the
+    kept mask, the proposers' requests and the nodes' capacity read;
+    three float64 operations a proposer and dim."""
+    active, task_req, avail, ser = args[1], args[3], args[4], args[7]
+    T, (N, R) = active.shape[0], avail.shape
+    n_active = int(active.sum())
+    return bound(9 * T + (0 if ser is None else T) + 17 * T + n_active * R * 4
+                 + N * R * 4 + R * 4, n_active * R * 3, F64_OPS_PER_S)
 
 
 def apply_bound(args):
@@ -2586,6 +2825,54 @@ def apply_bound(args):
     touched = int(torch.unique(s_node[accept[perm]]).numel())
     return bound(17 * T + n_acc * (R * 4 + 8) + touched * R * 4 * 4, n_acc * R,
                  F64_OPS_PER_S)
+
+
+def predicate_bound(snap):
+    """(K1's least time, live vocabulary columns W): every table read once
+    and the T·N mask written; on 0/1 tables a set test covers 32 columns
+    with two operations, so two operations a cell per 32-column word of
+    live columns in each table, and six more a cell."""
+    T, N = snap.num_tasks, snap.num_nodes
+    live = (_live_width(snap.task_sel, snap.node_labels),
+            _live_width(snap.task_tol, snap.node_taints),
+            _live_width(snap.task_ports, snap.node_ports),
+            int(snap.task_vol_groups.any(dim=0).sum()))
+    words = sum(-(-w // 32) for w in live)
+    in_bytes = sum(x.numel() * x.element_size() for x in (
+        snap.task_sel, snap.node_labels, snap.task_tol, snap.node_taints,
+        snap.task_ports, snap.node_ports, snap.node_ready, snap.node_pressure,
+        snap.task_vol_node, snap.task_vol_groups))
+    return bound(in_bytes + T * N, T * N * (2 * words + 6)), sum(live)
+
+
+def predicate_matmul(snap, flags):
+    """bool[T, N]: the reference predicate's own arithmetic (multi-hot
+    products by torch.matmul and their compares), K1's library yardstick;
+    the port never calls it."""
+    import torch
+
+    T, N = snap.num_tasks, snap.num_nodes
+    ok = torch.ones((T, N), dtype=torch.bool, device=snap.device)
+    if flags.selector:
+        ok &= (snap.task_sel @ snap.node_labels.T) >= snap.task_sel.sum(dim=1, keepdim=True)
+    if flags.taints:
+        ok &= (snap.node_taints.sum(dim=1)[None, :]
+               - snap.task_tol @ snap.node_taints.T) <= 0.5
+    if flags.ports:
+        ok &= (snap.task_ports @ snap.node_ports.T) <= 0.5
+    if flags.ready:
+        ok &= snap.node_ready[None, :]
+    for dim, on in enumerate(flags.pressure):
+        if on:
+            ok &= snap.node_pressure[None, :, dim] <= 0.5
+    if flags.volume:
+        ids = torch.arange(N, dtype=torch.int32, device=snap.device)
+        pin = snap.task_vol_node
+        ok &= (pin == -1)[:, None] | (pin[:, None] == ids[None, :])
+        if snap.task_vol_groups.shape[1]:
+            miss = 1.0 - ((snap.node_labels @ snap.vol_group_sel.T) > 0.5).float()
+            ok &= (snap.task_vol_groups @ miss.T) <= 0.5
+    return ok
 
 
 def phase_kernels(rec: Recorder):
@@ -2612,21 +2899,13 @@ def phase_kernels(rec: Recorder):
     args = rec.calls["predicate_mask"][-1][2]
     snap = args[0]
     T, N, R = snap.num_tasks, snap.num_nodes, snap.num_resources
-    W = (_live_width(snap.task_sel, snap.node_labels)
-         + _live_width(snap.task_tol, snap.node_taints)
-         + _live_width(snap.task_ports, snap.node_ports)
-         + int(snap.task_vol_groups.any(dim=0).sum()))
-    in_bytes = sum(x.numel() * x.element_size() for x in (
-        snap.task_sel, snap.node_labels, snap.task_tol, snap.node_taints,
-        snap.task_ports, snap.node_ports, snap.node_ready, snap.node_pressure,
-        snap.task_vol_node, snap.task_vol_groups))
+    b, W = predicate_bound(snap)
     record("predicate_mask", args,
            time_ms(lambda: k1.predicate_mask(*args)),
-           time_ms(lambda: k1.predicate_mask_plain(*args)),
-           bound(in_bytes + T * N, T * N * (2 * W + 6)),
-           # The one-call PyTorch form of this function is the selector /
-           # taint / port products by torch.matmul with their compares.
-           time_ms(lambda: k1.predicate_mask_plain(*args)))
+           time_ms(lambda: k1.predicate_mask_plain(*args)), b,
+           # The PyTorch form of this function: the reference's products
+           # by torch.matmul with their compares.
+           time_ms(lambda: predicate_matmul(*args)))
     log(json.dumps({"phase": "kernel-note", "name": "predicate_mask",
                     "live_vocabulary_columns": W}))
 
@@ -2644,6 +2923,7 @@ def phase_kernels(rec: Recorder):
                     "eligible_share": round(eligible / T, 6),
                     "request_classes": request_classes(bargs),
                     "active": int(active.sum()), "rejected": rejected,
+                    "longest_run": longest_run(rargs),
                     "feasible_cells": feas_cells, "pick_cells": scan_cells}))
     record("propose_best", bargs,
            time_ms(lambda: k2.propose_best(*bargs)),
@@ -3299,6 +3579,73 @@ class PreemptWindows:
         return self.out
 
 
+class AuctionWindows:
+    """Device operations (kernel launches, and the copies and memsets the
+    host issues) per auction round, from one window of a run traced by
+    torch.profiler: `rounds` rounds from the `skip`-th K2 pass-1 call on,
+    plus LAUNCH_WARMUP calls for events the tracer misses as it starts.
+    Every round launches K2's pass-1 kernel (`propose_best_kernel`) once:
+    a round is everything from one such kernel to the next (its rank
+    sorts, both K2 passes, the resolve, the serialize steps, the apply
+    and the progress read).  `hook` sees every `propose_best` call before
+    it launches (a wrapper of it); `result()` closes a window still open.
+    Works on any checkout whose auction round calls
+    `kernels/propose.py · propose_best` once."""
+
+    def __init__(self, rounds: int = 40, skip: int = 6) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.rounds, self.skip, self.seen, self.prof, self.out = rounds, skip, 0, None, None
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.zeros(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+
+    def hook(self, *_args) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.seen += 1
+        if self.seen == self.skip and self.out is None:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+        elif self.prof is not None and self.seen >= self.skip + self.rounds + LAUNCH_WARMUP:
+            self._close()
+
+    def _close(self) -> None:
+        import torch
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+        ops = sorted((e for e in self.prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        self.prof = None
+        marks = [i for i, e in enumerate(ops) if "propose_best_kernel" in e.name]
+        if len(marks) < 2:
+            self.out = {}
+            return
+        seg = ops[marks[0]:marks[-1]]
+        copies = sum(1 for e in seg if e.name.startswith(("Memcpy", "Memset")))
+        n = len(marks) - 1
+        by_name: dict = {}
+        for e in seg:
+            by_name[e.name[:48]] = by_name.get(e.name[:48], 0) + 1
+        self.out = {"rounds": n, "kernels_per_round": round((len(seg) - copies) / n, 3),
+                    "copies_and_memsets_per_round": round(copies / n, 3),
+                    "launches_per_round": round(len(seg) / n, 3),
+                    "by_name": {k: round(v / n, 3) for k, v in sorted(
+                        by_name.items(), key=lambda kv: -kv[1])}}
+
+    def result(self):
+        """{"rounds", "kernels_per_round", ...}; None when the window never
+        opened, {} when the tracer caught fewer than two rounds."""
+        if self.prof is not None:
+            self._close()
+        return self.out
+
+
 def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     """K11 on every call of the affinity path (immediate and FutureIdle
     rounds both met), K10's mask and task words on each of
@@ -3468,7 +3815,8 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
         ms = time_ms(fn)
         path_time(name, ("affinity",), ms, b[0])
         log(json.dumps({"phase": "kernel-affinity-path", "name": name,
-                        "proposers": int((rargs[1] < N).sum()),
+                        "proposers": int(rargs[1].sum()),
+                        "longest_run": longest_run(rargs),
                         "accepted": int(aargs[2].sum()), "ms": round(ms, 4),
                         "bound_ms": round(b[0], 6), "bound_by": b[1]}))
 
@@ -3610,7 +3958,8 @@ REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "P
               "affinity_mask": "PR 6", "affinity_words": "PR 6",
               "tier_control": "PR 7", "resident_words": "PR 7",
               "affinity_task_words": "PR 7", "propose_best": "PR 8", "vtime": "PR 8",
-              "victim_prefix": "PR 9", "propose_pick": "PR 9"}
+              "victim_prefix": "PR 9", "propose_pick": "PR 9",
+              "resolve": "PR 10", "predicate_mask": "PR 10"}
 
 
 def excess_by_path(k, path_times) -> dict:
@@ -3683,6 +4032,8 @@ def main() -> int:
         edge_errs.update(phase_words_edge(device))
         edge_errs["vtime"] = phase_vtime_edge(device)
         edge_errs["victim_prefix"] = phase_k5_edge(device)
+        edge_errs["resolve"] = phase_k3_edge(device)
+        edge_errs["predicate_mask"] = phase_k1_edge(device)
         for name, err in phase_k2_edge(device).items():
             edge_errs[name] = max(edge_errs[name], err)
         parity_counts, row_rec = phase_parity(cpu_parity)

@@ -2,9 +2,9 @@
 
 | kernel | wrapper | route | replaces (kube_batch_tpu/) |
 | --- | --- | --- | --- |
-| K1 | predicate_mask.predicate_mask | CUDA C++ | plugins/predicates.py · register.predicate |
+| K1 | predicate_mask.predicate_mask (word packing, then set tests on the words) | CUDA C++ | plugins/predicates.py · register.predicate |
 | K2 | propose.propose_best, propose.propose_pick | CUDA C++ | ops/assignment.py · allocate_rounds (propose half), _round_robin_proposals |
-| K3 | resolve.resolve, resolve.apply | CUDA C++ | ops/assignment.py · _resolve_conflicts, _segment_prefix, apply step |
+| K3 | resolve.resolve (sort, prefix fit, serialize count, watermark: one launch), resolve.apply | CUDA C++ | ops/assignment.py · _resolve_conflicts, _segment_prefix, apply step |
 | K4 | failure_counts.failure_counts | Triton | framework/fit_errors.py · failure_counts |
 | K5 | victim_prefix.victim_prefix (the opening step's node choice: sort, walk, mask, choice) | CUDA C++ | ops/preemption.py · _min_victims_per_node, choose_node |
 | K6 | preempt_scan.preempt_open, preempt_scan.preempt_continue | CUDA C++ | ops/preemption.py · preemption_rounds (the step's scans) |

@@ -1,15 +1,17 @@
 """K3 · resolve conflicts and apply placements (CUDA C++,
 `csrc/resolve.cu`), two entry points.
 
-Replaces kube_batch_tpu/ops/assignment.py · _segment_prefix,
-_resolve_conflicts (before its global watermark, which stays torch glue in
-ops/assignment.py) and the apply step of allocate_rounds.  What bounds it
-on the card, its design and its float64 prefix rule are noted in the
-source.
+`resolve` replaces kube_batch_tpu/ops/assignment.py · _resolve_conflicts
+whole (with its _segment_prefix): the (node, rank) sort of the round's
+proposers, the per-node prefix fit, one_per_node, the per-node serialize
+count and the global rank watermark, in one launch; `apply` replaces the
+apply step of allocate_rounds.  What bounds each on the card, their
+designs and the float64 prefix rule are noted in the source.
 
-Both take the proposers sorted by (node, rank): `perm` (int64, sorted
-position → task row) and `s_node` (int64, sorted position → proposed
-node; N for inactive rows, which sort last).
+`resolve` returns the watermarked acceptances and the (node, rank) order
+of the proposers for `apply`: `perm` (int64, sorted position → task row)
+and `s_node` (int64, sorted position → proposed node; N for inactive
+rows, which sort last).
 
 Each wrapper runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other.
@@ -48,8 +50,23 @@ def segment_exclusive_prefix(
     return before, is_start
 
 
-def resolve_plain(perm, s_node, task_req, avail, eps, one_per_node,
-                  serialize_mask):
+INT32_MAX = 2**31 - 1
+
+
+def sort_plain(prop_node, active, rank, num_nodes: int):
+    """(perm, s_node): the stable sort of node_key·T + rank, node_key =
+    N for an inactive row (node, then rank, then row; inactive rows
+    last)."""
+    T = rank.shape[0]
+    node_key = torch.where(active, prop_node, num_nodes)
+    s_key, perm = torch.sort(node_key.long() * T + rank.long(), stable=True)
+    return perm, torch.div(s_key, T, rounding_mode="floor")
+
+
+def prefix_accept_plain(perm, s_node, task_req, avail, eps, one_per_node,
+                        serialize_mask):
+    """bool[T]: the per-node prefix-fit acceptance over the sorted
+    proposers, before the watermark."""
     T = perm.shape[0]
     N = avail.shape[0]
     real = s_node < N
@@ -71,6 +88,22 @@ def resolve_plain(perm, s_node, task_req, avail, eps, one_per_node,
     accept = torch.zeros(T, dtype=torch.bool, device=perm.device)
     accept[perm] = s_accept
     return accept
+
+
+def resolve_plain(prop_node, active, rank, task_req, avail, eps,
+                  one_per_node=False, serialize_mask=None, cancelled=None):
+    """(kept, perm, s_node): the sort, the prefix fit and the watermark,
+    in plain torch; `cancelled[0]` gains the acceptances the watermark
+    cancelled."""
+    perm, s_node = sort_plain(prop_node, active, rank, avail.shape[0])
+    accept = prefix_accept_plain(perm, s_node, task_req, avail, eps,
+                                 one_per_node, serialize_mask)
+    rejected = active & ~accept
+    watermark = torch.where(rejected, rank, INT32_MAX).amin()
+    kept = accept & (rank < watermark)
+    if cancelled is not None:
+        cancelled.narrow(0, 0, 1).add_(torch.count_nonzero(accept & ~kept))
+    return kept, perm, s_node
 
 
 def apply_plain(perm, s_node, accept, task_req, node_future, node_idle,
@@ -102,28 +135,104 @@ def _cuda(t) -> bool:
     return True
 
 
+MAX_R = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "kb_resolve": [_P] * 7 + [_I] * 4 + [_P] * 6,
+    "kb_apply": [_P] * 4 + [_I] * 5 + [_P] * 5,
+    "kb_resolve_plan": [_I, _P, _P],
+}
 
 
-def resolve(perm, s_node, task_req, avail, eps, one_per_node: bool,
-            serialize_mask) -> torch.Tensor:
-    """bool[T]: per-node prefix-fit acceptance (before the watermark)."""
-    if not _cuda(perm):
-        return resolve_plain(perm, s_node, task_req, avail, eps,
-                             one_per_node, serialize_mask)
-    fn = build.library("resolve").kb_resolve
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P]
-    fn.restype = ctypes.c_int
-    T = perm.shape[0]
-    N, R = avail.shape
-    accept = torch.zeros(T, dtype=torch.bool, device=perm.device)
-    c = [x.contiguous() for x in (perm, s_node, task_req, avail, eps)]
-    ser = None if serialize_mask is None else serialize_mask.contiguous()
-    err = fn(*(build.ptr(x) for x in c), build.ptr(ser), int(one_per_node),
-             T, N, R, build.ptr(accept), build.stream_handle(perm.device))
+def _fn(name: str):
+    return build.function("resolve", name, _SIGNATURES[name])
+
+
+_RESOLVE_DTYPES = (torch.int32, torch.bool, torch.int32, torch.float32,
+                   torch.float32, torch.float32)
+_plans: dict[int, tuple[int, int]] = {}
+
+
+def plan(T: int) -> tuple[int, int]:
+    """(blocks, scratch bytes) of `resolve` over T rows on this card: the
+    thread blocks of its cluster (0: more rows than it takes) and the
+    device memory it keeps the rows in where the cluster's shared memory
+    does not hold them (0: none).  Asked of the kernel once per T."""
+    got = _plans.get(T)
+    if got is None:
+        blocks, scratch = ctypes.c_int(0), ctypes.c_int64(0)
+        build.check(_fn("kb_resolve_plan")(T, ctypes.byref(blocks), ctypes.byref(scratch)),
+                    "resolve_plan")
+        got = _plans[T] = (blocks.value, scratch.value)
+    return got
+
+
+def _resolve_args_ok(prop_node, active, rank, task_req, avail, eps,
+                     serialize_mask, cancelled) -> bool:
+    """One pass of attribute tests (the call is host-bound): dtypes,
+    shapes, the card, contiguous rows."""
+    T, R = task_req.shape
+    N = avail.shape[0]
+    return ((prop_node.dtype, active.dtype, rank.dtype, task_req.dtype,
+             avail.dtype, eps.dtype) == _RESOLVE_DTYPES
+            and prop_node.shape == active.shape == rank.shape == (T,)
+            and avail.shape == (N, R) and eps.shape == (R,)
+            and 1 <= R <= MAX_R and T >= 1 and N >= 1
+            and prop_node.is_cuda and active.is_cuda and rank.is_cuda
+            and task_req.is_cuda and avail.is_cuda and eps.is_cuda
+            and prop_node.is_contiguous() and active.is_contiguous()
+            and rank.is_contiguous() and task_req.is_contiguous()
+            and avail.is_contiguous() and eps.is_contiguous()
+            and (serialize_mask is None
+                 or (serialize_mask.dtype == torch.bool and serialize_mask.shape == (T,)
+                     and serialize_mask.is_cuda and serialize_mask.is_contiguous()))
+            and (cancelled is None
+                 or (cancelled.dtype == torch.int64 and cancelled.numel() >= 1
+                     and cancelled.is_cuda and cancelled.is_contiguous())))
+
+
+def resolve(prop_node, active, rank, task_req, avail, eps,
+            one_per_node: bool = False, serialize_mask=None, cancelled=None):
+    """(kept bool[T], perm i64[T], s_node i64[T]) of one auction round:
+    prop_node i32[T] (read where active, in [0, N)), active bool[T], rank
+    i32[T] in [0, T), task_req f32[T, R], avail f32[N, R], eps f32[R], the
+    optional serialize_mask bool[T] and the device counter cancelled i64
+    (its element 0 gains the acceptances the watermark cancelled).  Every
+    tensor on the card, contiguous, of those dtypes; nothing is converted
+    (others raise).  The kernel takes up to 1,048,576 rows."""
+    if prop_node.device.type == "cpu":
+        return resolve_plain(prop_node, active, rank, task_req, avail, eps,
+                             one_per_node, serialize_mask, cancelled)
+    if prop_node.device.type != "cuda":
+        raise RuntimeError(f"resolve: unsupported device {prop_node.device}")
+    if not _resolve_args_ok(prop_node, active, rank, task_req, avail, eps,
+                            serialize_mask, cancelled):
+        raise ValueError(
+            "resolve takes int32 prop_node and rank, bool active, float32 task_req, "
+            "avail and eps, bool serialize_mask and int64 cancelled (or None), "
+            "contiguous, on the card; got "
+            f"{[(x.dtype, tuple(x.shape), x.device.type) for x in (prop_node, active, rank, task_req, avail, eps, serialize_mask, cancelled) if x is not None]}")
+    T, R = task_req.shape
+    N = avail.shape[0]
+    dev = task_req.device
+    blocks, scratch_bytes = plan(T)
+    if blocks == 0:
+        raise ValueError(f"resolve takes at most 1,048,576 task rows a round; got {T}")
+    perm = torch.empty(T, dtype=torch.int64, device=dev)
+    s_node = torch.empty(T, dtype=torch.int64, device=dev)
+    kept = torch.empty(T, dtype=torch.bool, device=dev)
+    scratch = (torch.empty(scratch_bytes // 4, dtype=torch.int32, device=dev)
+               if scratch_bytes else None)
+    err = _fn("kb_resolve")(
+        prop_node.data_ptr(), active.data_ptr(), rank.data_ptr(), task_req.data_ptr(),
+        avail.data_ptr(), eps.data_ptr(),
+        None if serialize_mask is None else serialize_mask.data_ptr(),
+        int(one_per_node), T, N, R, perm.data_ptr(), s_node.data_ptr(), kept.data_ptr(),
+        None if cancelled is None else cancelled.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), build.stream_handle(dev))
     build.check(err, "resolve")
     resolve.launches += 1
-    return accept
+    return kept, perm, s_node
 
 
 def apply(perm, s_node, accept, task_req, node_future, node_idle,
@@ -138,9 +247,7 @@ def apply(perm, s_node, accept, task_req, node_future, node_idle,
     for t in (node_future, node_idle, task_state, task_node):
         if not t.is_contiguous():
             raise ValueError("apply updates contiguous tensors in place")
-    fn = build.library("resolve").kb_apply
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-    fn.restype = ctypes.c_int
+    fn = _fn("kb_apply")
     T = perm.shape[0]
     N, R = node_future.shape
     c = [x.contiguous() for x in (perm, s_node, accept, task_req)]

@@ -11,10 +11,10 @@ Each auction round, as [T, N] tensor work on the snapshot's device:
    (r mod k)-th of its k score-tied best nodes, r being its dense rank
    among active proposers (kernel K2, `kernels/propose.py`);
 2. nodes resolve conflicts: proposers sorted by (node, global rank) are
-   accepted while the node's running request total fits
-   (kernel K3 resolve, `kernels/resolve.py`), then a global rank
-   watermark and the anti-affinity serialize steps trim the accepted set
-   (plain tensor glue);
+   accepted while the node's running request total fits, and a global
+   rank watermark trims the accepted set (kernel K3 resolve,
+   `kernels/resolve.py`, one launch); the anti-affinity serialize steps
+   trim it further (plain tensor glue);
 3. accepted tasks are allocated: per-node deltas land in `node_future`
    (and `node_idle` in the Idle pass), `task_state`/`task_node` are
    written (kernel K3 apply).
@@ -172,25 +172,16 @@ def resolve_conflicts(
     (perm, sorted node ids) of the (node, rank) sort for the apply step.
 
     Per node, the best-ranked prefix whose cumulative request fits the
-    available capacity is accepted (kernel K3 resolve, with
-    `one_per_node` / the per-node `serialize_mask` count); then the
-    global rank watermark cancels acceptances ranked above the
-    best-ranked rejected-but-feasible task, so the hungry task gets
-    first pick next round (≙ the reference placing strictly in rank
-    order).  See kube_batch_tpu/ops/assignment.py · _resolve_conflicts."""
-    T, N = rank.shape[0], avail.shape[0]
-    node_key = torch.where(active, prop_node, N)          # inactive sort last
-    # K3's own (node, rank) sort: one stable torch.sort of node·T + rank
-    s_key, perm = torch.sort(node_key.long() * T + rank.long(), stable=True)
-    s_node = torch.div(s_key, T, rounding_mode="floor")
-    accept = resolve.resolve(
-        perm, s_node, task_req, avail, eps, one_per_node, serialize_mask
-    )
-    rejected = active & ~accept
-    watermark = torch.where(rejected, rank, INT32_MAX).amin()
-    kept = accept & (rank < watermark)
-    _count_cancelled(cancelled, 0, accept, kept)
-    return kept, perm, s_node
+    available capacity is accepted (with `one_per_node` / the per-node
+    `serialize_mask` count); then the global rank watermark cancels
+    acceptances ranked above the best-ranked rejected-but-feasible task,
+    so the hungry task gets first pick next round (≙ the reference
+    placing strictly in rank order), and `cancelled[0]` gains what it
+    cancelled.  All of it, the sort included, is one call of kernel K3
+    (`kernels/resolve.py · resolve`); nothing is read on the host.  See
+    kube_batch_tpu/ops/assignment.py · _resolve_conflicts."""
+    return resolve.resolve(prop_node, active, rank, task_req, avail, eps,
+                           one_per_node, serialize_mask, cancelled)
 
 
 def auction_round(

@@ -33,9 +33,10 @@ drives, on the card with that checkout's own kernels (built into its own
     examples/scheduler.conf for 3 cycles, the preemption wave after
     cycle 1;
   * the same world and wave with `joint_solve=True`, 3 cycles;
-  * the affinity path: full-size config 5 with inter-pod affinity terms
-    (`chip_smoke.config5_affinity`) under the default conf, 2 cycles,
-    chip_smoke's second wave of MAIN_WAVE_PODS pods after cycle 1;
+  * the main path: config 5 full under the default conf, 2 cycles,
+    chip_smoke's second wave of MAIN_WAVE_PODS pods after cycle 1; and
+    the affinity path: full-size config 5 with inter-pod affinity terms
+    (`chip_smoke.config5_affinity`), the same way;
   * K7's segment_sum on both recorded sums and K6's preempt_open on the
     recorded step (median of 7 CUDA-event runs after 2 warm-ups; a
     checkout whose segment_sum takes no index is called without one),
@@ -59,11 +60,17 @@ drives, on the card with that checkout's own kernels (built into its own
     steps of the joint run's cycle 1 and 40 evict steps of its cycle 2
     traced with torch.profiler by this script's own checkout's
     `chip_smoke.JointWindows`, which wraps that checkout's K12
-    `tier_control(kind, gated, step, ...)` (called once an iteration).
+    `tier_control(kind, gated, step, ...)` (called once an iteration);
+  * the device operations per auction round on the main path (40 rounds
+    of cycle 2 from its third) and the affinity path (40 rounds of cycle
+    1 from its 100th), traced by this script's own checkout's
+    `chip_smoke.AuctionWindows`, which wraps the run checkout's K2
+    `propose_best` (called once a round).
 One JSON line per run gives each cycle's solve ms, binds, evictions and
-each loop's or joint tier's steps and ms per step (the affinity path:
-auction rounds and solve ms per round), the kernel times, the
-launches per joint step and per preemption step;
+each loop's or joint tier's steps and ms per step (the main and
+affinity paths: auction rounds and solve ms per round), the kernel
+times, the launches per joint step, per preemption step and per auction
+round;
 a last line says whether every run made the same decisions (binds,
 evictions and ready jobs of every cycle, as sets).  Runs in one call
 share one card, so the checkouts compare; calls on different machines
@@ -153,6 +160,7 @@ from kube_batch_tpu_torch.kernels import preempt_scan as k6
 from kube_batch_tpu_torch.kernels import propose as k2
 from kube_batch_tpu_torch.kernels import segment_sum as k7
 from kube_batch_tpu_torch.kernels import victim_prefix as k5
+from kube_batch_tpu_torch.models.workloads import config5_full
 from kube_batch_tpu_torch.ops import preemption as ops_preemption
 from kube_batch_tpu_torch.scheduler import Scheduler
 
@@ -237,23 +245,50 @@ for cycle in range(3):
 joint_tier.tier_control = real
 launches = windows.result()
 paths["joint"] = joint
-cache, sim = chip_smoke.config5_affinity()
-sched = Scheduler(cache, device="cuda")
-affinity = []
-for cycle in range(2):
-    ssn = sched.run_once()
-    st = sched.last_stats
-    rounds = sum(st.get("allocate_rounds", [])) + sum(st.get("backfill_rounds", []))
-    affinity.append({"solve_ms": sched.last_timings["solve_ms"], "binds": list(ssn.bound),
-                     "evicted": [], "ready": ready(ssn, ssn.job_ready),
-                     "loops": [{"loop": "auction", "steps": rounds,
-                                "ms_per_step": sched.last_timings["solve_ms"]
-                                / max(rounds, 1)}]})
-    sim.tick()
-    if cycle == 0:
-        chip_smoke.arrivals(cache, sim, chip_smoke.MAIN_WAVE_PODS)
-paths["affinity"] = affinity
 del cache, sim, sched, ssn
+
+
+def traced_k2(real, window):
+    def wrapper(*args):
+        window.hook()
+        return real(*args)
+
+    # the wrapper counts its launches on its module's global name
+    wrapper.launches = real.launches
+    return wrapper
+
+
+def auction_cycles(cache, sim, window):
+    # two cycles of the default conf with chip_smoke's second wave after
+    # the first, K2's pass 1 hooked to `window`
+    real_k2 = k2.propose_best
+    k2.propose_best = traced_k2(real_k2, window)
+    sched = Scheduler(cache, device="cuda")
+    out = []
+    for cycle in range(2):
+        ssn = sched.run_once()
+        st = sched.last_stats
+        rounds = sum(st.get("allocate_rounds", [])) + sum(st.get("backfill_rounds", []))
+        out.append({"solve_ms": sched.last_timings["solve_ms"], "binds": list(ssn.bound),
+                    "evicted": [], "ready": ready(ssn, ssn.job_ready),
+                    "loops": [{"loop": "auction", "steps": rounds,
+                               "ms_per_step": sched.last_timings["solve_ms"]
+                               / max(rounds, 1)}]})
+        sim.tick()
+        if cycle == 0:
+            chip_smoke.arrivals(cache, sim, chip_smoke.MAIN_WAVE_PODS)
+    k2.propose_best = real_k2
+    return out, window.result()
+
+
+round_ops = {}
+# the main path: config 5 full; the window starts at cycle 2's third round
+cache, sim = config5_full(seed=0)
+paths["main"], round_ops["main"] = auction_cycles(cache, sim, counter.AuctionWindows(skip=6))
+cache, sim = chip_smoke.config5_affinity()
+paths["affinity"], round_ops["affinity"] = auction_cycles(
+    cache, sim, counter.AuctionWindows(skip=100))
+del cache, sim
 paths_s = time.perf_counter() - t0
 
 inputs = torch.load(sys.argv[1])
@@ -365,7 +400,7 @@ print("RESULT " + json.dumps({"paths": paths, "kernels": kern, "s": paths_s,
                               "segment_sum_takes_index": with_index,
                               "joint_launches": launches,
                               "preempt_launches": preempt_launches,
-                              "preempt_step_ops": step_ops}))
+                              "preempt_step_ops": step_ops, "round_ops": round_ops}))
 """
 
 
@@ -417,6 +452,7 @@ def main(trees: list[str]) -> int:
                 "joint_launches": r["joint_launches"],
                 "preempt_launches": r["preempt_launches"],
                 "preempt_step_ops": r["preempt_step_ops"],
+                "round_ops": r["round_ops"],
                 **{kind: [{"solve_ms": round(c["solve_ms"], 1), "binds": len(c["binds"]),
                            "evicted": len(c["evicted"]), "ready_jobs": len(c["ready"]),
                            "loops": [{"loop": lp["loop"], "steps": lp["steps"],

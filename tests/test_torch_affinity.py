@@ -298,7 +298,8 @@ def test_policy_takes_words_only_for_affinity_alone():
 @pytest.mark.parametrize("world", ["config5_affinity_small", "releasing"])
 def test_cancelled_acceptances_add_up(world, monkeypatch):
     """Per round, the acceptances the watermark and the two serialize
-    steps cancel (counted on the device) add up to what K3 accepted less
+    steps cancel (counted on the device) add up to what K3's prefix fit
+    accepted (before its watermark, recomputed by the plain version) less
     what the round keeps; `allocate_rounds` reports them per solve."""
     _jsnap, snap, _states_ = _states(_fields(world))
     policy, _ = build_policy(default_conf())
@@ -307,9 +308,11 @@ def test_cancelled_acceptances_add_up(world, monkeypatch):
     real = k3.resolve
 
     def spy(*args):
-        out = real(*args)
-        k3_accepts.append(int(out.sum()))
-        return out
+        prop_node, active, rank, req, avail, eps, one_per_node, ser = args[:8]
+        perm, s_node = k3.sort_plain(prop_node, active, rank, avail.shape[0])
+        k3_accepts.append(int(k3.prefix_accept_plain(
+            perm, s_node, req, avail, eps, one_per_node, ser).sum()))
+        return real(*args)
 
     monkeypatch.setattr(k3, "resolve", spy)
     stats: dict = {}

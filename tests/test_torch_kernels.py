@@ -11,7 +11,7 @@ out bit-identical).
 * K2 `propose_best` / `propose_pick` vs the propose half of
   `allocate_rounds` (fit, feasibility, masked score, quantum floor, row
   max, tie count, `_round_robin_proposals`);
-* K3 `resolve` (+ watermark glue) vs `_resolve_conflicts`, and `apply` vs
+* K3 `resolve` (sort, prefix fit and watermark) vs `_resolve_conflicts`, and `apply` vs
   the apply step, with `one_per_node` and the anti-affinity
   `serialize_mask`;
 * K4 `failure_counts` vs `fit_errors.failure_counts`.
