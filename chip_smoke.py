@@ -44,7 +44,16 @@ and `triton`.  Phases (any failure exits non-zero):
    combinations at width 33) and on `k1_hostname_snap` (a label per node
    at N = 8,192, selectors naming hundreds of them: many tiles of words);
    exactly equal to the plain version, and the hostname world also to
-   the reference's own products (`predicate_matmul`)); K10's
+   the reference's own products (`predicate_matmul`)); K10's row
+   operand (`phase_k10_row_edge`: topology terms on and off, K = K2 =
+   256, K5's walk route past 16,384 rows, a preemptor whose required
+   terms only the bootstrap waiver meets; the row and the cell at a node
+   that is not viable and at one that is, and K5 given the operand, with
+   and without a dynamic mask, against K5's plain version fed the plain
+   row); K3 apply (`phase_k3_apply_edge`: one node holding all 65,536
+   rows, rows spread at 65,536 and 262,144, R = 1 to 8, an empty accept
+   set, both use_future values, and resolve's own output at 1,048,577
+   rows, resolve exact there too); both phases timed; K10's
    affinity_task_words and affinity_words, K11's resident_words (both
    resident sets and the future set alone) and K2's words form on
    seeded affinity terms (each = plain, K2 given the words = K2 given
@@ -132,8 +141,12 @@ and `triton`.  Phases (any failure exits non-zero):
    path (timed on an immediate and a FutureIdle round), K10's mask and
    task words on each of their calls, K10's words with K2's two passes
    every 300th round (K2 given the words against K2 given K10's mask,
-   both timed), and K10's row form on every call of the
-   config5_affinity_mid card run under examples/scheduler.conf, K12 on
+   both timed), and K10's row form on the
+   config5_affinity_mid card run under examples/scheduler.conf (K5
+   given the row operand on every opening step, against K5's plain
+   version fed the plain row, and the cell form on every continuing step,
+   if one occurs; the row form timed on a recorded operand, with K5 with
+   and without it), K12 on
    every 10th call of the joint path (after auction and evict steps)
    and on a recorded evict step with a plan open replayed at its step
    bound (a Discard advance), each timed on cycle 2's inputs.
@@ -153,7 +166,12 @@ nodes, 5,000 pods, a 1,500-pod wave) under both confs, and
 features_preempt and config5_affinity_mid under examples/scheduler.conf
 with the joint solve; every K10, K11 and K12 call of their card runs is
 held against its plain version.  Kernels already redesigned for this
-card (`REDESIGNED`) are marked in the `redesign-order` line.
+card (`REDESIGNED`) are marked in the `redesign-order` line.  Library
+times: one PyTorch call or the same function in library calls where
+one exists (K3 apply: a float64 index_add_ and two row scatters;
+preempt_continue: one masked argmin; failure_counts: the reference's
+reductions over [T, N, R] at once; K10's row: the reference's products,
+its plain version's form).
 
 The line before the `kernels` line gives the script's seconds, and the
 one before it the order a redesign should take the kernels in, those
@@ -242,9 +260,11 @@ RANK_KERNELS = ("lex_push_many", "sort_by_segment", "vtime")
 # launched where a steady cycle row-patches; required on the host cycle
 HOST_CYCLE_ONLY = ("row_patch",)
 # launched only on worlds with inter-pod affinity terms (the affinity
-# path; the row form where such a world preempts) and by the joint solve
+# path, and where such a world preempts) and by the joint solve
 AFFINITY_KERNELS = ("resident_words", "affinity_mask", "affinity_words",
                     "affinity_task_words")
+# the row form of K10: its own launches (the row, and the one-cell test of
+# a continuing step); an opening step's row runs inside K5
 AFFINITY_ROW = ("affinity_row",)
 JOINT_ONLY = ("tier_control",)
 NOT_ON_MAIN_PATH = (EVICTING_ONLY + HOST_CYCLE_ONLY + AFFINITY_KERNELS
@@ -286,7 +306,7 @@ AFFINITY_EVERY = {"resident_words": 1, "affinity_mask": 1, "affinity_task_words"
                   "resolve": 300, "apply": 300}
 JOINT_EVERY = {"tier_control": 10}
 JOINT_CYCLES = 3
-# the parity world whose card run gives K10's row form its launches
+# the parity world whose preemption steps hand K5 K10's row operand
 ROW_WORLD = "config5_affinity_mid_preempt"
 
 
@@ -1050,6 +1070,234 @@ def phase_k3_edge(device) -> float:
     return err
 
 
+def k10_row_inputs(device, T: int, N: int, K: int, K2: int, seed: int = 0,
+                   bootstrap: bool = False):
+    """(fields, task words, K11's future tables built by the wrapper, p):
+    the affinity terms of `k2_words_inputs` (K2 = 0: no topology terms)
+    and a pending preemptor p whose terms are chosen from the tables so
+    that its row keeps some nodes and vetoes others: a required label
+    resident on some nodes, an anti term on another, one own label that
+    some node's residents name as an anti term (none at domain scope),
+    and a topology term present in most domains.  `bootstrap`: p's
+    required terms (node and topology) name a label no resident carries
+    and p carries itself, so the waiver alone meets them."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import resident as k11
+
+    _args, fields, _both = k2_words_inputs(device, T, N, K, max(K2, 1), seed)
+    fields = [f.clone() for f in fields]
+    if not K2:
+        fields[3], fields[4] = fields[3][:, :0].contiguous(), fields[4][:, :0].contiguous()
+        fields[5], fields[6] = fields[5][:0].contiguous(), fields[6][:0].contiguous()
+    aff, anti, labels, aff_topo, anti_topo, _term_key, term_label = fields[:7]
+    g = torch.Generator().manual_seed(seed * 7 + T)
+    state = torch.randint(0, 10, (T,), generator=g, dtype=torch.int32).to(device)
+    node = torch.randint(-1, N - 4, (T,), generator=g, dtype=torch.int32).to(device)
+    mask = torch.arange(T, device=device) < T - 8
+    p = int(torch.randint(0, T - 8, (1,), generator=g))
+    state[p], node[p] = 0, -1                   # pending: not a resident
+    boot = K - 1                                # a padded label column: no resident
+    if bootstrap and K2:
+        term_label[0] = boot
+    D = 16
+    resident = k11.resident_words(k10.task_words_plain(*fields[:5]).contiguous(), node,
+                                  state, mask, fields[7], fields[5], fields[6], N, D, K,
+                                  K2, False)
+    Hb, Ab, _Hd, Ad = resident.tables()
+    for x in (aff, anti, labels, aff_topo, anti_topo):
+        x[p] = 0.0
+    held = Hb.sum(dim=0)
+    anti[p, int((held * (held < held.max())).argmax())] = 1.0   # the second most held
+    named = Ab.any(dim=0) & ~(Ad.any(dim=0) if Ad is not None else False)
+    if bool(named.any()):
+        labels[p, int(torch.nonzero(named)[0, 0])] = 1.0
+    if bootstrap:
+        labels[p, boot] = aff[p, boot] = 1.0
+        if K2:
+            aff_topo[p, 0] = 1.0
+    else:
+        aff[p, int(held.argmax())] = 1.0        # the most held label
+        if K2:
+            aff_topo[p, int(torch.randint(0, K2, (1,), generator=g))] = 1.0
+    tw = k10.task_words_plain(*fields[:5]).contiguous()
+    return fields, tw, resident, torch.tensor(p, dtype=torch.int64, device=device)
+
+
+K10_ROW_EDGE = (
+    # (case, T, N, K, K2, bootstrap)
+    ("topology", 4096, 1024, 40, 36, False),
+    ("no_topology", 4096, 1024, 40, 0, False),
+    ("widest", 4096, 1024, 256, 256, False),
+    ("walk_route", 20000, 512, 40, 36, False),
+    ("bootstrap_only", 4096, 1024, 40, 36, True),
+)
+
+
+def phase_k10_row_edge(device) -> dict:
+    """K10's row operand on `k10_row_inputs` for every case of
+    K10_ROW_EDGE (topology terms on and off, K = K2 = 256, K5's walk route
+    past 16,384 rows, a preemptor whose required terms only the bootstrap
+    waiver meets): the row form and the cell form at a node that is not
+    viable and at one that is, exactly equal to the plain version's row;
+    and K5 given the operand (and with a dynamic mask ANDed in, in the
+    first case) exactly equal to K5's plain version fed the plain row, on
+    its own route and the radix route.  Timed (seconds logged).  Returns
+    {name: max_abs_err}."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import victim_prefix as k5
+
+    t0 = time.perf_counter()
+    errs = {"affinity_row": 0.0, "victim_prefix": 0.0}
+    for case, T, N, K, K2, boot in K10_ROW_EDGE:
+        fields, tw, resident, p = k10_row_inputs(device, T, N, K, K2, bootstrap=boot)
+        want = k10.affinity_row_plain(*fields, resident, p)
+        if not 0 < int(want.sum()) < N:
+            fail(f"k10-row-edge {case}: the row keeps {int(want.sum())} of {N} nodes")
+        got = k10.affinity_row(*fields, resident, p, tw)
+        errs["affinity_row"] = max(errs["affinity_row"], require_equal(
+            f"affinity_row edge {case}", [(got, want)]))
+        for viable in (False, True):
+            n = torch.nonzero(want == viable)[0, 0]
+            cell = k10.affinity_cell(*fields, resident, p, n, tw)
+            require_equal(f"affinity_cell edge {case} viable={viable}",
+                          [(cell.clone(), want[n])])
+        row = k10.AffinityRow(tuple(fields), tw, resident, p)
+        k5_args = list(k5_edge_inputs(device, T, N, "random"))
+        dyn = k5_args[11]
+        k5_args[6] = p
+        for label, operand in (("row", row), ("row_and_mask", row.and_mask(dyn))):
+            if label == "row_and_mask" and case != "topology":
+                continue
+            k5_args[11] = operand
+            plain = k5.victim_prefix_plain(*k5_args)
+            errs["victim_prefix"] = max(errs["victim_prefix"], require_equal(
+                f"victim_prefix edge {case} {label}", [
+                    (k5.victim_prefix(*k5_args), plain),
+                    (k5.victim_prefix(*k5_args, route=k5.ROUTE_RADIX), plain)]))
+            k5_args[11] = None
+            alone = k5.victim_prefix_plain(*k5_args)
+            log(json.dumps({"phase": "k10-row-edge", "case": case, "form": label,
+                            "tasks": T, "nodes": N, "K": K, "K2": K2,
+                            "one_launch": T <= k5.CTA_MAX_T,
+                            "row_keeps": int(want.sum()),
+                            "n_best": int(plain[N]), "feasible": int(plain[N + 1]),
+                            "choice_moved_by_row": int(plain[N] != alone[N]
+                                                       or plain[N + 1] != alone[N + 1])}))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    log(json.dumps({"phase": "k10-row-edge-done",
+                    "seconds": round(time.perf_counter() - t0, 3)}))
+    return errs
+
+
+K3_APPLY_EDGE = (
+    # (case, T, N, R): one node holding every row, rows spread over the
+    # nodes, every R, an empty accept set
+    ("one_node", 65536, 8192, 4), ("spread", 65536, 8192, 4),
+    ("spread", 262144, 8192, 4), ("r1", 4096, 512, 1), ("r2", 4096, 512, 2),
+    ("r3", 4096, 512, 3), ("r5", 4096, 512, 5), ("r6", 4096, 512, 6),
+    ("r7", 4096, 512, 7), ("r8", 4096, 512, 8), ("empty", 65536, 8192, 4),
+    ("one_row", 1, 4, 4),
+)
+
+
+def k3_apply_inputs(device, case: str, T: int, N: int, R: int, seed: int = 0):
+    """kb_apply's arguments (perm, s_node, accept, task_req, node_future,
+    node_idle, use_future, new_status, task_state, task_node) with
+    use_future False: rows in (node, row) order with a tenth inactive
+    (node N, last), integer-valued requests, about two thirds accepted
+    (none for `empty`); every active row on node 0 for `one_node`."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 1009 + T + R)
+    perm = torch.randperm(T, generator=g)
+    if case == "one_node":
+        node = torch.zeros(T, dtype=torch.int64)
+    else:
+        node = torch.randint(0, N, (T,), generator=g)
+    node[torch.rand(T, generator=g) < 0.1] = N
+    s_node = torch.sort(node).values
+    accept = (torch.rand(T, generator=g) < 0.67) | (T == 1)
+    if case == "empty":
+        accept[:] = False
+    scale = torch.tensor([500.0, float(1 << 20), 1.0, 1.0, 8.0, 1.0, 2.0, 1.0])[:R]
+    req = torch.randint(0, 9, (T, R), generator=g).float() * scale
+    future = torch.randint(-50, 400, (N, R), generator=g).float() * scale
+    idle = torch.randint(-50, 400, (N, R), generator=g).float() * scale
+    state = torch.randint(0, 6, (T,), generator=g, dtype=torch.int32)
+    tnode = torch.randint(-1, N, (T,), generator=g, dtype=torch.int32)
+    args = (perm, s_node, accept, req, future, idle, False, 3, state, tnode)
+    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def apply_pair(args) -> float:
+    """K3 apply and its plain version on fresh copies of what they write
+    (both use_future values): exactly equal.  Returns the error."""
+    from kube_batch_tpu_torch.kernels import resolve as k3
+
+    err = 0.0
+    for use_future in (False, True):
+        a = list(args)
+        a[6] = use_future
+        a_k, a_p = _fresh_apply_args(a), _fresh_apply_args(a)
+        k3.apply(*a_k)
+        k3.apply_plain(*a_p)
+        err = max(err, require_equal(f"apply use_future={use_future}",
+                                     [(a_k[i], a_p[i]) for i in (4, 5, 8, 9)]))
+    return err
+
+
+def phase_k3_apply_edge(device) -> dict:
+    """K3 apply on K3_APPLY_EDGE's inputs (one node holding all 65,536
+    rows, rows spread at 65,536 and 262,144, R = 1 to 8, an empty accept
+    set, one row), both use_future values, and on resolve's own output at
+    1,048,577 rows (resolve exact there too): equal to the plain version.
+    The one-node and spread cases at 65,536 rows are timed.  Timed
+    (seconds logged).  Returns {name: max_abs_err}."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import resolve as k3
+
+    t0 = time.perf_counter()
+    errs = {"apply": 0.0, "resolve": 0.0}
+    for case, T, N, R in K3_APPLY_EDGE:
+        args = k3_apply_inputs(device, case, T, N, R)
+        errs["apply"] = max(errs["apply"], apply_pair(args))
+        line = {"phase": "k3-apply-edge", "case": case, "tasks": T, "nodes": N, "R": R,
+                "accepted": int(args[2].sum()),
+                "longest_run": int(torch.bincount(args[1][args[1] < N]).max())
+                if bool((args[1] < N).any()) else 0}
+        if device.type == "cuda" and T == 65536 and case != "empty":
+            ka = _fresh_apply_args(args)
+            line["ms"] = round(time_ms(lambda: k3.apply(*ka)), 4)
+        log(json.dumps(line))
+    T = 1048577
+    for case in ("one_node", "serialize"):
+        rargs = k3_edge_inputs(device, T, case)
+        got, want, counts = resolve_pair(rargs)
+        errs["resolve"] = max(errs["resolve"], require_equal(
+            f"resolve edge {case} T{T}", list(zip(got, want))))
+        kept, perm, s_node = want[:3]
+        N, R = rargs[4].shape
+        g = torch.Generator().manual_seed(T)
+        aargs = (perm, s_node, kept, rargs[3], rargs[4].clone(), rargs[4].clone(), False, 3,
+                 torch.zeros(T, dtype=torch.int32).to(device),
+                 torch.randint(-1, N, (T,), generator=g, dtype=torch.int32).to(device))
+        errs["apply"] = max(errs["apply"], apply_pair(aargs))
+        log(json.dumps({"phase": "k3-apply-edge", "case": f"resolve_{case}", "tasks": T,
+                        "nodes": N, "blocks": k3.plan(T)[0] if device.type == "cuda"
+                        else None, **counts}))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    log(json.dumps({"phase": "k3-apply-edge-done",
+                    "seconds": round(time.perf_counter() - t0, 3)}))
+    return errs
+
+
 K1_EDGE_WIDTHS = (1, 31, 32, 33, 100)
 K1_EDGE_NODES = (1000, 8191, 8192)
 
@@ -1397,6 +1645,7 @@ _MUTATED = {
     "resident_words": (1, 2),    # task_node, task_state
     "affinity_mask": (),
     "affinity_row": (),
+    "affinity_cell": (),
     "affinity_words": (),
     "affinity_task_words": (),
     # task_state, tried, prov, code, node_future, excl, phase, work, read
@@ -1408,7 +1657,8 @@ _MUTATED = {
 _SNAPSHOT_ARGS = {
     "resident_words": (0, 3, 4, 5, 6),
     "affinity_mask": tuple(range(8)),
-    "affinity_row": tuple(range(8)),
+    "affinity_row": tuple(range(8)) + (10,),     # the fields and the task words
+    "affinity_cell": tuple(range(8)) + (12,),
     "affinity_words": tuple(range(4)),
     "affinity_task_words": tuple(range(5)),
     "tier_control": (6, 7, 10, 14),
@@ -1487,6 +1737,7 @@ class Recorder:
             (resident, "resident_words", "resident_words"),
             (affinity, "affinity_mask", "affinity_mask"),
             (affinity, "affinity_row", "affinity_row"),
+            (affinity, "affinity_cell", "affinity_cell"),
             (affinity, "affinity_words", "affinity_words"),
             (affinity, "affinity_task_words", "affinity_task_words"),
             (joint_tier, "tier_control", "tier_control"),
@@ -1508,7 +1759,17 @@ class Recorder:
             self._memo[key] = a.clone()
         return self._memo[key]
 
+    def _row_clone(self, row):
+        """K5's row operand with its snapshot fields and task words cloned
+        once per cycle (its K11 build and preemptor are the step's own)."""
+        import dataclasses
+
+        return dataclasses.replace(row, fields=tuple(self._cycle_clone(f) for f in row.fields),
+                                   task_words=self._cycle_clone(row.task_words))
+
     def _wrap(self, name, fn):
+        from kube_batch_tpu_torch.kernels.affinity import AffinityRow
+
         mutated = _MUTATED[name]
         shared = _SNAPSHOT_ARGS.get(name, ())
         every = self.every.get(name, 1)
@@ -1524,7 +1785,8 @@ class Recorder:
             traced = hook is not None and hook(args)
             if self.seen[name] % every == 0 and not traced:
                 kept = tuple(_keep(a) if i in mutated
-                             else self._cycle_clone(a) if i in shared else a
+                             else self._cycle_clone(a) if i in shared
+                             else self._row_clone(a) if isinstance(a, AffinityRow) else a
                              for i, a in enumerate(args[:arity]))
                 self.calls[name].append((self.cycle, self.round, kept))
             return fn(*args)
@@ -1537,15 +1799,17 @@ class Recorder:
             w = self._wrap(name, fn)
             # A wrapper counts its launches on its module's global name,
             # which is `w` while patched: `w` counts on from `fn`'s count.
-            w.launches = fn.launches
-            self._saved.append((mod, attr, fn, w, fn.launches))
+            # (affinity_cell counts on affinity_row's.)
+            w.launches = getattr(fn, "launches", 0)
+            self._saved.append((mod, attr, fn, w, w.launches))
             setattr(mod, attr, w)
         return self
 
     def __exit__(self, *exc):
         for mod, attr, fn, w, start in self._saved:
             setattr(mod, attr, fn)
-            fn.launches += w.launches - start
+            if hasattr(fn, "launches"):
+                fn.launches += w.launches - start
         self._saved = []
 
 
@@ -1635,14 +1899,21 @@ def check_call(name: str, args):
     from kube_batch_tpu_torch.kernels import victim_prefix as k5
 
     if name == "victim_prefix":
+        from kube_batch_tpu_torch.kernels.affinity import AffinityRow
+
+        # the plain version is fed the plain row (affinity_row_plain) where
+        # the step hands K5 the affinity row operand
         buf = k5.victim_prefix(*args)
         err = require_equal(name, [(buf, k5.victim_prefix_plain(*args)),
                                    (buf, k5.victim_prefix(*args, route=k5.ROUTE_RADIX))])
         N = args[4].shape[0]
         k, out = buf[:N], buf[N:]
+        row = args[11]
+        with_row = isinstance(row, AffinityRow)
         return err, {"nodes_some_victims": int(((k > 0) & (k < k5.BIG_K)).sum()),
                      "nodes_no_prefix": int((k == k5.BIG_K).sum()),
-                     "node_found": int(out[1])}
+                     "node_found": int(out[1]), "with_affinity_row": int(with_row),
+                     "row_vetoed_nodes": int((~row.row_plain()).sum()) if with_row else 0}
     if name == "preempt_open":
         out = k6.preempt_open(*args)
         err = require_equal(name, [(out, k6.preempt_open_plain(*args))])
@@ -1739,11 +2010,20 @@ def check_call(name: str, args):
         got = k10.affinity_task_words(*args)
         err = require_equal(name, [(got, k10.task_words_plain(*args))])
         return err, {"rows_with_terms": int(got.any(dim=1).sum())}
-    if name in ("affinity_mask", "affinity_row"):
+    if name == "affinity_mask":
         from kube_batch_tpu_torch.kernels import affinity as k10
 
-        out = getattr(k10, name)(*args)
-        err = require_equal(name, [(out, getattr(k10, f"{name}_plain")(*args))])
+        out = k10.affinity_mask(*args)
+        err = require_equal(name, [(out, k10.affinity_mask_plain(*args))])
+        return err, {"vetoed_cells": int((~out).sum())}
+    if name in ("affinity_row", "affinity_cell"):
+        from kube_batch_tpu_torch.kernels import affinity as k10
+
+        # (fields..., resident, p[, n], task_words): the plain row reads
+        # the fields
+        out = getattr(k10, name)(*args).clone()
+        row = k10.affinity_row_plain(*args[:10])
+        err = require_equal(name, [(out, row if name == "affinity_row" else row[args[10]])])
         return err, {"vetoed_cells": int((~out).sum())}
     if name == "tier_control":
         from kube_batch_tpu_torch.kernels import joint_tier as k12
@@ -1925,8 +2205,8 @@ def phase_parity(cpu_runs):
     """Every parity world on the card, held against its CPU run
     (`cpu_runs[world]`, an async result of `parity_cpu`); returns the
     launch counts of all their card runs together and the Recorder of
-    ROW_WORLD's card run (the run that gives K10's row form its
-    launches)."""
+    ROW_WORLD's card run (the run whose preemption steps hand K5 the
+    inter-pod affinity row operand)."""
     from kube_batch_tpu_torch import kernels
 
     seen = {}
@@ -1974,15 +2254,30 @@ def phase_parity(cpu_runs):
                 ("resident_words", "releasing_calls"),
                 ("resident_words", "future_calls"),
                 ("resident_words", "domain_bits"),
-                ("affinity_mask", "vetoed_cells"), ("affinity_row", "vetoed_cells"),
+                ("affinity_mask", "vetoed_cells"),
+                ("victim_prefix", "with_affinity_row"), ("victim_prefix", "row_vetoed_nodes"),
                 ("affinity_words", "rows_with_terms"),
                 ("tier_control", "done"), ("tier_control", "not_done")):
         if seen.get(key, 0) <= 0:
             fail(f"parity worlds never gave {key[0]} a case with {key[1]} > 0")
+    # the row world's opening steps hand K5 the affinity row operand and
+    # launch no row kernel; a continuing step tests one cell (one launch)
+    from kube_batch_tpu_torch.kernels.affinity import AffinityRow
+
+    k5_calls = [a for _c, _r, a in row_rec.calls["victim_prefix"]]
+    with_row = sum(isinstance(a[11], AffinityRow) for a in k5_calls)
+    cells = row_rec.seen["affinity_cell"]
     log(json.dumps({"phase": "parity-row-world", "world": ROW_WORLD,
-                    "affinity_row_launches": row_counts["affinity_row"]}))
-    if row_counts["affinity_row"] <= 0:
-        fail(f"{ROW_WORLD}: kernel affinity_row was not launched")
+                    "victim_prefix_launches": row_counts["victim_prefix"],
+                    "victim_prefix_calls_with_row": with_row,
+                    "affinity_row_launches": row_counts["affinity_row"],
+                    "cell_tests": cells, "rows_launched_alone": row_rec.seen["affinity_row"]}))
+    if not k5_calls or with_row != len(k5_calls) or len(k5_calls) != row_counts["victim_prefix"]:
+        fail(f"{ROW_WORLD}: {len(k5_calls) - with_row} of {len(k5_calls)} K5 launches "
+             "without the affinity row operand")
+    if row_rec.seen["affinity_row"] or row_counts["affinity_row"] != cells:
+        fail(f"{ROW_WORLD}: affinity_row launched {row_counts['affinity_row']} times "
+             f"for {cells} cell tests")
     log(json.dumps({"phase": "parity-launches", **parity_counts}))
     return parity_counts, row_rec
 
@@ -2485,9 +2780,18 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
     args = max(cycle2("preempt_continue"),
                key=lambda a: int((a[1] & (a[2] == a[3])).sum()))
     rank, victims, task_node, n = args
+    T = rank.shape[0]
+
+    def masked_argmin():
+        # the library form: one masked argmin (the victim; not its flag)
+        return torch.argmin(torch.where(victims & (task_node == n), T - 1 - rank,
+                                        k6.INT32_MAX))
+
+    require_equal("preempt_continue against its library form",
+                  [(k6.preempt_continue(*args)[0].long(), masked_argmin())])
     record("preempt_continue", time_ms(lambda: k6.preempt_continue(*args)),
            time_ms(lambda: k6.preempt_continue_plain(*args)),
-           bound(rank.shape[0] * 9 + 8, rank.shape[0] * 2))
+           bound(rank.shape[0] * 9 + 8, rank.shape[0] * 2), time_ms(masked_argmin))
     log(json.dumps({"phase": "kernel-note", "name": "preempt_continue",
                     "candidate_victims": int(victims.sum()),
                     "on_node": int((victims & (task_node == n)).sum())}))
@@ -2827,6 +3131,41 @@ def apply_bound(args):
                  F64_OPS_PER_S)
 
 
+def apply_library(perm, s_node, accept, task_req, node_future, node_idle, use_future,
+                  new_status, task_state, task_node):
+    """K3 apply in library calls (its library yardstick; the port never
+    calls it): one float64 `index_add_` of the accepted rows' requests
+    into per-node deltas, subtracted once rounded (a node no row landed
+    on loses +0.0, which leaves it as it is), and the two row scatters."""
+    import torch
+
+    N, R = node_future.shape
+    s_acc = accept[perm] & (s_node < N)
+    rows = perm[s_acc]
+    delta = torch.zeros((N, R), dtype=torch.float64, device=perm.device).index_add_(
+        0, s_node[s_acc], task_req[rows].double()).float()
+    node_future.sub_(delta)
+    if not use_future:
+        node_idle.sub_(delta)
+    task_state[rows] = new_status
+    task_node[rows] = s_node[s_acc].int()
+
+
+def failure_counts_library(pred, task_req, node_idle, eps, node_ok):
+    """K4's tallies as the reference reduces them, over [T, N, R] at once
+    (its library yardstick; the plain version takes rows in chunks)."""
+    import torch
+
+    q = task_req[:, None, :]
+    ok = node_ok[None, :]
+    fit = ((q <= node_idle[None, :, :]) | (q < eps)).all(dim=-1)
+    pf = ((~pred) & ok).sum(dim=1).int()
+    fe = (pred & fit & ok).sum(dim=1).int()
+    short = ((pred & ~fit & ok)[:, :, None] & (q > node_idle[None, :, :])
+             & (task_req >= eps)[:, None, :])
+    return pf, short.sum(dim=1).int(), fe
+
+
 def predicate_bound(snap):
     """(K1's least time, live vocabulary columns W): every table read once
     and the T·N mask written; on 0/1 tables a set test covers 32 columns
@@ -2937,19 +3276,27 @@ def phase_kernels(rec: Recorder):
            time_ms(lambda: k3.resolve(*rargs)),
            time_ms(lambda: k3.resolve_plain(*rargs)),
            resolve_bound(rargs))
-    ka, pa = _fresh_apply_args(aargs), _fresh_apply_args(aargs)
+    ka, pa, la = (_fresh_apply_args(aargs) for _ in range(3))
+    apply_library(*la)
+    k3.apply(*ka)
+    require_equal("apply against its library form",
+                  [(ka[i], la[i]) for i in (4, 5, 8, 9)])
+    ka, la = _fresh_apply_args(aargs), _fresh_apply_args(aargs)
     record("apply", aargs,
            time_ms(lambda: k3.apply(*ka)),
            time_ms(lambda: k3.apply_plain(*pa)),
-           apply_bound(aargs))
+           apply_bound(aargs), time_ms(lambda: apply_library(*la)))
 
     # K4, cycle 2's call (the cycle's final node_idle)
     fargs = rec.calls["failure_counts"][-1][2]
+    require_equal("failure_counts against its library form", list(zip(
+        k4.failure_counts(*fargs), failure_counts_library(*fargs))))
     record("failure_counts", fargs,
            time_ms(lambda: k4.failure_counts(*fargs)),
            time_ms(lambda: k4.failure_counts_plain(*fargs)),
            bound(T * N + T * R * 4 + N * R * 4 + N + (2 + R) * 4 * T,
-                 T * N * (5 * R + 4)))
+                 T * N * (5 * R + 4)),
+           time_ms(lambda: failure_counts_library(*fargs), warmup=1, runs=3))
     pf, ins, fe = k4.failure_counts(*fargs)
     if not bool((ins > 0).any()):
         fail("main path: cycle 2's failure tallies found no insufficient node")
@@ -3650,7 +3997,10 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     """K11 on every call of the affinity path (immediate and FutureIdle
     rounds both met), K10's mask and task words on each of
     their calls (one a cycle), K10's words and K2 on every 300th round,
-    K10's row form on every call of ROW_WORLD's card run, K12 on every
+    K5 given K10's row operand on every opening step of ROW_WORLD's card
+    run (against K5's plain version fed the plain row) and K10's cell form
+    on every continuing step there, if one occurs; the row form timed on
+    a recorded operand beside K5 with and without it; K12 on every
     10th call of the joint path (after auction and evict steps both
     met), each against its plain version; K11 timed on an immediate and
     a FutureIdle round of cycle 2, the rest on cycle 2's inputs of their
@@ -3666,18 +4016,20 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     from kube_batch_tpu_torch.kernels import propose as k2
     from kube_batch_tpu_torch.kernels import resident as k11
     from kube_batch_tpu_torch.kernels import resolve as k3
+    from kube_batch_tpu_torch.kernels import victim_prefix as k5
 
     checks = {}
     for label, rec, names in (("affinity-path", arec, AFFINITY_KERNELS),
                               ("affinity-path-k2", arec, ("propose_best", "propose_pick",
                                                           "resolve", "apply")),
-                              ("row-world", row_rec, AFFINITY_ROW),
+                              ("row-world", row_rec, ("victim_prefix", "affinity_cell")),
                               ("joint-path", jrec, JOINT_ONLY)):
         got = check_all(rec, names)
         log(json.dumps({"phase": f"{label}-kernels", "equal_to_plain": True, **got}))
         checks.update(got)
         for name in names:
-            if got[name]["calls"] <= 0:
+            # a continuing step (a cell test) occurs only where a plan evicts
+            if got[name]["calls"] <= 0 and name != "affinity_cell":
                 fail(f"{label}: no {name} call was recorded")
     out = {}
 
@@ -3820,16 +4172,47 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
                         "accepted": int(aargs[2].sum()), "ms": round(ms, 4),
                         "bound_ms": round(b[0], 6), "bound_by": b[1]}))
 
-    # K10's row form: a call of ROW_WORLD's cycle 2
-    args = second_cycle(row_rec, "affinity_row")[0]
-    nkd, resident = args[7], args[8]
-    K, K2, N = args[0].shape[1], args[3].shape[1], resident.Hb.shape[0]
+    # K10's row form, launched on its own, on the operand of the K5 call
+    # of ROW_WORLD's cycle 2 whose row vetoes the most nodes (its opening
+    # steps test the row inside K5): the
+    # row, the one-cell test, and K5 with the operand beside K5 alone and
+    # beside the parent's sequence (the row, then K5 given it)
+    k5_args = max(second_cycle(row_rec, "victim_prefix"),
+                  key=lambda a: int((~a[11].row()).sum()))   # the row that vetoes most
+    op = k5_args[11]
+    rargs = (*op.fields, op.resident, op.p, op.task_words)
+    row_err = require_equal("affinity_row on a recorded operand",
+                            [(k10.affinity_row(*rargs), op.row_plain())])
+    nkd, resident = op.fields[7], op.resident
+    K, K2, N = op.fields[0].shape[1], op.fields[3].shape[1], resident.N
     KW, K2W = k10.words(K), k10.words(K2)
-    row_bytes = ((3 * K + 2 * K2) * 4 + 2 * K2 * 4 + nkd.numel() * 4
+    row_bytes = (op.task_words.shape[1] * 4 + 2 * K2 * 4 + nkd.numel() * 4
                  + _resident_read_bytes(resident, now=False) + N)
-    record("affinity_row", time_ms(lambda: k10.affinity_row(*args)),
-           time_ms(lambda: k10.affinity_row_plain(*args)),
-           bound(row_bytes, N * (5 * KW + 4 * K2W)), nodes=N)
+    n0 = torch.zeros((), dtype=torch.int64, device=op.p.device)
+    checks["affinity_row"] = {"max_abs_err": max(row_err, checks["affinity_cell"]["max_abs_err"])}
+    record("affinity_row", time_ms(lambda: k10.affinity_row(*rargs)),
+           time_ms(lambda: k10.affinity_row_plain(*rargs[:10])),
+           bound(row_bytes, N * (5 * KW + 4 * K2W)),
+           # the reference's products of the 0/1 tables for one row are
+           # the plain version's form
+           time_ms(lambda: k10.affinity_row_plain(*rargs[:10])), nodes=N,
+           cell_ms=round(time_ms(lambda: k10.affinity_cell(*rargs[:10], n0, rargs[10])), 4))
+    alone = list(k5_args)
+    alone[11] = None
+    with_mask = list(k5_args)
+    line = {"phase": "k10-row-in-k5", "tasks": k5_args[0].shape[0], "nodes": N,
+            "row_vetoed_nodes": int((~op.row_plain()).sum()),
+            "k5_with_row_ms": round(time_ms(lambda: k5.victim_prefix(*k5_args)), 4),
+            "k5_alone_ms": round(time_ms(lambda: k5.victim_prefix(*alone)), 4)}
+
+    def parent_sequence():
+        with_mask[11] = op.row()
+        return k5.victim_prefix(*with_mask)
+
+    require_equal("K5 given the row against K5 given the row operand",
+                  [(parent_sequence(), k5.victim_prefix(*k5_args))])
+    line["row_then_k5_ms"] = round(time_ms(parent_sequence), 4)
+    log(json.dumps(line))
 
     # K12: cycle 2's calls of the joint path, an evict-tier step past a
     # tier's first two (the loop checks its tensors only there) that does
@@ -3959,7 +4342,8 @@ REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "P
               "tier_control": "PR 7", "resident_words": "PR 7",
               "affinity_task_words": "PR 7", "propose_best": "PR 8", "vtime": "PR 8",
               "victim_prefix": "PR 9", "propose_pick": "PR 9",
-              "resolve": "PR 10", "predicate_mask": "PR 10"}
+              "resolve": "PR 10", "predicate_mask": "PR 10",
+              "affinity_row": "PR 11", "apply": "PR 11"}
 
 
 def excess_by_path(k, path_times) -> dict:
@@ -4016,12 +4400,13 @@ def main() -> int:
 
     device = resolve_device("cuda")
     # The CPU runs take minutes: worker processes run them while this one
-    # drives the card (one for the preempt path, two for the parity
-    # worlds), and are stopped on every exit.
+    # drives the card (one for the preempt path, three for the parity
+    # worlds, whose twins the parity phase waits for), and are stopped on
+    # every exit.
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    pool, ppool = ctx.Pool(1), ctx.Pool(2)
+    pool, ppool = ctx.Pool(1), ctx.Pool(3)
     try:
         cpu_preempt = pool.apply_async(preempt_cycles_cpu, (ROOT,))
         cpu_parity = {w: ppool.apply_async(parity_cpu, (ROOT, w))
@@ -4034,6 +4419,10 @@ def main() -> int:
         edge_errs["victim_prefix"] = phase_k5_edge(device)
         edge_errs["resolve"] = phase_k3_edge(device)
         edge_errs["predicate_mask"] = phase_k1_edge(device)
+        edge_errs["affinity_row"] = 0.0
+        for name, err in (list(phase_k10_row_edge(device).items())
+                          + list(phase_k3_apply_edge(device).items())):
+            edge_errs[name] = max(edge_errs.get(name, 0.0), err)
         for name, err in phase_k2_edge(device).items():
             edge_errs[name] = max(edge_errs[name], err)
         parity_counts, row_rec = phase_parity(cpu_parity)

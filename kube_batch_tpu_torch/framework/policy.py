@@ -23,6 +23,7 @@ import torch
 from kube_batch_tpu_torch.api.snapshot import SnapshotTensors, task_queue_of
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels import lex_rank
+from kube_batch_tpu_torch.kernels.affinity import AffinityRow
 from kube_batch_tpu_torch.kernels.propose import ScoreSpec
 from kube_batch_tpu_torch.ops.assignment import (
     AllocState,
@@ -68,8 +69,8 @@ class TensorPolicy:
         # bool[T, N] | None (None = no constraint for this snapshot),
         # re-evaluated every auction round.
         self.dynamic_predicates: list[Callable] = []
-        # Their single-task row forms (snap, state, p) -> bool[N] | None,
-        # evaluated once per preemption step.
+        # Their single-task row forms (snap, state, p) -> bool[N] |
+        # AffinityRow | None, evaluated once per preemption step.
         self.dynamic_predicate_rows: list[Callable] = []
         # Their words forms (snap, state, immediate, resident) ->
         # AffinityWords | None, or None where a predicate has none.
@@ -222,12 +223,16 @@ class TensorPolicy:
 
     @property
     def dyn_predicate_row(self):
-        """(snap, state, p) -> bool[N] | None: the dynamic predicates for
-        ONE task (the preemptor of a preemption step; `p` may be a
-        0-dim device tensor), None when none constrains this snapshot;
-        the property itself is None when no dynamic predicate is
-        registered (≙ kube_batch_tpu framework/policy.py ·
-        dyn_predicate_row)."""
+        """(snap, state, p) -> bool[N] | AffinityRow | None: the dynamic
+        predicates for ONE task (the preemptor of a preemption step; `p`
+        may be a 0-dim device tensor), None when none constrains this
+        snapshot; the property itself is None when no dynamic predicate
+        is registered (≙ kube_batch_tpu framework/policy.py ·
+        dyn_predicate_row).  A row fn may give the inter-pod affinity
+        operand (`kernels/affinity.py · AffinityRow`), which kernel K5
+        tests itself, or a bool[N] row; plain rows are ANDed into the
+        operand's mask (a second operand is taken as its row), as kernel
+        K2 takes a mask or words."""
         if not self.dynamic_predicate_rows:
             return None
         row_fns = list(self.dynamic_predicate_rows)
@@ -236,8 +241,16 @@ class TensorPolicy:
             m = None
             for row_fn in row_fns:
                 part = row_fn(snap, state, p)
-                if part is not None:
-                    m = part if m is None else m & part
+                if part is None:
+                    continue
+                if m is None:
+                    m = part
+                elif isinstance(m, AffinityRow):
+                    m = m.and_mask(part.row() if isinstance(part, AffinityRow) else part)
+                elif isinstance(part, AffinityRow):
+                    m = part.and_mask(m)
+                else:
+                    m = m & part
             return m
 
         return row

@@ -1,5 +1,6 @@
 """K10 · the inter-pod affinity predicate against the resident tables
-(CUDA C++, `csrc/affinity_mask.cu`), four entry points.
+(CUDA C++, `csrc/affinity_mask.cu` and `csrc/affinity_row.cuh`), five
+entry points and a row operand.
 
 Replaces kube_batch_tpu/plugins/predicates.py · _topo_feasibility,
 _affinity_candidate_ok, pod_affinity_predicate (the bool[T, N] mask) and
@@ -24,9 +25,17 @@ pass), the same tables otherwise:
   snapshot and kept (`SnapshotTensors.affinity_task_words`); K11 reads
   its label rows from them.
 * `affinity_mask(fields..., resident)` → bool[T, N];
-* `affinity_row(fields..., resident, p)` → bool[N]: the same for task `p`
-  (an int or a 0-dim device tensor, never read on the host) against the
-  future tables;
+* `affinity_row(fields..., resident, p, task_words)` → bool[N]: the same
+  for task `p` (an int or a 0-dim device tensor, never read on the host)
+  against the future tables, from the kept task words (the card reads
+  them, the plain version the fields); `affinity_cell(..., p, n,
+  task_words)` → bool[]: its one cell (p, n), n a 0-dim device tensor,
+  one warp, answered in the word K11's build keeps for it;
+* `AffinityRow`: the row of one task as an operand — the fields, the
+  kept task words, the state's K11 tables and p — that kernel K5 tests
+  node by node inside its own launch (`kernels/victim_prefix.py`), so a
+  preemption step that opens a plan launches nothing for the row; its
+  `row()` and `cell(n)` are the two forms above;
 * `affinity_words(task_words, term_key, term_label, node_key_domain,
   resident)` → `AffinityWords`: the mask's operands as 32-bit words and
   per-task thresholds, nothing per cell.  Kernel K2 takes it in place of
@@ -52,7 +61,8 @@ MAX_WIDTH = 256          # K and K2 (8 words of 32 bits each)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "kb_affinity_mask": [_P] * 15 + [_I] * 5 + [_P] * 5,
-    "kb_affinity_row": [_P] * 16 + [_I] * 5 + [_P] * 5,
+    "kb_affinity_row": [_P] * 10 + [_I] * 4 + [_P] * 2,
+    "kb_affinity_cell": [_P] * 11 + [_I] * 3 + [_P] * 2,
     "kb_affinity_words": [_P] * 11 + [_I] * 5 + [_P] * 3,
     "kb_affinity_task_words": [_P] * 6 + [_I] * 3 + [_P] * 2,
 }
@@ -222,8 +232,8 @@ def _on_card(t, what: str) -> bool:
 # K11's tables as the kernels read them: the `_now` set on the anti /
 # symmetry side (the future set itself when the build has no `_now` set)
 _KERNEL_TABLES = ("Hb", "Hb_now", "Ab_now", "Hd", "Hd_now", "Ad_now", "term_exists")
-# the row form: the future set in both orientations
-_ROW_TABLES = ("Hb", "Hb", "Ab", "Hd", "Hd", "Ad", "term_exists")
+# the row form: the future set, read in both orientations
+_ROW_TABLES = ("Hb", "Ab", "Hd", "Ad", "term_exists")
 
 
 def _check(what, tensors, dtypes, dev) -> None:
@@ -248,8 +258,8 @@ _FIELD_DTYPES = (torch.float32,) * 5 + (torch.int32,) * 3
 
 
 def _scratch(T: int, N: int, nw: int, dev):
-    """Node words, task words and thresholds of one mask / row launch,
-    in one allocation."""
+    """Node words, task words and thresholds of one mask launch, in one
+    allocation."""
     buf = torch.empty(N * nw + T * nw + 2 * T, dtype=torch.int32, device=dev)
     return (buf[:N * nw].view(N, nw), buf[N * nw:(N + T) * nw].view(T, nw),
             buf[(N + T) * nw:].view(T, 2))
@@ -299,29 +309,122 @@ def affinity_mask(aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
     return out
 
 
+def _row_operand(what, resident: ResidentWords, task_words, term_key, term_label,
+                 node_key_domain, p) -> tuple:
+    """The row operand's C arguments, checked: task words, the future
+    tables [Hb, Ab, Hd, Ad, exists], the snapshot's node_key_domain and
+    term arrays, p, and K, K2, TK (affinity_row.cuh · Operand)."""
+    dev = task_words.device
+    _check(what, (task_words, term_key, term_label, node_key_domain, p),
+           (torch.int32,) * 4 + (torch.int64,), dev)
+    K, K2 = resident.K, resident.K2
+    if task_words.shape[1] != 3 * words(K) + 2 * words(K2) or p.numel() != 1:
+        raise ValueError(f"{what}: task words of {3 * words(K) + 2 * words(K2)} words "
+                         "a row and one preemptor")
+    tables = _tables(what, resident, dev, _ROW_TABLES)
+    TK = node_key_domain.shape[1] if K2 else 0
+    return (task_words.data_ptr(), *tables, node_key_domain.data_ptr(),
+            term_key.data_ptr(), term_label.data_ptr(), p.data_ptr(), K, K2, TK)
+
+
+def _device_scalar(x, dev) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.int64,
+                                                              device=dev)
+
+
 def affinity_row(aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
-                 node_key_domain, resident: ResidentWords, p):
-    """bool[N] — see the module docstring."""
+                 node_key_domain, resident: ResidentWords, p, task_words=None):
+    """bool[N] — see the module docstring.  On the card `task_words` (the
+    snapshot's kept words) are required and `p` is an int64 device
+    scalar (an int is moved there)."""
     fields = (aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
               node_key_domain)
     if not _on_card(aff, "affinity_row"):
         return affinity_row_plain(*fields, resident, p)
     dev = aff.device
-    _check("affinity_row", fields, _FIELD_DTYPES, dev)
-    tables = _tables("affinity_row", resident, dev, _ROW_TABLES)
-    (T, K), K2, N = aff.shape, aff_topo.shape[1], resident.N
-    TK = node_key_domain.shape[1] if K2 else 0
-    nw = 3 * words(K) + 2 * words(K2)
-    node_words, task_words, thr = _scratch(1, N, nw, dev)
-    p_dev = torch.as_tensor(p, device=dev).to(torch.int64).reshape(1)
-    out = torch.empty(N, dtype=torch.bool, device=dev)
-    err = _fn("kb_affinity_row")(
-        *(x.data_ptr() for x in fields), *tables, p_dev.data_ptr(), T, N, K, K2, TK,
-        node_words.data_ptr(), task_words.data_ptr(), thr.data_ptr(), out.data_ptr(),
-        build.stream_handle(dev))
+    if task_words is None:
+        raise ValueError("affinity_row on the card reads the snapshot's task words")
+    args = _row_operand("affinity_row", resident, task_words, term_key, term_label,
+                        node_key_domain, _device_scalar(p, dev))
+    out = torch.empty(resident.N, dtype=torch.bool, device=dev)
+    err = _fn("kb_affinity_row")(*args[:10], resident.N, *args[10:], out.data_ptr(),
+                                 build.stream_handle(dev))
     build.check(err, "affinity_row")
     affinity_row.launches += 1
     return out
+
+
+def affinity_cell(aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
+                  node_key_domain, resident: ResidentWords, p, n, task_words=None):
+    """bool[]: cell (p, n) of `affinity_row`, n an int64 device scalar in
+    [0, N) on the card.  One warp; the answer is a view of the word past
+    `resident`'s tables (`ResidentWords.answer`), valid until the next
+    cell test of the same build.  Counted with affinity_row's launches
+    (the row form's entry in the kernels line)."""
+    fields = (aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
+              node_key_domain)
+    if not _on_card(aff, "affinity_cell"):
+        return affinity_row_plain(*fields, resident, p)[n]
+    dev = aff.device
+    if task_words is None:
+        raise ValueError("affinity_cell on the card reads the snapshot's task words")
+    args = _row_operand("affinity_cell", resident, task_words, term_key, term_label,
+                        node_key_domain, _device_scalar(p, dev))
+    n = _device_scalar(n, dev)
+    _check("affinity_cell", (n,), (torch.int64,), dev)
+    out = resident.answer()
+    err = _fn("kb_affinity_cell")(*args[:10], n.data_ptr(), *args[10:], out.data_ptr(),
+                                  build.stream_handle(dev))
+    build.check(err, "affinity_cell")
+    affinity_row.launches += 1
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AffinityRow:
+    """pod_affinity_row of one task as the operand kernel K5 tests node by
+    node inside its own launch (its node mask), in place of a bool[N]
+    row: the snapshot's fields (`fields`, the plain version's input),
+    its kept task words, this state's K11 tables (`resident`, future
+    set) and the preemptor `p` (an int64 device scalar, or an int on the
+    CPU).  `mask` (bool[N], optional) is ANDed in: the rows of other
+    dynamic predicates that have no operand form."""
+
+    fields: tuple
+    task_words: torch.Tensor
+    resident: ResidentWords
+    p: torch.Tensor
+    mask: torch.Tensor | None = None
+
+    def row(self) -> torch.Tensor:
+        """bool[N]: the whole row (`affinity_row`; the plain version on
+        the CPU)."""
+        r = affinity_row(*self.fields, self.resident, self.p, self.task_words)
+        return r if self.mask is None else r & self.mask
+
+    def row_plain(self) -> torch.Tensor:
+        """bool[N]: the row by the plain version (the reference's
+        products), on any device: what K5's plain version is fed."""
+        r = affinity_row_plain(*self.fields, self.resident, self.p)
+        return r if self.mask is None else r & self.mask
+
+    def cell(self, n) -> torch.Tensor:
+        """bool[]: the row at node n (`affinity_cell`, one launch of one
+        warp on the card)."""
+        c = affinity_cell(*self.fields, self.resident, self.p, n, self.task_words)
+        return c if self.mask is None else c & self.mask[n]
+
+    def and_mask(self, m: torch.Tensor) -> "AffinityRow":
+        """The same predicate ANDed with a bool[N] row."""
+        return dataclasses.replace(self, mask=m if self.mask is None else self.mask & m)
+
+    def kernel_args(self) -> tuple:
+        """The operand's C arguments for K5 (`csrc/affinity_row.cuh ·
+        Operand`), checked."""
+        term_key, term_label, nkd = self.fields[5:8]
+        return _row_operand("victim_prefix", self.resident, self.task_words, term_key,
+                            term_label, nkd, self.p)
+
 
 
 def affinity_words(task_words, term_key, term_label, node_key_domain,

@@ -1,4 +1,5 @@
-// K10 · the inter-pod affinity predicate: bool[T, N] mask and bool[N] row.
+// K10 · the inter-pod affinity predicate: bool[T, N] mask, its words form,
+// and the bool[N] row of one task (with its one-cell form).
 //
 // Replaces kube_batch_tpu/plugins/predicates.py · _topo_feasibility,
 // _affinity_candidate_ok, pod_affinity_predicate and pod_affinity_row,
@@ -21,15 +22,12 @@
 //     Ad_now through node_key_domain), present and present_now — read
 //     from kernel K11's word tables (one word per 32 labels; K11 also
 //     gives the term-exists words, Hb.any(0)), so nothing is packed;
-//   pass 2, one thread per task (or the one task of the row form, read
-//     from device memory so the caller never waits): the task's words —
-//     aff, anti, labels, aff_topo, anti_topo — and its two thresholds
-//     need - bootstrap, with the bootstrap waiver read from the exists
-//     words;
+//   pass 2, one thread per task: the task's words — aff, anti, labels,
+//     aff_topo, anti_topo — and its two thresholds need - bootstrap, with
+//     the bootstrap waiver read from the exists words;
 //   pass 3, 2-D tiles of 32 nodes x 32 tasks as K1's: both sides' words
 //     staged in shared memory, one byte written per cell, each warp
-//     writing 32 consecutive bytes of one row (the row form: one thread
-//     per node).
+//     writing 32 consecutive bytes of one row.
 // Padded vocabulary columns are zero on the task side, so they never
 // count; padded nodes and padded topology-key columns (the dead domain)
 // are evaluated by the same formula as the plain version.
@@ -43,9 +41,21 @@
 // thresholds (affinity_thresholds_kernel, from the kept words and the
 // term-exists words): at the flagship shapes 160 KB of node words and
 // 512 KB of thresholds a round, where the mask was 0.54 GB.
+//
+// The row form (affinity_row.cuh) reads the kept task words of the one
+// task p (a device scalar) and K11's tables directly: one warp derives
+// p's thresholds and topology terms into shared memory, then each node's
+// cell is tested in registers; nothing is written but the answer.
+// Kernel K5 (victim_prefix.cu) runs the same test inside its own launch,
+// so a preemption step that opens a plan launches nothing for the row;
+// kb_affinity_row (a thread a node) and kb_affinity_cell (one warp, the
+// cell (p, n) of a continuing step) are its forms launched on their own.
+// Bound: bytes (p's words, the words of the nodes tested, one byte each).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "affinity_row.cuh"
 
 namespace {
 
@@ -107,19 +117,16 @@ __device__ __forceinline__ uint32_t bits(const float* row, int w, int width) {
 
 // task words: [aff | anti | labels | aff_topo | anti_topo], thresholds
 // thr[0] = need - bootstrap (node terms), thr[1] = the same for topo terms
-// (the words alone when thr is null).  `row` (device int64) selects one
-// task for the row form, else all tasks.
+// (the words alone when thr is null).
 __global__ void affinity_tasks_kernel(
     Dims d, const float* __restrict__ aff, const float* __restrict__ anti,
     const float* __restrict__ labels, const float* __restrict__ aff_topo,
     const float* __restrict__ anti_topo, const int32_t* __restrict__ term_label,
-    const uint32_t* __restrict__ exists, const int64_t* __restrict__ row,
-    uint32_t* __restrict__ task_words, int32_t* __restrict__ thr) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int count = row ? 1 : d.T;
-  if (i >= count) return;
-  const int t = row ? (int)row[0] : i;
-  uint32_t* out = task_words + (size_t)i * d.nw();
+    const uint32_t* __restrict__ exists, uint32_t* __restrict__ task_words,
+    int32_t* __restrict__ thr) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= d.T) return;
+  uint32_t* out = task_words + (size_t)t * d.nw();
   int need = 0, boot = 0;
   for (int w = 0; w < d.KW; ++w) {
     uint32_t a = bits(aff + (size_t)t * d.K, w, d.K);
@@ -147,8 +154,8 @@ __global__ void affinity_tasks_kernel(
     boot2 += __popc(a & own & gone);
   }
   if (thr) {
-    thr[2 * i] = need - boot;
-    thr[2 * i + 1] = need2 - boot2;
+    thr[2 * t] = need - boot;
+    thr[2 * t + 1] = need2 - boot2;
   }
 }
 
@@ -235,13 +242,22 @@ __global__ void affinity_cells_kernel(Dims d, const uint32_t* __restrict__ task_
   }
 }
 
-__global__ void affinity_row_kernel(Dims d, const uint32_t* __restrict__ task_words,
-                                    const int32_t* __restrict__ thr,
-                                    const uint32_t* __restrict__ node_words,
-                                    uint8_t* __restrict__ out) {
+// The row form launched on its own: a thread a node, out u8[N].
+__global__ void affinity_row_kernel(affinity_row::Operand o, int N, uint8_t* __restrict__ out) {
+  __shared__ affinity_row::Shared s;
+  if (threadIdx.x < 32) affinity_row::prepare(o, s);
+  __syncthreads();
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= d.N) return;
-  out[n] = cell(d, task_words, thr, node_words + (size_t)n * d.nw()) ? 1 : 0;
+  if (n < N) out[n] = affinity_row::cell(o, s, n) ? 1 : 0;
+}
+
+// The cell (p, *n) alone: one warp, out u8[1].
+__global__ void affinity_cell_kernel(affinity_row::Operand o, const int64_t* __restrict__ n,
+                                     uint8_t* __restrict__ out) {
+  __shared__ affinity_row::Shared s;
+  affinity_row::prepare(o, s);
+  __syncwarp();
+  if (threadIdx.x == 0) out[0] = affinity_row::cell(o, s, (int)*n) ? 1 : 0;
 }
 
 Dims make_dims(int T, int N, int K, int K2, int TK) {
@@ -266,14 +282,22 @@ int launch_nodes(const Dims& d, const Tables& r, const int32_t* nkd, const int32
 int prepare(const Dims& d, const Tables& r, const int32_t* nkd, const int32_t* term_key,
             const int32_t* term_label, const float* aff, const float* anti,
             const float* labels, const float* aff_topo, const float* anti_topo,
-            const int64_t* row, uint32_t* node_words, uint32_t* task_words, int32_t* thr,
-            cudaStream_t stream) {
+            uint32_t* node_words, uint32_t* task_words, int32_t* thr, cudaStream_t stream) {
   int err = launch_nodes(d, r, nkd, term_key, term_label, node_words, stream);
   if (err) return err;
-  int count = row ? 1 : d.T;
-  affinity_tasks_kernel<<<(count + 127) / 128, 128, 0, stream>>>(
-      d, aff, anti, labels, aff_topo, anti_topo, term_label, r.exists, row, task_words, thr);
+  affinity_tasks_kernel<<<(d.T + 127) / 128, 128, 0, stream>>>(
+      d, aff, anti, labels, aff_topo, anti_topo, term_label, r.exists, task_words, thr);
   return (int)cudaGetLastError();
+}
+
+affinity_row::Operand row_operand(const uint32_t* task_words, const uint32_t* Hb,
+                                  const uint32_t* Ab, const uint32_t* Hd, const uint32_t* Ad,
+                                  const uint32_t* exists, const int32_t* nkd,
+                                  const int32_t* term_key, const int32_t* term_label,
+                                  const int64_t* p, int K, int K2, int TK) {
+  affinity_row::Operand o{task_words, Hb, Ab, Hd, Ad, exists, nkd, term_key, term_label,
+                          p, K, K2, K2 ? TK : 0};
+  return o;
 }
 
 }  // namespace
@@ -295,7 +319,7 @@ extern "C" int kb_affinity_mask(
   Dims d = make_dims(T, N, K, K2, TK);
   Tables r{Hb, Hba, Aba, Hd, Hd_now, Ad_now, exists};
   int err = prepare(d, r, nkd, term_key, term_label, aff, anti, labels, aff_topo, anti_topo,
-                    nullptr, node_words, task_words, thr, stream);
+                    node_words, task_words, thr, stream);
   if (err) return err;
   dim3 block(TILE, TILE / ROWS);
   dim3 grid((N + TILE - 1) / TILE, (T + TILE - 1) / TILE);
@@ -303,25 +327,35 @@ extern "C" int kb_affinity_mask(
   return (int)cudaGetLastError();
 }
 
-// The row of task *p (device int64) against one table set (the caller
-// passes Hb, Ab, Hd, Ad as both orientations): out u8[N].  Scratch as
-// above, with task_words u32[1, NW] and thr i32[1, 2].
-extern "C" int kb_affinity_row(
-    const float* aff, const float* anti, const float* labels, const float* aff_topo,
-    const float* anti_topo, const int32_t* term_key, const int32_t* term_label,
-    const int32_t* nkd, const uint32_t* Hb, const uint32_t* Hba, const uint32_t* Aba,
-    const uint32_t* Hd, const uint32_t* Hd_now, const uint32_t* Ad_now,
-    const uint32_t* exists, const int64_t* p, int T, int N, int K, int K2, int TK,
-    uint32_t* node_words, uint32_t* task_words, int32_t* thr, uint8_t* out,
-    cudaStream_t stream) {
+// The row of task *p (int64 on the card) against one future table set
+// (Hb, Ab [N, ceil(K/32)]; Hd, Ad [D, ceil(K/32)], null when K2 == 0),
+// from the snapshot's kept task words: out u8[N].  No scratch.
+extern "C" int kb_affinity_row(const uint32_t* task_words, const uint32_t* Hb,
+                               const uint32_t* Ab, const uint32_t* Hd, const uint32_t* Ad,
+                               const uint32_t* exists, const int32_t* nkd,
+                               const int32_t* term_key, const int32_t* term_label,
+                               const int64_t* p, int N, int K, int K2, int TK, uint8_t* out,
+                               cudaStream_t stream) {
   if (N == 0) return 0;
-  Dims d = make_dims(T, N, K, K2, TK);
-  Tables r{Hb, Hba, Aba, Hd, Hd_now, Ad_now, exists};
-  int err = prepare(d, r, nkd, term_key, term_label, aff, anti, labels, aff_topo, anti_topo,
-                    p, node_words, task_words, thr, stream);
-  if (err) return err;
-  affinity_row_kernel<<<(N + 127) / 128, 128, 0, stream>>>(d, task_words, thr, node_words,
-                                                          out);
+  if (K > affinity_row::MAXK2 || K2 > affinity_row::MAXK2) return (int)cudaErrorInvalidValue;
+  affinity_row_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
+      row_operand(task_words, Hb, Ab, Hd, Ad, exists, nkd, term_key, term_label, p, K, K2, TK),
+      N, out);
+  return (int)cudaGetLastError();
+}
+
+// The one cell (p, *n) of the row above (n int64 on the card, in [0, N)):
+// out u8[1], one warp.
+extern "C" int kb_affinity_cell(const uint32_t* task_words, const uint32_t* Hb,
+                                const uint32_t* Ab, const uint32_t* Hd, const uint32_t* Ad,
+                                const uint32_t* exists, const int32_t* nkd,
+                                const int32_t* term_key, const int32_t* term_label,
+                                const int64_t* p, const int64_t* n, int K, int K2, int TK,
+                                uint8_t* out, cudaStream_t stream) {
+  if (K > affinity_row::MAXK2 || K2 > affinity_row::MAXK2) return (int)cudaErrorInvalidValue;
+  affinity_cell_kernel<<<1, 32, 0, stream>>>(
+      row_operand(task_words, Hb, Ab, Hd, Ad, exists, nkd, term_key, term_label, p, K, K2, TK),
+      n, out);
   return (int)cudaGetLastError();
 }
 
@@ -353,7 +387,6 @@ extern "C" int kb_affinity_task_words(
   Dims d = make_dims(T, 0, K, K2, 0);
   if (d.KW > MAXW || d.K2W > MAXW) return (int)cudaErrorInvalidValue;
   affinity_tasks_kernel<<<(T + 127) / 128, 128, 0, stream>>>(
-      d, aff, anti, labels, aff_topo, anti_topo, term_label, nullptr, nullptr, task_words,
-      nullptr);
+      d, aff, anti, labels, aff_topo, anti_topo, term_label, nullptr, task_words, nullptr);
   return (int)cudaGetLastError();
 }

@@ -21,8 +21,10 @@
 // watermark) are read by one warp, a lane a block, and combined by
 // shuffles.  Past what a cluster keeps (T > 131,072 on an H100) the same
 // kernel keeps the rows in a device-memory scratch the caller passes
-// (16 B a row, read through L2), up to 65,536 rows a block: 1,048,576 rows
-// in a cluster of 16 (kb_resolve_plan says which, and how much scratch).
+// (16 B a row, read through L2), any number of rows in a cluster of 16
+// (kb_resolve_plan says which, and how much scratch): there a warp's digit
+// counters are u32 and each row's acceptance flags a word of the sort's
+// free buffer, so a thread owns as many rows as T needs.
 //
 //   1. Sort into the order of torch.sort(node_key * T + rank, stable=True):
 //      node, then rank, then row, node_key = N for an inactive row (last).
@@ -35,16 +37,15 @@
 //      pass, stable, and skips digits constant over every row (AND and OR
 //      of the keys).  A pass: each warp counts its rows' digits (rows of
 //      one digit find each other with __match_any_sync; warp-private u16
-//      counters), the block publishes its digit totals; after a barrier
+//      counters, u32 from the scratch), the block publishes its digit totals; after a barrier
 //      every block reads every block's totals, which give each digit's
 //      start and the block's place among the rows of the digit; each row
 //      is written to the block that owns its new position; a barrier.  A
 //      run of one node may hold every row: nothing here depends on run
 //      lengths.
 //   2. The segmented exclusive prefix of the requests in float64, all R
-//      dims at once.  A thread owns up to 8 consecutive sorted rows (64 from
-//      the scratch); the
-//      (started a segment, sum since the last start) pairs combine by warp
+//      dims at once.  A thread owns up to 8 consecutive sorted rows
+//      (ceil(T / 16,384) from the scratch); the (started a segment, sum since the last start) pairs combine by warp
 //      shuffles, across warps in shared memory and across blocks through
 //      the cluster.  Requests are integer-valued below 2^53 (millicores,
 //      bytes, counts), so every float64 sum of them is exact and the order
@@ -69,13 +70,28 @@
 // launches); this is one launch whose time is the sort's passes (rows a
 // block, hence up to 16 blocks) and a dozen cluster barriers.
 //
-// kb_apply: one thread owns one node's segment in the sorted order, walks
-// it and writes only its own node's rows and its own segment's tasks (no
-// atomics; the result does not depend on scheduling); each node's delta
-// is summed in float64 and rounded once to float32.
+// kb_apply: one launch over the sorted positions, APPLY_ROWS consecutive
+// positions a thread (one: the fewest dependent loads a thread), as
+// kb_resolve's threads own theirs.  Each accepted
+// row writes its own task_state and task_node.  Its request joins its
+// node's float64 delta: a node's run that starts and ends in one thread
+// lands there; runs that cross threads meet in a segmented scan by warp
+// shuffles and across the block's warps, and land at the thread holding
+// their end; runs that cross blocks add their block's part to a
+// persistent float64 accumulator with atomics (exact: the requests are
+// integer-valued below 2^53, so the order of the adds changes nothing),
+// and each block the run spans then adds to the run's arrival word; the
+// block that completes it lands the node and clears its entries
+// (ApplyScratch).  A block with no accepted row skips the scan.  Each delta is rounded once to float32 and subtracted
+// from node_future (and node_idle), as the plain version does, bit for
+// bit.  No thread walks a run: the time does not depend on the longest
+// run (the parent design walked each node's run in one thread, 0.5 us a
+// row on a long run).  Bound: bytes (the sorted order and node ids, the
+// accepted rows' requests and state, the touched nodes' rows).
 
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -91,10 +107,12 @@ constexpr int GROUPS = THREADS / RADIX;       // warps of a digit, in groups
 constexpr int GROUP_WARPS = WARPS / GROUPS;
 constexpr int MAX_CLUSTER = 16;
 constexpr int ROWS_MAX = 8192;                // rows a block keeps in shared memory
-constexpr int ROWS_MAX_SCRATCH = THREADS * 64; // rows a block takes from the scratch (64 a thread)
 constexpr int ROWS_TARGET = 1024;             // rows a block takes while the cluster can grow
 constexpr int ROW_BYTES = 16;                 // two codes and two ids
 constexpr int APPLY_THREADS = 256;
+constexpr int APPLY_WARPS = APPLY_THREADS / 32;
+constexpr int APPLY_ROWS = 1;                 // consecutive sorted positions a thread
+constexpr int APPLY_W = MAX_R + 1;            // the sums of a node and their count
 constexpr uint32_t EMPTY = 0xffffffffu;       // a rank-order slot no row took
 
 struct ResolveArgs {
@@ -113,8 +131,11 @@ struct ResolveArgs {
   unsigned long long* cancelled;  // i64 counter or null
 };
 
-struct Shared {
-  uint16_t wcnt[WARPS][RADIX];     // per warp and digit: count, then offset
+// Count: a warp's per-digit counter, u16 where the rows live in shared
+// memory (at most 8,192 a block), u32 from the scratch (any number)
+template <typename Count>
+struct SharedT {
+  Count wcnt[WARPS][RADIX];        // per warp and digit: count, then offset
   uint32_t gsum[2][GROUPS][RADIX];
   uint32_t dsum[RADIX];            // this block's count of each digit (read by the cluster)
   uint32_t base[RADIX];            // sorted position of the block's first row of each digit
@@ -130,6 +151,8 @@ struct Shared {
   unsigned min_rank;               // read by the cluster
   unsigned cancelled;
 };
+template <bool SCRATCH>
+using Shared = SharedT<std::conditional_t<SCRATCH, uint32_t, uint16_t>>;
 
 // The rows being sorted, two buffers of a u32 code and a u32 row id.
 // `code` and `id` start at this block's first position: in its shared
@@ -230,7 +253,9 @@ struct Min { __device__ uint32_t operator()(uint32_t x, uint32_t y) const { retu
 // block owning their new position.  Every thread of every block calls it.
 template <bool SCRATCH>
 __device__ void cluster_pass(const cg::cluster_group& cl, const Rows& b, int src, int dst,
-                             int shift, int rows, int S, int C, int brank, Shared& sh) {
+                             int shift, int rows, int S, int C, int brank,
+                             Shared<SCRATCH>& sh) {
+  using Count = std::remove_reference_t<decltype(sh.wcnt[0][0])>;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const unsigned below = (1u << lane) - 1u;
   const int per_warp = (((S + WARPS - 1) / WARPS) + 31) & ~31;
@@ -238,14 +263,14 @@ __device__ void cluster_pass(const cg::cluster_group& cl, const Rows& b, int src
   const uint32_t* cin = b.code[src];
   const uint32_t* iin = b.id[src];
   uint32_t* w0 = reinterpret_cast<uint32_t*>(&sh.wcnt[0][0]);
-  for (int i = tid; i < WARPS * RADIX / 2; i += THREADS) w0[i] = 0;
+  for (int i = tid; i < (int)(sizeof(sh.wcnt) / 4); i += THREADS) w0[i] = 0;
   __syncthreads();
   for (int base = lo; base < hi; base += 32) {
     const int i = base + lane;
     const uint32_t d = i < hi ? (ld<SCRATCH>(cin + i) >> shift) & 0xffu : RADIX;
     const unsigned peers = __match_any_sync(FULL, d);
     if (i < hi && (peers & below) == 0)
-      sh.wcnt[warp][d] = (uint16_t)(sh.wcnt[warp][d] + __popc(peers));
+      sh.wcnt[warp][d] = (Count)(sh.wcnt[warp][d] + __popc(peers));
     __syncwarp();
   }
   __syncthreads();
@@ -255,7 +280,7 @@ __device__ void cluster_pass(const cg::cluster_group& cl, const Rows& b, int src
   uint32_t run = 0;
   for (int w = g * GROUP_WARPS; w < (g + 1) * GROUP_WARPS; ++w) {
     const uint32_t c = sh.wcnt[w][d];
-    sh.wcnt[w][d] = (uint16_t)run;
+    sh.wcnt[w][d] = (Count)run;
     run += c;
   }
   sh.gsum[0][g][d] = run;
@@ -271,7 +296,7 @@ __device__ void cluster_pass(const cg::cluster_group& cl, const Rows& b, int src
   }
   __syncthreads();
   for (int w = g * GROUP_WARPS; w < (g + 1) * GROUP_WARPS; ++w)
-    sh.wcnt[w][d] = (uint16_t)(sh.wcnt[w][d] + sh.gsum[0][g][d]);
+    sh.wcnt[w][d] = (Count)(sh.wcnt[w][d] + sh.gsum[0][g][d]);
   cl.sync();   // every block's digit totals are published
   // this digit's rows in blocks before this one, and its total: the
   // groups read the blocks in turn
@@ -312,7 +337,7 @@ __device__ void cluster_pass(const cg::cluster_group& cl, const Rows& b, int src
       put<SCRATCH>(cl, b.id, b.all_id, dst, pos, S, v);
     }
     __syncwarp();
-    if (ok && lrank == 0) sh.wcnt[warp][dd] = (uint16_t)(sh.wcnt[warp][dd] + __popc(peers));
+    if (ok && lrank == 0) sh.wcnt[warp][dd] = (Count)(sh.wcnt[warp][dd] + __popc(peers));
     __syncwarp();
   }
   cl.sync();   // every row is in place; every block is done reading totals
@@ -324,8 +349,9 @@ __device__ void cluster_pass(const cg::cluster_group& cl, const Rows& b, int src
 // into its run from earlier rows of the same segment.  `W` sums are
 // scanned together; `slot` names the published aggregate.  Every thread
 // of every block calls it.
+template <typename Sh>
 __device__ void seg_exclusive(const cg::cluster_group& cl, int started, double (&s)[MAX_R],
-                              int W, int slot, int brank, Shared& sh) {
+                              int W, int slot, int brank, Sh& sh) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   int f = started;
 #pragma unroll
@@ -432,6 +458,32 @@ __device__ void seg_exclusive(const cg::cluster_group& cl, int started, double (
   __syncthreads();   // carry and warp prefixes are read before the next scan
 }
 
+// A thread's rows' acceptance and serialize-participant flags (row lo + j
+// is j): bits of two registers where a thread owns at most 8 rows (the
+// rows in shared memory), else a word a row in the scratch's free buffer,
+// so a thread may own as many rows as T needs.
+template <bool SCRATCH>
+struct Flags {
+  uint64_t acc = 0u, part = 0u;
+  __device__ __forceinline__ void set(int j, bool ac, bool pa) {
+    acc |= (uint64_t)ac << j;
+    part |= (uint64_t)pa << j;
+  }
+  __device__ __forceinline__ bool accepted(int j) const { return (acc >> j) & 1u; }
+  __device__ __forceinline__ bool participant(int j) const { return (part >> j) & 1u; }
+  __device__ __forceinline__ void drop(int j) { acc &= ~(1ull << j); }
+};
+template <>
+struct Flags<true> {
+  uint32_t* f;   // bit 0 accepted, bit 1 participant
+  __device__ __forceinline__ void set(int j, bool ac, bool pa) {
+    f[j] = (ac ? 1u : 0u) | (pa ? 2u : 0u);
+  }
+  __device__ __forceinline__ bool accepted(int j) const { return f[j] & 1u; }
+  __device__ __forceinline__ bool participant(int j) const { return (f[j] >> 1) & 1u; }
+  __device__ __forceinline__ void drop(int j) { f[j] &= ~1u; }
+};
+
 template <bool SCRATCH>
 struct Sorted {
   const uint32_t* node;   // sorted position -> node_key, from the block's first position
@@ -451,7 +503,7 @@ struct Sorted {
 // buffer `cur`; returns the buffer that holds the result.
 template <bool SCRATCH>
 __device__ int sort_passes(const cg::cluster_group& cl, const Rows& b, int cur, uint32_t varying,
-                           int rows, int S, int C, int brank, Shared& sh) {
+                           int rows, int S, int C, int brank, Shared<SCRATCH>& sh) {
   for (int shift = 0; shift < 32; shift += 8) {
     if (((varying >> shift) & 0xffu) == 0u) continue;
     cluster_pass<SCRATCH>(cl, b, cur, cur ^ 1, shift, rows, S, C, brank, sh);
@@ -462,13 +514,15 @@ __device__ int sort_passes(const cg::cluster_group& cl, const Rows& b, int cur, 
 
 // The digits in which the block codes published in slot k of code_and /
 // code_or differ, over the cluster (after a cl.sync).
+template <typename Sh>
 __device__ __forceinline__ uint32_t varying_bits(const cg::cluster_group& cl, int k, int C,
-                                                 Shared& sh) {
+                                                 Sh& sh) {
   return cluster_fold(cl, &sh.code_and[k], C, FULL, And(), &sh.fold[1 + 2 * k]) ^
          cluster_fold(cl, &sh.code_or[k], C, 0u, Or(), &sh.fold[2 + 2 * k]);
 }
 
-__device__ __forceinline__ void publish_bits(uint32_t c_and, uint32_t c_or, int k, Shared& sh) {
+template <typename Sh>
+__device__ __forceinline__ void publish_bits(uint32_t c_and, uint32_t c_or, int k, Sh& sh) {
   c_and = __reduce_and_sync(FULL, c_and);
   c_or = __reduce_or_sync(FULL, c_or);
   if ((threadIdx.x & 31) == 0) {
@@ -480,7 +534,7 @@ __device__ __forceinline__ void publish_bits(uint32_t c_and, uint32_t c_or, int 
 template <bool SCRATCH>
 __global__ void __launch_bounds__(THREADS, 1) resolve_kernel(ResolveArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ Shared sh;
+  __shared__ Shared<SCRATCH> sh;
   const cg::cluster_group cl = cg::this_cluster();
   const int C = (int)cl.num_blocks();
   const int brank = (int)cl.block_rank();
@@ -561,7 +615,7 @@ __global__ void __launch_bounds__(THREADS, 1) resolve_kernel(ResolveArgs a) {
                            : cl.map_shared_rank(b.code[cur], (unsigned)(brank - 1))[S - 1];
 
   // 2. the segmented prefix of the requests, and the fit
-  const int k = (S + THREADS - 1) / THREADS;   // <= 64: one bit a row below
+  const int k = (S + THREADS - 1) / THREADS;   // rows a thread (<= 8 in shared memory)
   const int lo = min(rows, tid * k), hi = min(rows, lo + k);
   int started = 0;
   double s[MAX_R];
@@ -582,33 +636,33 @@ __global__ void __launch_bounds__(THREADS, 1) resolve_kernel(ResolveArgs a) {
     }
   }
   seg_exclusive(cl, started, s, R, 0, brank, sh);
-  uint64_t accept = 0u, part = 0u;   // bit j: row lo + j
+  Flags<SCRATCH> fl;
+  if constexpr (SCRATCH) fl.f = b.code[cur ^ 1] + lo;   // the sort's free buffer
   for (int i = lo; i < hi; ++i) {
-    const int j = i - lo;
     const uint32_t node = so.node_at(i);
     const bool st = so.starts(i, node);
     if (st) {
 #pragma unroll
       for (int r = 0; r < MAX_R; ++r) s[r] = 0.0;
     }
-    if (node >= (uint32_t)N) continue;
-    const uint32_t row = so.row_at(i);
-    const float* q = a.req + (int64_t)row * R;
-    const float* av = a.avail + (int64_t)node * R;
-    bool fit = true;
+    bool fit = false, part = false;
+    if (node < (uint32_t)N) {
+      const uint32_t row = so.row_at(i);
+      const float* q = a.req + (int64_t)row * R;
+      const float* av = a.avail + (int64_t)node * R;
+      fit = true;
 #pragma unroll
-    for (int r = 0; r < MAX_R; ++r) {
-      if (r < R) {
-        const float qr = q[r];
-        fit = fit && ((s[r] + (double)qr <= (double)av[r]) || (qr < a.eps[r]));
-        s[r] += (double)qr;
+      for (int r = 0; r < MAX_R; ++r) {
+        if (r < R) {
+          const float qr = q[r];
+          fit = fit && ((s[r] + (double)qr <= (double)av[r]) || (qr < a.eps[r]));
+          s[r] += (double)qr;
+        }
       }
+      if (a.one_per_node) fit = fit && st;
+      part = fit && !a.one_per_node && a.serialize && a.serialize[row];
     }
-    if (a.one_per_node) fit = fit && st;
-    if (fit) {
-      accept |= 1ull << j;
-      if (!a.one_per_node && a.serialize && a.serialize[row]) part |= 1ull << j;
-    }
+    fl.set(i - lo, fit, part);
   }
 
   // 3. at most one serialize participant per node: the earlier rows' count
@@ -622,21 +676,22 @@ __global__ void __launch_bounds__(THREADS, 1) resolve_kernel(ResolveArgs a) {
         st_any = 1;
         cnt[0] = 0.0;
       }
-      cnt[0] += (double)((part >> (i - lo)) & 1u);
+      cnt[0] += fl.participant(i - lo) ? 1.0 : 0.0;
     }
     seg_exclusive(cl, st_any, cnt, 1, 1, brank, sh);
     for (int i = lo; i < hi; ++i) {
       const int j = i - lo;
       if (so.starts(i, so.node_at(i))) cnt[0] = 0.0;
-      if (((part >> j) & 1u) && cnt[0] > 0.0) accept &= ~(1ull << j);
-      cnt[0] += (double)((part >> j) & 1u);
+      const bool pj = fl.participant(j);
+      if (pj && cnt[0] > 0.0) fl.drop(j);
+      cnt[0] += pj ? 1.0 : 0.0;
     }
   }
 
   // 4. the watermark: the best rank among rejected proposers
   unsigned mine = FULL;
   for (int i = lo; i < hi; ++i) {
-    if (so.node_at(i) < (uint32_t)N && !((accept >> (i - lo)) & 1u)) {
+    if (so.node_at(i) < (uint32_t)N && !fl.accepted(i - lo)) {
       const uint32_t rk = (uint32_t)a.rank[so.row_at(i)];
       mine = rk < mine ? rk : mine;
     }
@@ -649,7 +704,7 @@ __global__ void __launch_bounds__(THREADS, 1) resolve_kernel(ResolveArgs a) {
   for (int i = lo; i < hi; ++i) {
     const uint32_t node = so.node_at(i);
     const uint32_t row = so.row_at(i);
-    const bool acc = (accept >> (i - lo)) & 1u;
+    const bool acc = fl.accepted(i - lo);
     bool keep = false;
     if (acc) {
       keep = (uint32_t)a.rank[row] < wm;
@@ -668,36 +723,228 @@ __global__ void __launch_bounds__(THREADS, 1) resolve_kernel(ResolveArgs a) {
   cl.sync();   // no block leaves while another may read its shared memory
 }
 
-__global__ void apply_kernel(const int64_t* __restrict__ perm,
-                             const int64_t* __restrict__ s_node,
-                             const uint8_t* __restrict__ accept,
-                             const float* __restrict__ req, int use_future,
-                             int new_status, int T, int N, int R,
-                             float* __restrict__ node_future,
-                             float* __restrict__ node_idle,
-                             int32_t* __restrict__ task_state,
-                             int32_t* __restrict__ task_node) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= T) return;
-  const int64_t n = s_node[i];
-  if (n >= N || (i > 0 && s_node[i - 1] == n)) return;
-  double delta[MAX_R];
-  for (int r = 0; r < R; ++r) delta[r] = 0.0;
-  bool any = false;
-  for (int j = i; j < T && s_node[j] == n; ++j) {
-    const int64_t t = perm[j];
-    if (!accept[t]) continue;
-    any = true;
-    for (int r = 0; r < R; ++r) delta[r] += (double)req[t * R + r];
-    task_state[t] = new_status;
-    task_node[t] = (int32_t)n;
+struct ApplyArgs {
+  const int64_t* perm;     // sorted position -> row
+  const int64_t* s_node;   // sorted position -> node (N and above: inactive)
+  const uint8_t* accept;   // bool[T] by row
+  const float* req;        // f32[T, R]
+  int use_future, new_status;
+  int64_t T;
+  int N, R;
+  float* node_future;
+  float* node_idle;
+  int32_t* task_state;
+  int32_t* task_node;
+};
+
+// kb_apply's persistent scratch, zero between calls (each run that spans
+// blocks clears its own entries once it lands): per node the float64
+// sums of its accepted requests and their count (APPLY_W words a node),
+// and an arrival word.  The blocks a run spans add to the arrival word's
+// high half: the block where the run starts 1 + its index, each block it
+// passes 1, the block where it ends -(its index); a block whose part of
+// the run has an accepted row adds 1 to the low half too.  The high half
+// is 0 exactly when every one of them has added: that block lands the
+// node if the low half counts a part with sums, and clears the entries.
+struct ApplyScratch {
+  double* acc;                    // f64[N, APPLY_W]
+  unsigned long long* arrivals;   // u64[N]
+};
+
+// The accepted rows counted in v (its element R).
+__device__ __forceinline__ double count_of(const ApplyArgs& a, const double (&v)[APPLY_W]) {
+  double count = 0.0;
+#pragma unroll
+  for (int r = 0; r < APPLY_W; ++r)
+    if (r == a.R) count = v[r];
+  return count;
+}
+
+// Node n's delta, rounded once to float32, off node_future (and
+// node_idle) when one of its rows was accepted (v[R] counts them).
+__device__ __forceinline__ void land(const ApplyArgs& a, int64_t n, const double (&v)[APPLY_W]) {
+  if (count_of(a, v) == 0.0) return;
+#pragma unroll
+  for (int r = 0; r < MAX_R; ++r) {
+    if (r < a.R) {
+      const float d = (float)v[r];
+      a.node_future[n * a.R + r] = __fsub_rn(a.node_future[n * a.R + r], d);
+      if (!a.use_future) a.node_idle[n * a.R + r] = __fsub_rn(a.node_idle[n * a.R + r], d);
+    }
   }
-  if (!any) return;
-  for (int r = 0; r < R; ++r) {
-    const float d = (float)delta[r];
-    node_future[n * R + r] = __fsub_rn(node_future[n * R + r], d);
-    if (!use_future) node_idle[n * R + r] = __fsub_rn(node_idle[n * R + r], d);
+}
+
+// This block's part `v` of node n's run, which spans blocks: its sums
+// join the scratch, then the block adds `count` to the run's arrival
+// word (ApplyScratch); the block that completes it lands the node and
+// clears its entries.
+__device__ __forceinline__ void arrive(const ApplyArgs& a, const ApplyScratch& sc, int64_t n,
+                                       const double (&v)[APPLY_W], int W, int count) {
+  double* acc = sc.acc + n * APPLY_W;
+  unsigned long long add = (unsigned long long)(unsigned)count << 32;   // count mod 2^32
+  if (count_of(a, v) > 0.0) {
+#pragma unroll
+    for (int r = 0; r < APPLY_W; ++r)
+      if (r < W) atomicAdd(acc + r, v[r]);
+    __threadfence();   // the sums before the arrival
+    add += 1ull;
   }
+  const unsigned long long now = atomicAdd(sc.arrivals + n, add) + add;
+  if ((now >> 32) != 0ull || now == 0ull) return;   // not complete, or no sums
+  sc.arrivals[n] = 0ull;
+  __threadfence();
+  double sum[APPLY_W];
+#pragma unroll
+  for (int r = 0; r < APPLY_W; ++r) {
+    sum[r] = r < W ? __ldcg(acc + r) : 0.0;
+    if (r < W) acc[r] = 0.0;
+  }
+  land(a, n, sum);
+}
+
+__device__ __forceinline__ int64_t node_at(const ApplyArgs& a, int64_t i) {
+  const int64_t n = a.s_node[i];
+  return n < a.N ? n : a.N;
+}
+
+__global__ void __launch_bounds__(APPLY_THREADS) apply_kernel(ApplyArgs a, ApplyScratch sc) {
+  __shared__ double w_sum[APPLY_WARPS][APPLY_W];
+  __shared__ int w_flag[APPLY_WARPS];
+  __shared__ double s_incl[APPLY_THREADS][APPLY_W];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = a.R + 1;
+  const int64_t T = a.T, N = a.N;
+  const int64_t b0 = (int64_t)blockIdx.x * APPLY_THREADS * APPLY_ROWS;
+  const int64_t bend = min(T, b0 + (int64_t)APPLY_THREADS * APPLY_ROWS);
+  const int64_t lo = min(bend, b0 + (int64_t)tid * APPLY_ROWS);
+  const int64_t hi = min(bend, lo + (int64_t)APPLY_ROWS);
+
+  // 1. the thread's rows, in runs of one node: each accepted row writes
+  // its state and node; a run that starts and ends here lands at once;
+  // one that started before this thread and ends here (the head) waits
+  // for the scan; the last run, when it goes on past this thread, is
+  // what the thread hands the scan
+  double cur[APPLY_W], head[APPLY_W];
+#pragma unroll
+  for (int r = 0; r < APPLY_W; ++r) cur[r] = head[r] = 0.0;
+  // the rows' nodes, task rows and acceptance first: independent loads
+  int64_t nodes[APPLY_ROWS], rows[APPLY_ROWS];
+  bool acc[APPLY_ROWS];
+#pragma unroll
+  for (int j = 0; j < APPLY_ROWS; ++j) {
+    nodes[j] = lo + j < hi ? node_at(a, lo + j) : N;
+    rows[j] = lo + j < hi ? a.perm[lo + j] : 0;
+  }
+  const int64_t before = lo > 0 && lo < hi ? node_at(a, lo - 1) : -1;
+  const int64_t after = hi < T && lo < hi ? node_at(a, hi) : -1;
+  // the node of the row before this block: a run that has it came from
+  // an earlier block
+  const int64_t before_block = b0 > 0 ? node_at(a, b0 - 1) : -1;
+#pragma unroll
+  for (int j = 0; j < APPLY_ROWS; ++j) acc[j] = nodes[j] < N && a.accept[rows[j]];
+  int64_t node = N, head_node = N;
+  bool starts = true, head_open = false;
+#pragma unroll
+  for (int j = 0; j < APPLY_ROWS; ++j) {
+    if (lo + j >= hi) continue;   // past the rows: the rest are too
+    const int64_t n = nodes[j];
+    if (j == 0 || n != node) {
+      if (j > 0) {   // the run before row j ends in this thread
+        if (starts) {
+          if (node < N) land(a, node, cur);
+        } else {
+          head_open = true;
+          head_node = node;
+#pragma unroll
+          for (int r = 0; r < APPLY_W; ++r) head[r] = cur[r];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < APPLY_W; ++r) cur[r] = 0.0;
+      node = n;
+      starts = j > 0 || before != n;
+    }
+    if (acc[j]) {
+      const int64_t t = rows[j];
+#pragma unroll
+      for (int r = 0; r < APPLY_W; ++r)
+        cur[r] += r < a.R ? (double)a.req[t * a.R + r] : r == a.R ? 1.0 : 0.0;
+      a.task_state[t] = a.new_status;
+      a.task_node[t] = (int32_t)n;
+    }
+  }
+  const bool open_end = lo < hi && after == node;
+  if (lo < hi && !open_end) {   // the last run ends in this thread too
+    if (starts) {
+      if (node < N) land(a, node, cur);
+    } else {
+      head_open = true;
+      head_node = node;
+#pragma unroll
+      for (int r = 0; r < APPLY_W; ++r) head[r] = cur[r];
+    }
+  }
+
+  // 2. a segmented inclusive scan over the block's threads of (the last
+  // run starts here, its sum so far): by warp shuffles, then the warps'
+  // aggregates in shared memory.  Sums of integer-valued requests below
+  // 2^53 are exact in float64 in any order.  A block where no row is
+  // accepted adds nothing to any run and skips it.
+  bool mine = false;
+#pragma unroll
+  for (int j = 0; j < APPLY_ROWS; ++j) mine = mine || acc[j];
+  double v[APPLY_W];
+#pragma unroll
+  for (int r = 0; r < APPLY_W; ++r) v[r] = open_end ? cur[r] : 0.0;
+  if (__syncthreads_or(mine)) {
+    int f = open_end ? (int)starts : 1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int fu = __shfl_up_sync(FULL, f, o);
+#pragma unroll
+      for (int r = 0; r < APPLY_W; ++r) {
+        if (r < W) {   // W is the same in every lane
+          const double vu = __shfl_up_sync(FULL, v[r], o);
+          if (lane >= o && !f) v[r] += vu;
+        }
+      }
+      if (lane >= o) f |= fu;
+    }
+    if (lane == 31) {
+      w_flag[warp] = f;
+#pragma unroll
+      for (int r = 0; r < APPLY_W; ++r) w_sum[warp][r] = v[r];
+    }
+    __syncthreads();
+    if (!f) {   // the run flows in from earlier warps: their aggregates back to a start
+      for (int w = warp - 1; w >= 0; --w) {
+#pragma unroll
+        for (int r = 0; r < APPLY_W; ++r)
+          if (r < W) v[r] += w_sum[w][r];
+        if (w_flag[w]) break;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < APPLY_W; ++r) s_incl[tid][r] = v[r];
+    __syncthreads();
+    if (head_open && tid > 0) {   // the head's part of its run before this thread
+#pragma unroll
+      for (int r = 0; r < APPLY_W; ++r) head[r] += s_incl[tid - 1][r];
+    }
+  }
+
+  // 3. the head's run ends in this thread: it lands here when it started
+  // in this block; otherwise this block's part joins the run's float64
+  // sum in the scratch and the block ends the run's count.  The block's
+  // last run, when it goes on into the next block, adds its part here and
+  // starts (or passes on) the count.
+  if (head_open && head_node < N) {
+    if (before_block != head_node)
+      land(a, head_node, head);
+    else
+      arrive(a, sc, head_node, head, W, -(int)blockIdx.x);
+  }
+  if (open_end && hi == bend && node < N)
+    arrive(a, sc, node, v, W, before_block == node ? 1 : 1 + (int)blockIdx.x);
 }
 
 // Whether the card places one cluster of C blocks of the kernel at this
@@ -731,8 +978,8 @@ struct Plan {
 // memory where a cluster keeps them (C = ceil(T / ROWS_TARGET) blocks, up
 // to 16, S = ceil(T / C) <= ROWS_MAX rows a block, placed by the card at
 // S * ROW_BYTES of shared memory a block; else 8 blocks), or else in a
-// device-memory scratch (16 or 8 blocks, up to ROWS_MAX_SCRATCH rows a
-// block).  C = 0: no launch takes T rows.  Returns a CUDA error.
+// device-memory scratch (16 or 8 blocks, any rows a block).  C = 0: the
+// card places no such cluster.  Returns a CUDA error.
 int plan_for(int T, Plan* out) {
   static bool attributes = false;
   static Plan cache[8];
@@ -767,7 +1014,7 @@ int plan_for(int T, Plan* out) {
   }
   if (!p.C) {
     for (int c : scratch_tries) {
-      if ((T + c - 1) / c <= ROWS_MAX_SCRATCH && places((const void*)resolve_kernel<true>, c, 0)) {
+      if (places((const void*)resolve_kernel<true>, c, 0)) {
         p.C = c;
         p.scratch = true;
         break;
@@ -846,15 +1093,24 @@ extern "C" int kb_resolve(const int32_t* prop_node, const uint8_t* active, const
   return (int)cudaGetLastError();
 }
 
+// scratch: a persistent buffer of N * (APPLY_W + 1) * 8 bytes
+// (ApplyScratch), zero before the first call (each call leaves it so);
+// one call at a time uses it.  Returns a CUDA error code.
 extern "C" int kb_apply(const int64_t* perm, const int64_t* s_node,
                         const uint8_t* accept, const float* req, int use_future,
-                        int new_status, int T, int N, int R, float* node_future,
+                        int new_status, int64_t T, int N, int R, float* node_future,
                         float* node_idle, int32_t* task_state, int32_t* task_node,
-                        cudaStream_t stream) {
-  if (R > MAX_R) return -1;
+                        void* scratch, cudaStream_t stream) {
+  if (R < 1 || R > MAX_R || N < 1 || T < 0) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
-  apply_kernel<<<(T + APPLY_THREADS - 1) / APPLY_THREADS, APPLY_THREADS, 0, stream>>>(
-      perm, s_node, accept, req, use_future, new_status, T, N, R, node_future,
-      node_idle, task_state, task_node);
+  ApplyArgs a{perm, s_node, accept, req, use_future, new_status, T, N, R,
+              node_future, node_idle, task_state, task_node};
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  ApplyScratch sc{reinterpret_cast<double*>(base),
+                  reinterpret_cast<unsigned long long*>(base + (size_t)N * APPLY_W * 8)};
+  const int64_t per_block = (int64_t)APPLY_THREADS * APPLY_ROWS;
+  const int64_t blocks = (T + per_block - 1) / per_block;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  apply_kernel<<<(unsigned)blocks, APPLY_THREADS, 0, stream>>>(a, sc);
   return (int)cudaGetLastError();
 }

@@ -35,8 +35,13 @@
 //      FutureIdle (k = 0), walk its run in sacrifice order with a float64
 //      running release, rounded once to float32 and added to FutureIdle,
 //      stopping at the first k whose release fits (BIG_K when none does);
-//   4. the node mask pred[p] & node_ok & ~excl (& dyn) and a block
-//      reduction to the lowest-index allowed node with the smallest k, as
+//   4. the node mask pred[p] & node_ok & ~excl (& dyn) (& the
+//      preemptor's inter-pod affinity row, when the caller hands the row
+//      operand: one warp derives p's thresholds and terms into shared
+//      memory in step 1, and each node whose k makes it a candidate is
+//      tested from kernel K11's tables in registers — affinity_row.cuh,
+//      the test of kernel K10's row form; nothing is written per node)
+//      and a block reduction to the lowest-index allowed node with the smallest k, as
 //      jnp.argmax(feasible & (kk == min kk)) picks it (node 0 when none
 //      is feasible); thread 0 writes that node's first victim (the
 //      sacrifice-first one) and whether the preemptor fits it with no
@@ -59,6 +64,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "affinity_row.cuh"
 #include "cta_sort.cuh"
 
 namespace {
@@ -81,8 +87,15 @@ struct ChooseArgs {
   const uint8_t* node_ok;    // bool[N]
   const uint8_t* excl;       // bool[N] nodes already failed for p
   const uint8_t* dyn;        // bool[N] or null
+  affinity_row::Operand row; // p's inter-pod affinity row (task_words null: none)
   int T, N, R, passes, route;
 };
+
+// Step 1's share of the row test: p's words, thresholds and terms, by
+// warp 0 (the caller's barrier publishes them).
+__device__ __forceinline__ void prepare_row(const ChooseArgs& a, affinity_row::Shared& s) {
+  if (a.row.task_words && threadIdx.x < 32) affinity_row::prepare(a.row, s);
+}
 
 __device__ __forceinline__ bool fits_future(const float* preq, const float* future_n,
                                             const float* eps, int R) {
@@ -125,7 +138,7 @@ __device__ int min_victims(const ChooseArgs& a, const float* preq, const float* 
 // row at sorted position j.  Every thread of the block calls it.
 template <typename Run, typename Row>
 __device__ void walk_and_choose(const ChooseArgs& a, const float* preq, const float* eps,
-                                int64_t p, Run run, Row row,
+                                int64_t p, Run run, Row row, const affinity_row::Shared& s_row,
                                 unsigned long long* s_best, int32_t* __restrict__ k_out,
                                 int32_t* __restrict__ out) {
   const uint8_t* pred = a.pred + p * a.N;
@@ -135,8 +148,10 @@ __device__ void walk_and_choose(const ChooseArgs& a, const float* preq, const fl
     run(n, s, e);
     const int k = min_victims(a, preq, eps, n, s, e, row);
     k_out[n] = k;
-    const bool ok = pred[n] && a.node_ok[n] && !a.excl[n] && (!a.dyn || a.dyn[n]);
-    if (k < BIG_K && ok) {
+    const bool ok = k < BIG_K && pred[n] && a.node_ok[n] && !a.excl[n] &&
+                    (!a.dyn || a.dyn[n]) &&
+                    (!a.row.task_words || affinity_row::cell(a.row, s_row, n));
+    if (ok) {
       const unsigned long long key = ((unsigned long long)k << 32) | (uint32_t)n;
       mine = key < mine ? key : mine;
     }
@@ -234,8 +249,10 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) victim_choose_kernel(
   __shared__ float s_preq[MAX_R], s_eps[MAX_R];
   __shared__ unsigned long long s_best[CTA_WARPS];
   __shared__ uint32_t s_maxrun;
+  __shared__ affinity_row::Shared s_row;
   const int T = a.T, N = a.N, tid = threadIdx.x;
   const int64_t p = *a.p;
+  prepare_row(a, s_row);
   if (tid < a.R) {
     s_preq[tid] = a.preq_rows[p * a.R + tid];
     s_eps[tid] = a.eps[tid];
@@ -291,7 +308,7 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) victim_choose_kernel(
     walk_and_choose(
         a, s_preq, s_eps, p,
         [&](int n, int& s, int& e) { s = n ? (int)cur[n - 1] : 0; e = (int)cur[n]; },
-        [&](int j) { return (int64_t)srt[j]; }, s_best, k_out, out);
+        [&](int j) { return (int64_t)srt[j]; }, s_row, s_best, k_out, out);
     return;
   }
 
@@ -323,7 +340,7 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) victim_choose_kernel(
         s = lower_bound32(code, T, (uint32_t)n * (uint32_t)T);
         e = lower_bound32(code, T, (uint32_t)(n + 1) * (uint32_t)T);
       },
-      [&](int j) { return (int64_t)id[j]; }, s_best, k_out, out);
+      [&](int j) { return (int64_t)id[j]; }, s_row, s_best, k_out, out);
 }
 
 __device__ __forceinline__ int lower_bound64(const int64_t* __restrict__ s, int T,
@@ -343,7 +360,9 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) victim_walk_kernel(
     int32_t* __restrict__ k_out, int32_t* __restrict__ out) {
   __shared__ float s_preq[MAX_R], s_eps[MAX_R];
   __shared__ unsigned long long s_best[CTA_WARPS];
+  __shared__ affinity_row::Shared s_row;
   const int64_t p = *a.p;
+  prepare_row(a, s_row);
   if ((int)threadIdx.x < a.R) {
     s_preq[threadIdx.x] = a.preq_rows[p * a.R + threadIdx.x];
     s_eps[threadIdx.x] = a.eps[threadIdx.x];
@@ -356,15 +375,16 @@ __global__ void __launch_bounds__(CTA_THREADS, 1) victim_walk_kernel(
         s = lower_bound64(s_node, T, n);
         e = lower_bound64(s_node, T, (int64_t)n + 1);
       },
-      [&](int j) { return perm[j]; }, s_best, k_out, out);
+      [&](int j) { return perm[j]; }, s_row, s_best, k_out, out);
 }
 
 ChooseArgs make_args(const uint8_t* victims, const int32_t* task_node, const int32_t* rank,
                      const float* req, const float* future, const float* eps,
                      const int64_t* p, const float* preq_rows, const uint8_t* pred,
                      const uint8_t* node_ok, const uint8_t* excl, const uint8_t* dyn,
-                     int T, int N, int R) {
+                     const affinity_row::Operand* row, int T, int N, int R) {
   ChooseArgs a;
+  a.row = *row;
   a.victims = victims; a.task_node = task_node; a.rank = rank; a.req = req;
   a.future = future; a.eps = eps; a.p = p; a.preq_rows = preq_rows; a.pred = pred;
   a.node_ok = node_ok; a.excl = excl; a.dyn = dyn;
@@ -373,6 +393,20 @@ ChooseArgs make_args(const uint8_t* victims, const int32_t* task_node, const int
 }
 
 }  // namespace
+
+// The row operand of both entries (affinity_row.cuh · Operand), in its
+// order: task_words, Hb, Ab, Hd, Ad, exists, nkd, term_key, term_label, p
+// (row_p), K, K2, TK; row_task_words null: no affinity row.
+#define KB_ROW_PARAMS                                                                     \
+  const uint32_t *row_task_words, const uint32_t *row_Hb, const uint32_t *row_Ab,         \
+      const uint32_t *row_Hd, const uint32_t *row_Ad, const uint32_t *row_exists,         \
+      const int32_t *row_nkd, const int32_t *row_term_key, const int32_t *row_term_label, \
+      const int64_t *row_p, int row_K, int row_K2, int row_TK
+#define KB_ROW_OPERAND                                                                \
+  const affinity_row::Operand row{row_task_words, row_Hb,   row_Ab,       row_Hd,         \
+                                  row_Ad,         row_exists, row_nkd,    row_term_key,   \
+                                  row_term_label, row_p,    row_K,        row_K2,         \
+                                  row_K2 ? row_TK : 0}
 
 // out: i32[N + 5] — k[N], then [n_best, any_feasible, first victim on
 // n_best (0 if none), any victim on n_best, preemptor fits n_best with no
@@ -383,11 +417,13 @@ extern "C" int kb_victim_choose(const uint8_t* victims, const int32_t* task_node
                                 const int32_t* rank, const float* req, const float* future,
                                 const float* eps, const int64_t* p, const float* preq_rows,
                                 const uint8_t* pred, const uint8_t* node_ok,
-                                const uint8_t* excl, const uint8_t* dyn, int T, int N, int R,
-                                int passes, int route, int32_t* out, void* stream) {
+                                const uint8_t* excl, const uint8_t* dyn, KB_ROW_PARAMS, int T,
+                                int N, int R, int passes, int route, int32_t* out, void* stream) {
   if (T < 1 || T > CTA_MAX_T || N < 1 || R < 1 || R > MAX_R || passes < 1 || passes > 4 ||
-      (uint64_t)(N + 1) * (uint64_t)T > (1ull << 32))
+      (uint64_t)(N + 1) * (uint64_t)T > (1ull << 32) || row_K > affinity_row::MAXK2 ||
+      row_K2 > affinity_row::MAXK2)
     return (int)cudaErrorInvalidValue;
+  KB_ROW_OPERAND;
   // dynamic shared memory: what the opt-in leaves beside the static arrays
   static int limit = -1;
   if (limit < 0) {
@@ -410,7 +446,7 @@ extern "C" int kb_victim_choose(const uint8_t* victims, const int32_t* task_node
                       : (radix_bytes > count_bytes ? radix_bytes : count_bytes);
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
   ChooseArgs a = make_args(victims, task_node, rank, req, future, eps, p, preq_rows, pred,
-                           node_ok, excl, dyn, T, N, R);
+                           node_ok, excl, dyn, &row, T, N, R);
   a.passes = passes;
   a.route = route;
   victim_choose_kernel<<<1, CTA_THREADS, smem, (cudaStream_t)stream>>>(a, out, out + N);
@@ -423,10 +459,13 @@ extern "C" int kb_victim_walk(const int64_t* perm, const int64_t* s_node, const 
                               const float* future, const float* eps, const int64_t* p,
                               const float* preq_rows, const uint8_t* pred,
                               const uint8_t* node_ok, const uint8_t* excl, const uint8_t* dyn,
-                              int T, int N, int R, int32_t* out, void* stream) {
-  if (T < 1 || N < 1 || R < 1 || R > MAX_R) return (int)cudaErrorInvalidValue;
+                              KB_ROW_PARAMS, int T, int N, int R, int32_t* out, void* stream) {
+  if (T < 1 || N < 1 || R < 1 || R > MAX_R || row_K > affinity_row::MAXK2 ||
+      row_K2 > affinity_row::MAXK2)
+    return (int)cudaErrorInvalidValue;
+  KB_ROW_OPERAND;
   ChooseArgs a = make_args(nullptr, nullptr, nullptr, req, future, eps, p, preq_rows, pred,
-                           node_ok, excl, dyn, T, N, R);
+                           node_ok, excl, dyn, &row, T, N, R);
   victim_walk_kernel<<<1, CTA_THREADS, 0, (cudaStream_t)stream>>>(a, perm, s_node, out,
                                                                    out + N);
   return (int)cudaGetLastError();

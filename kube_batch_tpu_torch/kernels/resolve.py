@@ -139,7 +139,7 @@ MAX_R = 8
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "kb_resolve": [_P] * 7 + [_I] * 4 + [_P] * 6,
-    "kb_apply": [_P] * 4 + [_I] * 5 + [_P] * 5,
+    "kb_apply": [_P] * 4 + [_I] * 2 + [ctypes.c_int64] + [_I] * 2 + [_P] * 6,
     "kb_resolve_plan": [_I, _P, _P],
 }
 
@@ -155,9 +155,9 @@ _plans: dict[int, tuple[int, int]] = {}
 
 def plan(T: int) -> tuple[int, int]:
     """(blocks, scratch bytes) of `resolve` over T rows on this card: the
-    thread blocks of its cluster (0: more rows than it takes) and the
-    device memory it keeps the rows in where the cluster's shared memory
-    does not hold them (0: none).  Asked of the kernel once per T."""
+    thread blocks of its cluster (0: the card places none) and the device
+    memory it keeps the rows in where the cluster's shared memory does
+    not hold them (0: none).  Asked of the kernel once per T."""
     got = _plans.get(T)
     if got is None:
         blocks, scratch = ctypes.c_int(0), ctypes.c_int64(0)
@@ -199,7 +199,8 @@ def resolve(prop_node, active, rank, task_req, avail, eps,
     optional serialize_mask bool[T] and the device counter cancelled i64
     (its element 0 gains the acceptances the watermark cancelled).  Every
     tensor on the card, contiguous, of those dtypes; nothing is converted
-    (others raise).  The kernel takes up to 1,048,576 rows."""
+    (others raise).  The kernel takes any T (past 131,072 rows on an H100
+    through a device-memory scratch of 16 bytes a row)."""
     if prop_node.device.type == "cpu":
         return resolve_plain(prop_node, active, rank, task_req, avail, eps,
                              one_per_node, serialize_mask, cancelled)
@@ -217,7 +218,7 @@ def resolve(prop_node, active, rank, task_req, avail, eps,
     dev = task_req.device
     blocks, scratch_bytes = plan(T)
     if blocks == 0:
-        raise ValueError(f"resolve takes at most 1,048,576 task rows a round; got {T}")
+        raise RuntimeError(f"resolve: this card places no cluster for {T} task rows")
     perm = torch.empty(T, dtype=torch.int64, device=dev)
     s_node = torch.empty(T, dtype=torch.int64, device=dev)
     kept = torch.empty(T, dtype=torch.bool, device=dev)
@@ -235,28 +236,64 @@ def resolve(prop_node, active, rank, task_req, avail, eps,
     return kept, perm, s_node
 
 
+# kb_apply's persistent scratch, by (device, stream): zero between calls
+# (the kernel leaves it so); grown, zeroed, when a call has more nodes.
+# Calls on one stream run in order, so one buffer serves them all, and a
+# stream of its own (a graph's capture stream) gets its own.  Its layout
+# (csrc/resolve.cu · ApplyScratch): f64[N, MAX_R + 1], then u64[N].
+_apply_scratch: dict = {}
+
+
+def _apply_scratch_for(dev, stream: int, N: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _apply_scratch.get(key)
+    need = N * (MAX_R + 2) * 8
+    if buf is None or buf.numel() < need:
+        buf = _apply_scratch[key] = torch.zeros(need, dtype=torch.uint8, device=dev)
+    return buf
+
+
 def apply(perm, s_node, accept, task_req, node_future, node_idle,
           use_future: bool, new_status: int, task_state, task_node) -> None:
     """Land accepted placements in place: node_future (and node_idle in
     the Idle pass) lose each node's summed accepted requests;
-    task_state/task_node of accepted rows are set."""
+    task_state/task_node of accepted rows are set.  On the card: one
+    launch over the sorted positions (`perm`, `s_node` from `resolve`),
+    any T; the float64 sums of runs that span blocks meet in a scratch
+    kept per device and stream, zero between calls (allocated at the
+    first call, and again only for more nodes)."""
     if not _cuda(perm):
         apply_plain(perm, s_node, accept, task_req, node_future, node_idle,
                     use_future, new_status, task_state, task_node)
         return
-    for t in (node_future, node_idle, task_state, task_node):
-        if not t.is_contiguous():
-            raise ValueError("apply updates contiguous tensors in place")
-    fn = _fn("kb_apply")
     T = perm.shape[0]
     N, R = node_future.shape
-    c = [x.contiguous() for x in (perm, s_node, accept, task_req)]
-    err = fn(*(build.ptr(x) for x in c), int(use_future), int(new_status),
-             T, N, R, build.ptr(node_future), build.ptr(node_idle),
-             build.ptr(task_state), build.ptr(task_node),
-             build.stream_handle(perm.device))
+    if not ((perm.dtype, s_node.dtype, accept.dtype, task_req.dtype, node_future.dtype,
+             node_idle.dtype, task_state.dtype, task_node.dtype) == _APPLY_DTYPES
+            and s_node.shape == accept.shape == (T,) and task_req.shape[1:] == (R,)
+            and node_idle.shape == (N, R) and 1 <= R <= MAX_R and N >= 1
+            and all(x.is_cuda and x.is_contiguous() for x in (
+                perm, s_node, accept, task_req, node_future, node_idle, task_state,
+                task_node))):
+        raise ValueError(
+            "apply takes int64 perm and s_node, bool accept, float32 task_req, "
+            "node_future and node_idle, int32 task_state and task_node, contiguous, on "
+            "the card; got "
+            f"{[(x.dtype, tuple(x.shape), x.device.type) for x in (perm, s_node, accept, task_req, node_future, node_idle, task_state, task_node)]}")
+    dev = perm.device
+    stream = build.stream_handle(dev)
+    scratch = _apply_scratch_for(dev, stream, N)
+    err = _fn("kb_apply")(
+        perm.data_ptr(), s_node.data_ptr(), accept.data_ptr(), task_req.data_ptr(),
+        int(use_future), int(new_status), T, N, R, node_future.data_ptr(),
+        node_idle.data_ptr(), task_state.data_ptr(), task_node.data_ptr(),
+        scratch.data_ptr(), stream)
     build.check(err, "apply")
     apply.launches += 1
+
+
+_APPLY_DTYPES = (torch.int64, torch.int64, torch.bool, torch.float32, torch.float32,
+                 torch.float32, torch.int32, torch.int32)
 
 
 resolve.launches = 0

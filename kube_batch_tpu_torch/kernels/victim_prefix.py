@@ -13,8 +13,11 @@ their nodes task_node i32[T]) with their dense ranks (i32[T], in
 f32[T, R], FutureIdle f32[N, R] and eps f32[R]; the preemptor `p` as an
 int64 device scalar, its request row p of `preq_rows` f32[P, R] and its
 predicate row p of `pred` bool[P, N]; node_ok, excl and the optional
-dyn_row bool[N].  A node may take the plan when pred[p] & node_ok &
-~excl (& dyn_row).  It returns one buffer i32[N + 5]: k[N], where k[n] is
+dyn_row: a bool[N] row, or the preemptor's inter-pod affinity row as
+`kernels/affinity.py · AffinityRow` (with its optional bool[N] mask),
+which the kernel tests node by node itself (kernel K10's row test, in
+this launch).  A node may take the plan when pred[p] & node_ok & ~excl
+(& dyn_row).  It returns one buffer i32[N + 5]: k[N], where k[n] is
 the fewest victims of node n whose release makes the preemptor fit its
 FutureIdle (0 when it fits with none, BIG_K when no prefix does), then
 [n_best, any_feasible, first victim on n_best, any victim on n_best,
@@ -35,6 +38,7 @@ import torch
 
 from kube_batch_tpu_torch.kernels import build
 from kube_batch_tpu_torch.kernels import lex_rank
+from kube_batch_tpu_torch.kernels.affinity import AffinityRow
 from kube_batch_tpu_torch.kernels.resolve import segment_exclusive_prefix
 
 BIG_K = (2**31 - 1) // 4
@@ -45,9 +49,11 @@ CTA_MAX_T = lex_rank.CTA_MAX_T
 ROUTE_AUTO, ROUTE_RADIX = 0, 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_ROW = [_P] * 10 + [_I] * 3      # the row operand (affinity.AffinityRow.kernel_args)
+_NO_ROW = (None,) * 10 + (0, 0, 0)
 _SIGNATURES = {
-    "kb_victim_choose": [_P] * 12 + [_I] * 5 + [_P, _P],
-    "kb_victim_walk": [_P] * 11 + [_I] * 3 + [_P, _P],
+    "kb_victim_choose": [_P] * 12 + _ROW + [_I] * 5 + [_P, _P],
+    "kb_victim_walk": [_P] * 11 + _ROW + [_I] * 3 + [_P, _P],
 }
 
 
@@ -98,6 +104,8 @@ def victim_walk_plain(perm, s_node, task_req, future, preq, eps, ok):
 
 def _allowed(p, pred, node_ok, excl, dyn_row):
     ok = pred[p] & node_ok & ~excl
+    if isinstance(dyn_row, AffinityRow):
+        dyn_row = dyn_row.row_plain()
     return ok if dyn_row is None else ok & dyn_row
 
 
@@ -116,9 +124,9 @@ _DTYPES = (torch.bool, torch.int32, torch.int32, torch.float32, torch.float32,
 
 
 def _args_ok(victims, task_node, rank, req, future, eps, p, preq_rows, pred, node_ok,
-             excl, dyn_row) -> bool:
+             excl, dyn_row, row) -> bool:
     """One pass of attribute tests (the call is host-bound): dtypes,
-    shapes, the card, contiguous rows."""
+    shapes, the card, contiguous rows (the row operand checks its own)."""
     T, R = req.shape
     N = future.shape[0]
     return ((victims.dtype, task_node.dtype, rank.dtype, req.dtype, future.dtype,
@@ -130,6 +138,7 @@ def _args_ok(victims, task_node, rank, req, future, eps, p, preq_rows, pred, nod
             and node_ok.shape == excl.shape == (N,)
             and (dyn_row is None or (dyn_row.dtype == torch.bool and dyn_row.shape == (N,)
                                      and dyn_row.is_cuda and dyn_row.is_contiguous()))
+            and (row is None or row.resident.N == N)
             and 1 <= R <= MAX_R and T >= 1 and N >= 1
             and victims.is_cuda and task_node.is_cuda and rank.is_cuda and req.is_cuda
             and future.is_cuda and eps.is_cuda and p.is_cuda and preq_rows.is_cuda
@@ -150,24 +159,28 @@ def victim_prefix(victims, task_node, rank, req, future, eps, p, preq_rows, pred
                                    preq_rows, pred, node_ok, excl, dyn_row)
     if victims.device.type != "cuda":
         raise RuntimeError(f"victim_prefix: unsupported device {victims.device}")
+    row = dyn_row if isinstance(dyn_row, AffinityRow) else None
+    if row is not None:
+        dyn_row = row.mask
     if not _args_ok(victims, task_node, rank, req, future, eps, p, preq_rows, pred,
-                    node_ok, excl, dyn_row):
+                    node_ok, excl, dyn_row, row):
         raise ValueError(
             "victim_prefix takes bool victims, int32 task_node and rank, float32 req, "
             "future and eps, an int64 p, float32 preq_rows, bool pred, node_ok, excl and "
-            "dyn_row (or None), contiguous, on the card; got "
+            "dyn_row (or None, or an AffinityRow of N nodes), contiguous, on the card; got "
             f"{[(x.dtype, tuple(x.shape), x.device.type) for x in (victims, task_node, rank, req, future, eps, p, preq_rows, pred, node_ok, excl) if x is not None]}")
     T, R = req.shape
     N = future.shape[0]
     dev = req.device
     out = torch.empty(N + 5, dtype=torch.int32, device=dev)
     stream = build.stream_handle(dev)
+    row_args = _NO_ROW if row is None else row.kernel_args()
     if T <= CTA_MAX_T and (N + 1) * T <= 2**32:
         err = _fn("kb_victim_choose")(
             victims.data_ptr(), task_node.data_ptr(), rank.data_ptr(), req.data_ptr(),
             future.data_ptr(), eps.data_ptr(), p.data_ptr(), preq_rows.data_ptr(),
             pred.data_ptr(), node_ok.data_ptr(), excl.data_ptr(),
-            None if dyn_row is None else dyn_row.data_ptr(), T, N, R,
+            None if dyn_row is None else dyn_row.data_ptr(), *row_args, T, N, R,
             lex_rank.sort_passes(T, N), route, out.data_ptr(), stream)
     else:
         perm, s_node = lex_rank.sort_by_segment(torch.where(victims, task_node, N),
@@ -176,8 +189,8 @@ def victim_prefix(victims, task_node, rank, req, future, eps, p, preq_rows, pred
             perm.data_ptr(), s_node.data_ptr(), req.data_ptr(), future.data_ptr(),
             eps.data_ptr(), p.data_ptr(), preq_rows.data_ptr(), pred.data_ptr(),
             node_ok.data_ptr(), excl.data_ptr(),
-            None if dyn_row is None else dyn_row.data_ptr(), T, N, R, out.data_ptr(),
-            stream)
+            None if dyn_row is None else dyn_row.data_ptr(), *row_args, T, N, R,
+            out.data_ptr(), stream)
     build.check(err, "victim_prefix")
     victim_prefix.launches += 1
     return out

@@ -108,7 +108,7 @@ def joint_rounds(
     rank_fn: MaskFn,
     eps: torch.Tensor,              # f32[R]
     dyn_predicate_fn=None,          # (snap, state, immediate, resident) -> mask | words | None
-    dyn_predicate_row_fn=None,      # (snap, state, p) -> bool[N] | None
+    dyn_predicate_row_fn=None,      # (snap, state, p) -> bool[N] | AffinityRow | None
     global_serialize_fn=None,       # (snap, state, resident) -> bool[T] | None
     domain_serialize_fn=None,       # (snap, state) -> bool[T] | None
     serialize_mask: torch.Tensor | None = None,   # bool[T] | None

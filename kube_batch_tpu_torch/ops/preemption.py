@@ -25,8 +25,11 @@ Per step, on the step's device:
   victim on n;
 * kernel K5 (kernels/victim_prefix.py), when a plan opens, in one
   launch: the candidate victims sorted by (node, sacrifice), per node the
-  fewest victims whose release fits, the preemptor's node mask, the
-  chosen node and its first victim;
+  fewest victims whose release fits, the preemptor's node mask (with its
+  inter-pod affinity row, tested in the same launch from the operand
+  `dyn_predicate_row_fn` gives), the chosen node and its first victim;
+  while a plan is open, the row at the plan's node only (one cell,
+  kernel K10, one launch);
 * plain torch glue for the rank (B7), the veto masks and the updates,
   with the segment sums of the vetoes in kernel K7.
 
@@ -56,6 +59,7 @@ from kube_batch_tpu_torch.api.snapshot import SnapshotTensors, fits
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels import preempt_scan as _k6
 from kube_batch_tpu_torch.kernels import victim_prefix as _k5
+from kube_batch_tpu_torch.kernels.affinity import AffinityRow
 from kube_batch_tpu_torch.ops.assignment import AllocState
 
 BIG_K = _k5.BIG_K
@@ -154,7 +158,7 @@ def evict_step(
     rank_fn,
     eligible_fn,
     eps: torch.Tensor,
-    dyn_predicate_row_fn=None,       # (snap, state, p) -> bool[N] | None
+    dyn_predicate_row_fn=None,       # (snap, state, p) -> bool[N] | AffinityRow | None
     elig: torch.Tensor | None = None,
 ) -> StepOut:
     """One eviction-granular Statement step (≙ the body of
@@ -218,11 +222,17 @@ def evict_step(
         no_node = have_p & ~node_found
         active = opening
         progressed_t = have_p & any_possible_or_fit
-    viable = (dyn_row[n] if dyn_row is not None
-              else torch.ones((), dtype=torch.bool, device=dev))
-    finalize = active & viable & fit_now
-    evict = active & viable & ~fit_now & any_vic
-    fail = active & (~viable | (~fit_now & ~any_vic))
+    # the plan is still legal while the preemptor's dynamic row holds at
+    # its node: re-read every continuing step (one cell); an opening
+    # step's node passed the same row inside K5, so there it holds
+    viable = None
+    if c.active and dyn_row is not None:
+        viable = dyn_row.cell(n) if isinstance(dyn_row, AffinityRow) else dyn_row[n]
+    go = active if viable is None else active & viable
+    stuck = ~fit_now & ~any_vic
+    finalize = go & fit_now
+    evict = go & ~fit_now & any_vic
+    fail = active & (stuck if viable is None else ~viable | stuck)
 
     is_p = idx_t == p
     is_v = (idx_t == v) & evict
@@ -283,7 +293,7 @@ def preemption_rounds(
     eligible_fn,
     eps: torch.Tensor,
     max_iters: int | None = None,
-    dyn_predicate_row_fn=None,       # (snap, state, p) -> bool[N] | None
+    dyn_predicate_row_fn=None,       # (snap, state, p) -> bool[N] | AffinityRow | None
     stats: dict | None = None,
 ) -> AllocState:
     """Serve starving jobs by evicting less-deserving work; returns the

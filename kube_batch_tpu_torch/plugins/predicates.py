@@ -18,7 +18,8 @@ words, both resident sets in one launch, from kernel K10's task words
 (kernels/affinity.py) the predicate against them: as words for the
 auction rounds (kernel K2 tests the cells itself; `pod_affinity_words`),
 as the bool[T, N] mask for the cycle's failure tallies, or as the one
-task's bool[N] row for a preemption step.  An auction round hands
+task's row for a preemption step (an operand kernel K5 tests inside
+its own launch, `pod_affinity_row`).  An auction round hands
 `pod_affinity_words`, `bootstrap_mask` and nodeorder's pod-affinity
 score one `RoundResident` (their `resident` argument): the first to
 read the tables builds them (`round_words`), the others take that
@@ -187,15 +188,20 @@ def pod_affinity_words(snap, state, immediate: bool = False, resident=None):
 
 
 def pod_affinity_row(snap, state, p):
-    """bool[N]: pod_affinity_predicate for ONE task (the preemptor of a
-    preemption step; `p` may be a 0-dim device tensor) — O(N·K) instead
-    of the [T, N] matrix; future-oriented, since the preemptor pipelines
-    onto FutureIdle after its victims leave.  None when no task carries
-    an affinity term (≙ kube_batch_tpu plugins/predicates.py ·
-    pod_affinity_row).  Kernels K11 (a build of this state) and K10."""
+    """pod_affinity_predicate for ONE task (the preemptor of a
+    preemption step; `p` a 0-dim device tensor, or an int), future-
+    oriented, since the preemptor pipelines onto FutureIdle after its
+    victims leave (≙ kube_batch_tpu plugins/predicates.py ·
+    pod_affinity_row), as `kernels/affinity.py · AffinityRow`: this
+    state's K11 tables (a build of its own), the snapshot's kept task
+    words and p.  Kernel K5 tests it node by node inside its own launch;
+    `.row()` gives the bool[N] row and `.cell(n)` one cell (kernel K10).
+    None when no task carries an affinity term."""
     if not affinity_active(snap, state):
         return None
-    return _k10.affinity_row(*_fields(snap), resident_words(snap, state), p)
+    if not isinstance(p, torch.Tensor):
+        p = torch.tensor(p, dtype=torch.int64, device=snap.device)
+    return _k10.AffinityRow(_fields(snap), task_words(snap), resident_words(snap, state), p)
 
 
 def anti_serialize_mask(snap, state):

@@ -205,14 +205,14 @@ def main() -> int:
     bad = 0
     for p in rows:
         p_dev = torch.tensor(p, device="cuda")
-        got = k10.affinity_row(*fields, res[False], p_dev)
+        got = k10.affinity_row(*fields, res[False], p_dev, tw)
         if not torch.equal(got, k10.affinity_row_plain(*fields, res[False], p)):
             bad += 1
     ok = ok and bad == 0
     p_dev = torch.tensor(rows[0], device="cuda")
     print(json.dumps({
         "kernel": "affinity_row", "rows": len(rows), "equal": bad == 0,
-        "ms": round(time_ms(lambda: k10.affinity_row(*fields, res[False], p_dev)), 4),
+        "ms": round(time_ms(lambda: k10.affinity_row(*fields, res[False], p_dev, tw)), 4),
         "plain_ms": round(time_ms(lambda: k10.affinity_row_plain(*fields, res[False],
                                                                  rows[0])), 4),
     }), flush=True)

@@ -204,7 +204,7 @@ def test_affinity_predicate_and_row_match_reference(world):
             vetoed += int((~got & snap.task_mask[:, None]
                            & snap.node_mask[None, :]).sum())
         for p in rows:
-            _eq(predicates.pod_affinity_row(snap, st, torch.tensor(p)),
+            _eq(predicates.pod_affinity_row(snap, st, torch.tensor(p)).row(),
                 jax_pred.pod_affinity_row(jsnap, jst, p), f"{label}, row {p}")
         want = jax_pred.bootstrap_mask(jsnap, jst)
         _eq(predicates.bootstrap_mask(snap, st), want, f"{label}, bootstrap_mask")
