@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout on a machine with a CUDA card, `nvcc`
-and `triton`.  Phases (any failure exits non-zero):
+Run from the root of a checkout on a machine with a CUDA card and
+`nvcc`.  Phases (any failure exits non-zero):
 
 1. card and build — the card's name and power limit, torch/CUDA
    versions, and the build of every CUDA kernel from this checkout's
-   sources (one nvcc per source, all at once: K1–K3 and K5–K12), timed;
+   sources (one nvcc per source, all at once: K1–K12), timed;
    then K7 and K6 on their edge inputs (K7: one segment, mostly empty
    segments, every row masked out, one segment holding every row,
    non-integer values — two runs bitwise equal, the plain version equal,
@@ -47,13 +47,23 @@ and `triton`.  Phases (any failure exits non-zero):
    the reference's own products (`predicate_matmul`)); K10's row
    operand (`phase_k10_row_edge`: topology terms on and off, K = K2 =
    256, K5's walk route past 16,384 rows, a preemptor whose required
-   terms only the bootstrap waiver meets; the row and the cell at a node
+   terms only the bootstrap waiver meets; the row, K6's cell at a node
    that is not viable and at one that is, and K5 given the operand, with
    and without a dynamic mask, against K5's plain version fed the plain
    row); K3 apply (`phase_k3_apply_edge`: one node holding all 65,536
    rows, rows spread at 65,536 and 262,144, R = 1 to 8, an empty accept
    set, both use_future values, and resolve's own output at 1,048,577
-   rows, resolve exact there too); both phases timed; K10's
+   rows, resolve exact there too); both phases timed; K6's
+   preempt_continue (`phase_k6_continue_edge`: ranks a permutation and
+   tied, the plan's node holding no victim and every victim, T = 1,
+   8,191, 8,192 and 65,536, no row, a bool row, and K10's row operand
+   with and without a mask at nodes where it holds and fails; every call
+   on one kept buffer; timed at 8,192 and 65,536 rows) and K4
+   (`phase_k4_edge`: N = 500, 4,999 and 8,192, T off a multiple of 32,
+   R = 1 and 8, one request class for all rows and one a row, an
+   all-false row, requests below eps on every dim; no dynamic predicate,
+   a mask, and K10's words at W = 1, 2 and 8 equal to K4 given K10's
+   mask of the same tables), exactly equal to the plain versions; K10's
    affinity_task_words and affinity_words, K11's resident_words (both
    resident sets and the future set alone) and K2's words form on
    seeded affinity terms (each = plain, K2 given the words = K2 given
@@ -108,9 +118,10 @@ and `triton`.  Phases (any failure exits non-zero):
    required `rack:team` term, TF workers with soft rack / zone
    preferences), 2 cycles through `Scheduler.run_once` with 15,000 pods
    arriving after cycle 1.  K10 and K11 counters are set to 0 before and
-   read after, and both must have launched, the mask at most once a
-   cycle (the auction rounds take K10's words) and K11 at most once an
-   auction round plus once a cycle; capacity, gang and predicate
+   read after, and both must have launched, the mask never (the auction
+   rounds and the failure tallies take K10's words: one words build a
+   round and one a cycle) and K11 at most once an auction round plus
+   once a cycle; capacity, gang and predicate
    invariants, no node with two `role=ps` residents, and every resident
    MPI worker backed by a team-mate in its rack (resident when the cycle
    began, or placed in it with no required term) or by its team's one
@@ -144,12 +155,18 @@ and `triton`.  Phases (any failure exits non-zero):
    both timed), and K10's row form on the
    config5_affinity_mid card run under examples/scheduler.conf (K5
    given the row operand on every opening step, against K5's plain
-   version fed the plain row, and the cell form on every continuing step,
+   version fed the plain row, and K6 given it on every continuing step,
    if one occurs; the row form timed on a recorded operand, with K5 with
    and without it), K12 on
    every 10th call of the joint path (after auction and evict steps)
    and on a recorded evict step with a plan open replayed at its step
-   bound (a Discard advance), each timed on cycle 2's inputs.
+   bound (a Discard advance), each timed on cycle 2's inputs; K6's
+   preempt_continue on every continuing step of the preempt and joint
+   paths; K4 on every call of every path (one a cycle; the affinity
+   path's and the affinity parity worlds' in K10's words form), timed on
+   the affinity path's cycle 2 beside the parent's chain (K10's mask, the
+   AND, K4 on the AND); K10's mask, which no path launches, on the
+   tallies' operands.
    Outputs exactly equal; kernel / plain / library times (median of
    CUDA-event timed runs after a warm-up) and the least time the card
    could take (K2 pass 1's from its eligible rows only; the eligible
@@ -169,9 +186,10 @@ held against its plain version.  Kernels already redesigned for this
 card (`REDESIGNED`) are marked in the `redesign-order` line.  Library
 times: one PyTorch call or the same function in library calls where
 one exists (K3 apply: a float64 index_add_ and two row scatters;
-preempt_continue: one masked argmin; failure_counts: the reference's
-reductions over [T, N, R] at once; K10's row: the reference's products,
-its plain version's form).
+preempt_continue: the PyTorch chain of its four outputs, a masked
+argmin, an any, the fit test and the row's cell; failure_counts: the
+reference's reductions over [T, N, R] at once; K10's row: the
+reference's products, its plain version's form).
 
 The line before the `kernels` line gives the script's seconds, and the
 one before it the order a redesign should take the kernels in, those
@@ -218,7 +236,7 @@ KERNELS = {
                 "kube_batch_tpu/ops/assignment.py:216"),
     "apply": ("cuda", "kube_batch_tpu_torch/kernels/csrc/resolve.cu",
               "kube_batch_tpu/ops/assignment.py:421"),
-    "failure_counts": ("triton", "kube_batch_tpu_torch/kernels/failure_counts.py",
+    "failure_counts": ("cuda", "kube_batch_tpu_torch/kernels/csrc/failure_counts.cu",
                        "kube_batch_tpu/framework/fit_errors.py:32"),
     "victim_prefix": ("cuda", "kube_batch_tpu_torch/kernels/csrc/victim_prefix.cu",
                       "kube_batch_tpu/ops/preemption.py:80"),
@@ -261,14 +279,15 @@ RANK_KERNELS = ("lex_push_many", "sort_by_segment", "vtime")
 HOST_CYCLE_ONLY = ("row_patch",)
 # launched only on worlds with inter-pod affinity terms (the affinity
 # path, and where such a world preempts) and by the joint solve
-AFFINITY_KERNELS = ("resident_words", "affinity_mask", "affinity_words",
-                    "affinity_task_words")
-# the row form of K10: its own launches (the row, and the one-cell test of
-# a continuing step); an opening step's row runs inside K5
-AFFINITY_ROW = ("affinity_row",)
+AFFINITY_KERNELS = ("resident_words", "affinity_words", "affinity_task_words")
+# entries of K10 that no path launches: the row form, which K5 and K6
+# test inside their own launches, and the mask,
+# whose words the failure tallies test inside K4's launch; checked and
+# timed on recorded operands, their launches counted
+ENTRY_ONLY = ("affinity_row", "affinity_mask")
 JOINT_ONLY = ("tier_control",)
 NOT_ON_MAIN_PATH = (EVICTING_ONLY + HOST_CYCLE_ONLY + AFFINITY_KERNELS
-                    + AFFINITY_ROW + JOINT_ONLY)
+                    + ENTRY_ONLY + JOINT_ONLY)
 
 MAIN_WAVE_PODS = 15000   # second wave of the main path (T stays 65536)
 # The preempt path's wave after cycle 1 (rehearsed on the CPU, PERF.md;
@@ -297,14 +316,15 @@ HOST_DONE_EVERY = 100        # every 100th running pod completes or is deleted
 HOST_ARRIVAL_PODS = 300      # pods arriving into existing jobs' shapes
 HOST_EVICTED = 20            # pods evicted after the cycle without arrivals
 # the affinity path records every K11 call (one a round, so the few
-# FutureIdle rounds are met), every K10 mask call (one a cycle, for the
-# failure tallies) and task-words call (one a snapshot), and K10's words
-# with the K2 calls of the same round every 300th round; the joint path
-# every 10th K12 call
-AFFINITY_EVERY = {"resident_words": 1, "affinity_mask": 1, "affinity_task_words": 1,
-                  "affinity_words": 300, "propose_best": 300, "propose_pick": 300,
+# FutureIdle rounds are met), every K10 task-words call (one a snapshot)
+# and words call (one a round, and one a cycle for the failure tallies:
+# a round's is paired with its K2 calls by (cycle, round)), every K4 call,
+# and the K2 and K3 calls of every 300th round; the joint path every 10th
+# K12 call, every K6 continuing step and every K4 call
+AFFINITY_EVERY = {"resident_words": 1, "affinity_task_words": 1, "affinity_words": 1,
+                  "failure_counts": 1, "propose_best": 300, "propose_pick": 300,
                   "resolve": 300, "apply": 300}
-JOINT_EVERY = {"tier_control": 10}
+JOINT_EVERY = {"tier_control": 10, "preempt_continue": 1, "failure_counts": 1}
 JOINT_CYCLES = 3
 # the parity world whose preemption steps hand K5 K10's row operand
 ROW_WORLD = "config5_affinity_mid_preempt"
@@ -1139,8 +1159,9 @@ def phase_k10_row_edge(device) -> dict:
     """K10's row operand on `k10_row_inputs` for every case of
     K10_ROW_EDGE (topology terms on and off, K = K2 = 256, K5's walk route
     past 16,384 rows, a preemptor whose required terms only the bootstrap
-    waiver meets): the row form and the cell form at a node that is not
-    viable and at one that is, exactly equal to the plain version's row;
+    waiver meets): the row form, and the cell that K6's preempt_continue
+    tests in its launch at a node that is not viable and at one that is,
+    exactly equal to the plain version's row;
     and K5 given the operand (and with a dynamic mask ANDed in, in the
     first case) exactly equal to K5's plain version fed the plain row, on
     its own route and the radix route.  Timed (seconds logged).  Returns
@@ -1148,6 +1169,7 @@ def phase_k10_row_edge(device) -> dict:
     import torch
 
     from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
     from kube_batch_tpu_torch.kernels import victim_prefix as k5
 
     t0 = time.perf_counter()
@@ -1160,12 +1182,15 @@ def phase_k10_row_edge(device) -> dict:
         got = k10.affinity_row(*fields, resident, p, tw)
         errs["affinity_row"] = max(errs["affinity_row"], require_equal(
             f"affinity_row edge {case}", [(got, want)]))
-        for viable in (False, True):
-            n = torch.nonzero(want == viable)[0, 0]
-            cell = k10.affinity_cell(*fields, resident, p, n, tw)
-            require_equal(f"affinity_cell edge {case} viable={viable}",
-                          [(cell.clone(), want[n])])
         row = k10.AffinityRow(tuple(fields), tw, resident, p)
+        # the row's cell as K6 tests it in a continuing step's launch
+        k6_args = k6_continue_inputs(device, T, N, "random")
+        k6_args[6] = p
+        for viable in (False, True):
+            k6_args[7] = torch.nonzero(want == viable)[0, 0].clone()
+            got = k6.preempt_continue(*k6_args, row)[3].clone()
+            require_equal(f"preempt_continue row cell edge {case} viable={viable}",
+                          [(got, want[k6_args[7]])])
         k5_args = list(k5_edge_inputs(device, T, N, "random"))
         dyn = k5_args[11]
         k5_args[6] = p
@@ -1300,6 +1325,194 @@ def phase_k3_apply_edge(device) -> dict:
 
 K1_EDGE_WIDTHS = (1, 31, 32, 33, 100)
 K1_EDGE_NODES = (1000, 8191, 8192)
+
+
+K6_CONTINUE_EDGE = (
+    # (case, T, N): ranks a permutation of [0, T) unless tied; the plan's
+    # node holding no victim, or every victim; T off a multiple of 4 (the
+    # victims read a byte at a time); one row; the main path's width
+    ("random", 8192, 512), ("tied_ranks", 8192, 512), ("no_victim_on_n", 8192, 512),
+    ("every_victim_on_n", 8192, 512), ("odd_rows", 8191, 500), ("one_row", 1, 4),
+    ("wide", 65536, 8192),
+)
+
+
+def k6_continue_inputs(device, T: int, N: int, case: str, seed: int = 0, R: int = 4):
+    """preempt_continue's operands (rank, victims, task_node, task_req,
+    future, eps, p, n) for one case of K6_CONTINUE_EDGE: about a third of
+    the rows candidate victims on random nodes (or none), integer
+    requests and FutureIdle, p and n int64 device scalars."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed * 131 + T)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    rank = (rng.integers(0, 6, T) if case == "tied_ranks" else rng.permutation(T))
+    victims = rng.random(T) < 0.3
+    task_node = rng.integers(-1, N, T)
+    n, p = int(rng.integers(0, N)), int(rng.integers(0, T))
+    if case == "no_victim_on_n":
+        victims &= task_node != n
+    elif case == "every_victim_on_n":
+        task_node[victims] = n
+    task_req = rng.integers(0, 4, (T, R)).astype(np.float32) * 500
+    future = rng.integers(-1, 5, (N, R)).astype(np.float32) * 500
+    return [on(rank.astype(np.int32)), on(victims), on(task_node.astype(np.int32)),
+            on(task_req), on(future), on(np.full(R, 1e-3, np.float32)),
+            torch.tensor(p, dtype=torch.int64, device=device),
+            torch.tensor(n, dtype=torch.int64, device=device)]
+
+
+def phase_k6_continue_edge(device) -> float:
+    """K6's preempt_continue on `k6_continue_inputs` for every case of
+    K6_CONTINUE_EDGE, without a row and with a bool[N] row; and with the
+    inter-pod affinity row operand of `k10_row_inputs` (and with it ANDed
+    with a mask) at a node where the row holds and at one where it fails
+    (viable false).  Every call shares one ContinueBuffer, so each runs
+    on the scratch words the previous call's last block cleared; each
+    exactly equal to the plain version.  Times T = 8,192 and 65,536
+    (seconds and times logged).  Returns the max abs err."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
+
+    t0 = time.perf_counter()
+    buf = k6.ContinueBuffer(device) if device.type == "cuda" else None
+    err, seen = 0.0, {"victim_found": 0, "no_victim": 0, "not_viable": 0, "fits_now": 0}
+
+    def check(label, args):
+        nonlocal err
+        got = [x.clone() for x in k6.preempt_continue(*args, buf)]
+        err = max(err, require_equal(f"preempt_continue edge {label}",
+                                     list(zip(got, k6.preempt_continue_plain(*args)))))
+        _v, any_vic, fit_now, viable = (int(x) for x in got)
+        seen["victim_found" if any_vic else "no_victim"] += 1
+        seen["not_viable"] += 1 - viable
+        seen["fits_now"] += fit_now
+        return got
+
+    times = {}
+    for case, T, N in K6_CONTINUE_EDGE:
+        args = k6_continue_inputs(device, T, N, case)
+        row = torch.rand(N, generator=torch.Generator().manual_seed(T)).lt(0.5).to(device)
+        got = check(case, args + [None])
+        check(f"{case} bool row", args + [row])
+        if case == "no_victim_on_n" and int(got[1]):
+            fail("preempt_continue edge: a victim on the node that holds none")
+        if case in ("random", "wide") and device.type == "cuda":
+            times[T] = time_ms(lambda: k6.preempt_continue(*args, None, buf))
+    fields, tw, resident, p = k10_row_inputs(device, 4096, 1024, 40, 36)
+    want = k10.affinity_row_plain(*fields, resident, p)
+    args = k6_continue_inputs(device, 4096, 1024, "random")
+    args[6] = p
+    op = k10.AffinityRow(tuple(fields), tw, resident, p)
+    mask = torch.ones(1024, dtype=torch.bool, device=device)
+    mask[::3] = False
+    for viable in (False, True):
+        for n in torch.nonzero(want == viable)[:3, 0]:
+            args[7] = n.clone()
+            check(f"row viable={viable}", args + [op])
+            check(f"row and mask viable={viable}", args + [op.and_mask(mask)])
+    for key, v in seen.items():
+        if v <= 0:
+            fail(f"preempt_continue edge: no case with {key}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    log(json.dumps({"phase": "k6-continue-edge", **seen,
+                    **{f"ms_{T}_rows": round(ms, 4) for T, ms in times.items()},
+                    "seconds": round(time.perf_counter() - t0, 3)}))
+    return err
+
+
+K4_EDGE = (
+    # (case, T, N, R, request classes, affinity words (K, K2) or None): N
+    # off a multiple of 16 and of 32, T off a multiple of 32, R = 1 and 8,
+    # one class for every row and one a row, the words at W = 1, 2 and 8
+    ("n500", 1000, 500, 4, "few", None), ("n4999", 4099, 4999, 4, "few", None),
+    ("r1", 4096, 1024, 1, "few", None), ("r8", 4096, 1024, 8, "few", None),
+    ("one_class", 4096, 8192, 4, "one", None), ("class_a_row", 4096, 1000, 4, "each", None),
+    ("words_w1", 4099, 4999, 4, "few", (20, 10)), ("words_w2", 1000, 500, 4, "few", (40, 36)),
+    ("words_w8", 2000, 1024, 4, "each", (256, 256)),
+)
+
+
+def k4_edge_inputs(device, T: int, N: int, R: int, classes: str, seed: int = 0):
+    """K4's operands (pred, task_req, node_idle, eps, node_ok) and a
+    random dynamic mask: requests at, above and below eps (row 5 below
+    it on every dim), row 3 all false, a tenth of the nodes not ready;
+    `classes` "few" (4 distinct requests), "one" or "each"."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed * 7919 + T + N + R)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    eps = np.linspace(0.5, 2.0, R).astype(np.float32) * 100
+    levels = np.stack([eps * 0.5, eps, eps * 2.0, eps * 4.0], axis=1)
+
+    def draw(n):
+        return np.stack([levels[r, rng.integers(0, 4, n)] for r in range(R)],
+                        axis=1).astype(np.float32)
+
+    if classes == "one":
+        req = np.repeat(draw(1), T, axis=0)
+    elif classes == "few":
+        req = draw(4)[rng.integers(0, 4, T)]
+        req[5] = eps * 0.5
+    else:
+        req = draw(T) + np.arange(T, dtype=np.float32)[:, None]
+    idle = (np.stack([levels[r, rng.integers(0, 4, N)] for r in range(R)], axis=1)
+            * rng.choice([0.9, 1.0, 2.0], (N, R))).astype(np.float32)
+    pred = rng.random((T, N)) < 0.7
+    pred[3] = False
+    return ([on(pred), on(req), on(idle), on(eps), on(rng.random(N) < 0.9)],
+            on(rng.random((T, N)) < 0.8))
+
+
+def phase_k4_edge(device) -> float:
+    """K4 on `k4_edge_inputs` for every case of K4_EDGE: without a dynamic
+    predicate, with a dynamic mask, and, where the case has words, with
+    K10's words of seeded affinity terms (`k2_words_inputs`) — equal to
+    K4 given K10's mask of the same tables; every form exactly equal to
+    the plain version (seconds logged).  Returns the max abs err."""
+    from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import failure_counts as k4
+
+    t0 = time.perf_counter()
+    err = 0.0
+    for case, T, N, R, classes, kk in K4_EDGE:
+        (pred, *rest), dyn = k4_edge_inputs(device, T, N, R, classes)
+        forms = {"none": None, "mask": dyn}
+        if kk is not None:
+            _args, fields, resident = k2_words_inputs(device, T, N, *kk)
+            tw = k10.affinity_task_words(*fields[:5])
+            forms["words"] = k10.affinity_words(tw, *fields[5:8], resident)
+            forms["words_as_mask"] = k10.affinity_mask(*fields, resident)
+        out = {}
+        for form, d in forms.items():
+            args = (pred, d, *rest)
+            out[form] = k4.failure_counts(*args)
+            err = max(err, require_equal(f"failure_counts edge {case} {form}",
+                                         list(zip(out[form], k4.failure_counts_plain(*args)))))
+        if kk is not None:
+            require_equal(f"failure_counts edge {case}: words against mask form",
+                          list(zip(out["words"], out["words_as_mask"])))
+        pf, ins, fe, nodes = out["none"]
+        if int(pf[3]) != int(nodes) or (classes != "one" and not (int(fe.sum())
+                                                                 and int(ins.sum()))):
+            fail(f"failure_counts edge {case}: a trivial case")
+        log(json.dumps({"phase": "k4-edge", "case": case, "tasks": T, "nodes": N,
+                        "R": R, "classes": classes, "forms": sorted(forms),
+                        "rows_insufficient": int((ins > 0).any(dim=1).sum()),
+                        "rows_feasible": int((fe > 0).sum())}))
+    log(json.dumps({"phase": "k4-edge-done", "seconds": round(time.perf_counter() - t0, 3)}))
+    return err
 
 
 def k1_edge_snap(device, T: int, N: int, width: int, seed: int = 0):
@@ -1631,7 +1844,7 @@ _MUTATED = {
     "propose_pick": (3, 7),
     "resolve": (4, 8),           # avail, cancelled
     "apply": (4, 5, 8, 9),       # node_future, node_idle, task_state, task_node
-    "failure_counts": (2,),      # node_idle
+    "failure_counts": (3,),      # node_idle
     "victim_prefix": (),
     "preempt_open": (),
     "preempt_continue": (),
@@ -1645,7 +1858,6 @@ _MUTATED = {
     "resident_words": (1, 2),    # task_node, task_state
     "affinity_mask": (),
     "affinity_row": (),
-    "affinity_cell": (),
     "affinity_words": (),
     "affinity_task_words": (),
     # task_state, tried, prov, code, node_future, excl, phase, work, read
@@ -1658,17 +1870,19 @@ _SNAPSHOT_ARGS = {
     "resident_words": (0, 3, 4, 5, 6),
     "affinity_mask": tuple(range(8)),
     "affinity_row": tuple(range(8)) + (10,),     # the fields and the task words
-    "affinity_cell": tuple(range(8)) + (12,),
     "affinity_words": tuple(range(4)),
     "affinity_task_words": tuple(range(5)),
     "tier_control": (6, 7, 10, 14),
     "victim_prefix": (1, 3, 7),  # task_node, task_req (and its preemptor rows)
+    "failure_counts": (2,),      # task_req
 }
 # K2's arguments recorded: pass 1's and pass 2's without their shared
 # scratch (84 MB a round at the main path's shapes, reused by the caching
 # allocator once freed); `with_scratch` fills a fresh one for a recorded
 # pass 2.
-_RECORDED = {"propose_best": 12, "propose_pick": 15}
+_RECORDED = {"propose_best": 12, "propose_pick": 15,
+             # preempt_continue without the buffer the loop's carry keeps
+             "preempt_continue": 9}
 
 
 def _keep(a):
@@ -1737,7 +1951,6 @@ class Recorder:
             (resident, "resident_words", "resident_words"),
             (affinity, "affinity_mask", "affinity_mask"),
             (affinity, "affinity_row", "affinity_row"),
-            (affinity, "affinity_cell", "affinity_cell"),
             (affinity, "affinity_words", "affinity_words"),
             (affinity, "affinity_task_words", "affinity_task_words"),
             (joint_tier, "tier_control", "tier_control"),
@@ -1799,7 +2012,6 @@ class Recorder:
             w = self._wrap(name, fn)
             # A wrapper counts its launches on its module's global name,
             # which is `w` while patched: `w` counts on from `fn`'s count.
-            # (affinity_cell counts on affinity_row's.)
             w.launches = getattr(fn, "launches", 0)
             self._saved.append((mod, attr, fn, w, w.launches))
             setattr(mod, attr, w)
@@ -1920,9 +2132,17 @@ def check_call(name: str, args):
         return err, {"direct_fit_true": int(out[3]),
                      "direct_fit_false": 1 - int(out[3])}
     if name == "preempt_continue":
-        out = k6.preempt_continue(*args)
-        err = require_equal(name, [(out, k6.preempt_continue_plain(*args))])
-        return err, {"victim_found": int(out[1]), "no_victim_left": 1 - int(out[1])}
+        from kube_batch_tpu_torch.kernels.affinity import AffinityRow
+
+        # (v, any_victim, fit_now, viable) in a buffer of its own; the plain
+        # version is fed the plain row where the step hands K6 the operand
+        out = [x.clone() for x in k6.preempt_continue(*args)]
+        err = require_equal(name, list(zip(out, k6.preempt_continue_plain(*args))))
+        v, any_vic, fit_now, viable = (int(x) for x in out)
+        return err, {"victim_found": any_vic, "no_victim_left": 1 - any_vic,
+                     "fits_now": fit_now, "not_viable": 1 - viable,
+                     "with_affinity_row": int(isinstance(args[8], AffinityRow)),
+                     "with_row": int(args[8] is not None)}
     if name in ("segment_sum", "segment_count"):
         values, seg, num = args[:3]
         out = getattr(k7, name)(*args)
@@ -2016,14 +2236,13 @@ def check_call(name: str, args):
         out = k10.affinity_mask(*args)
         err = require_equal(name, [(out, k10.affinity_mask_plain(*args))])
         return err, {"vetoed_cells": int((~out).sum())}
-    if name in ("affinity_row", "affinity_cell"):
+    if name == "affinity_row":
         from kube_batch_tpu_torch.kernels import affinity as k10
 
-        # (fields..., resident, p[, n], task_words): the plain row reads
-        # the fields
-        out = getattr(k10, name)(*args).clone()
-        row = k10.affinity_row_plain(*args[:10])
-        err = require_equal(name, [(out, row if name == "affinity_row" else row[args[10]])])
+        # (fields..., resident, p, task_words): the plain row reads the
+        # fields
+        out = k10.affinity_row(*args).clone()
+        err = require_equal(name, [(out, k10.affinity_row_plain(*args[:10]))])
         return err, {"vetoed_cells": int((~out).sum())}
     if name == "tier_control":
         from kube_batch_tpu_torch.kernels import joint_tier as k12
@@ -2040,12 +2259,16 @@ def check_call(name: str, args):
                      "after_evict_step": int(evict),
                      "discarded_plans": int(bool(done and evict and read[1]))}
     if name == "failure_counts":
+        from kube_batch_tpu_torch.kernels.affinity import AffinityWords
+
         out = k4.failure_counts(*args)
         err = require_equal(name, list(zip(out, k4.failure_counts_plain(*args))))
-        pf, ins, fe = out
+        pf, ins, fe, _nodes = out
         return err, {"rows_predicate_failed": int((pf > 0).sum()),
                      "rows_insufficient": int((ins > 0).any(dim=1).sum()),
-                     "rows_feasible": int((fe > 0).sum())}
+                     "rows_feasible": int((fe > 0).sum()),
+                     "words_form_calls": int(isinstance(args[1], AffinityWords)),
+                     "mask_form_calls": int(isinstance(args[1], torch.Tensor))}
     raise KeyError(name)
 
 
@@ -2254,31 +2477,40 @@ def phase_parity(cpu_runs):
                 ("resident_words", "releasing_calls"),
                 ("resident_words", "future_calls"),
                 ("resident_words", "domain_bits"),
-                ("affinity_mask", "vetoed_cells"),
+                ("failure_counts", "words_form_calls"),
                 ("victim_prefix", "with_affinity_row"), ("victim_prefix", "row_vetoed_nodes"),
                 ("affinity_words", "rows_with_terms"),
                 ("tier_control", "done"), ("tier_control", "not_done")):
         if seen.get(key, 0) <= 0:
             fail(f"parity worlds never gave {key[0]} a case with {key[1]} > 0")
-    # the row world's opening steps hand K5 the affinity row operand and
-    # launch no row kernel; a continuing step tests one cell (one launch)
+    # the row world's opening steps hand K5 the affinity row operand, its
+    # continuing steps (if any) K6: no row kernel of its own launches
     from kube_batch_tpu_torch.kernels.affinity import AffinityRow
 
     k5_calls = [a for _c, _r, a in row_rec.calls["victim_prefix"]]
     with_row = sum(isinstance(a[11], AffinityRow) for a in k5_calls)
-    cells = row_rec.seen["affinity_cell"]
+    k6_calls = [a for _c, _r, a in row_rec.calls["preempt_continue"]]
+    k6_with_row = sum(isinstance(a[8], AffinityRow) for a in k6_calls)
     log(json.dumps({"phase": "parity-row-world", "world": ROW_WORLD,
                     "victim_prefix_launches": row_counts["victim_prefix"],
                     "victim_prefix_calls_with_row": with_row,
+                    "preempt_continue_launches": row_counts["preempt_continue"],
+                    "preempt_continue_calls_with_row": k6_with_row,
                     "affinity_row_launches": row_counts["affinity_row"],
-                    "cell_tests": cells, "rows_launched_alone": row_rec.seen["affinity_row"]}))
+                    "rows_launched_alone": row_rec.seen["affinity_row"]}))
     if not k5_calls or with_row != len(k5_calls) or len(k5_calls) != row_counts["victim_prefix"]:
         fail(f"{ROW_WORLD}: {len(k5_calls) - with_row} of {len(k5_calls)} K5 launches "
              "without the affinity row operand")
-    if row_rec.seen["affinity_row"] or row_counts["affinity_row"] != cells:
-        fail(f"{ROW_WORLD}: affinity_row launched {row_counts['affinity_row']} times "
-             f"for {cells} cell tests")
+    if k6_with_row != len(k6_calls) or len(k6_calls) != row_counts["preempt_continue"]:
+        fail(f"{ROW_WORLD}: {len(k6_calls) - k6_with_row} of {len(k6_calls)} K6 "
+             "continuing steps without the affinity row operand")
+    if row_counts["affinity_row"]:
+        fail(f"{ROW_WORLD}: affinity_row launched {row_counts['affinity_row']} times")
     log(json.dumps({"phase": "parity-launches", **parity_counts}))
+    # the failure tallies take K10's words: no parity world launches its mask
+    if parity_counts["affinity_mask"]:
+        fail(f"the parity worlds launched affinity_mask {parity_counts['affinity_mask']} "
+             "times")
     return parity_counts, row_rec
 
 
@@ -2539,7 +2771,8 @@ def phase_host_cycle(device, **world_kw):
         return out
 
     packer.pack = checked_pack
-    rec = Recorder({name: 10**9 for name in _MUTATED if name != "row_patch"})
+    rec = Recorder({name: 10**9 for name in _MUTATED
+                    if name not in ("row_patch", "failure_counts")})
     totals = {}
     for cycle in range(HOST_CYCLES):
         checks["s"] = 0.0
@@ -2677,7 +2910,7 @@ def phase_preempt_path(cpu_result):
     counts = kernels.counts()
     log(json.dumps({"phase": "preempt-path-launches", **counts}))
     for name, n in counts.items():
-        if n <= 0 and name not in (HOST_CYCLE_ONLY + AFFINITY_KERNELS + AFFINITY_ROW
+        if n <= 0 and name not in (HOST_CYCLE_ONLY + AFFINITY_KERNELS + ENTRY_ONLY
                                    + JOINT_ONLY):
             fail(f"kernel {name} was not launched on the preempt path")
     for c, cyc in enumerate(cycles):
@@ -2727,7 +2960,10 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
     from kube_batch_tpu_torch.kernels import segment_sum as k7
     from kube_batch_tpu_torch.kernels import victim_prefix as k5
 
-    checks = check_all(rec, PREEMPT_KERNELS)
+    checks = check_all(rec, PREEMPT_KERNELS + ("failure_counts",))
+    for name in ("preempt_continue", "failure_counts"):
+        if checks[name]["calls"] != checks[name]["calls_made"]:
+            fail(f"preempt path: not every {name} call was recorded")
     rolled_back = sum(loop["rolled_back"] for c in cycles[1:]
                       for key in ("preempt_steps", "reclaim_steps")
                       for loop in c["rounds"][key])
@@ -2778,23 +3014,32 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
                     "direct_fit": int(k6.preempt_open(*args)[3])}))
     # ... and cycle 2's continuing step whose node holds the most victims
     args = max(cycle2("preempt_continue"),
-               key=lambda a: int((a[1] & (a[2] == a[3])).sum()))
-    rank, victims, task_node, n = args
-    T = rank.shape[0]
+               key=lambda a: int((a[1] & (a[2] == a[7])).sum()))
+    rank, victims, task_node, task_req, future, eps, p, n, dyn_row = args
+    T = task_req.shape[0]
+    buf = k6.ContinueBuffer(rank.device)
 
-    def masked_argmin():
-        # the library form: one masked argmin (the victim; not its flag)
-        return torch.argmin(torch.where(victims & (task_node == n), T - 1 - rank,
-                                        k6.INT32_MAX))
+    def library():
+        # the PyTorch chain of the same four outputs: a masked argmin, an
+        # any, the fit test and the row's cell (no row on this path; an
+        # operand's row by the reference's products)
+        on_n = victims & (task_node == n)
+        preq = task_req[p]
+        row = k6._row_plain(dyn_row)
+        return (torch.argmin(torch.where(on_n, T - 1 - rank, k6.INT32_MAX)), on_n.any(),
+                torch.all((preq <= future[n]) | (preq < eps)),
+                torch.ones((), dtype=torch.bool, device=rank.device) if row is None
+                else row[n])
 
     require_equal("preempt_continue against its library form",
-                  [(k6.preempt_continue(*args)[0].long(), masked_argmin())])
-    record("preempt_continue", time_ms(lambda: k6.preempt_continue(*args)),
+                  list(zip(k6.preempt_continue(*args, buf), library())))
+    record("preempt_continue", time_ms(lambda: k6.preempt_continue(*args, buf)),
            time_ms(lambda: k6.preempt_continue_plain(*args)),
-           bound(rank.shape[0] * 9 + 8, rank.shape[0] * 2), time_ms(masked_argmin))
+           preempt_continue_bound(args), time_ms(library))
     log(json.dumps({"phase": "kernel-note", "name": "preempt_continue",
                     "candidate_victims": int(victims.sum()),
-                    "on_node": int((victims & (task_node == n)).sum())}))
+                    "on_node": int((victims & (task_node == n)).sum()),
+                    "continuing_steps_checked": checks["preempt_continue"]["calls"]}))
 
     # K7: the widest recorded float sum and count
     args = timing_inputs(rec)["segment_sum"]
@@ -3023,6 +3268,20 @@ def request_classes(args) -> int:
     return int(torch.unique(req[eligible].contiguous().view(torch.int32), dim=0).shape[0])
 
 
+def k4_request_classes(task_req) -> dict:
+    """Distinct requests (bitwise) over every row, and the mean and the
+    most per 32-row block of K4 (a block computes each of its classes'
+    fit and shortfall words once per 32 nodes)."""
+    import torch
+
+    bits = task_req.contiguous().view(torch.int32)
+    per = [int(torch.unique(bits[i:i + 32], dim=0).shape[0])
+           for i in range(0, bits.shape[0], 32)]
+    return {"request_classes": int(torch.unique(bits, dim=0).shape[0]),
+            "classes_per_block_mean": round(sum(per) / max(len(per), 1), 3),
+            "classes_per_block_max": max(per, default=0)}
+
+
 def _masked_cells(pred, node_mask, rows) -> int:
     """Cells of the rows `rows` whose predicate and node mask pass."""
     from kube_batch_tpu_torch.kernels.propose import PLAIN_ROWS
@@ -3151,11 +3410,12 @@ def apply_library(perm, s_node, accept, task_req, node_future, node_idle, use_fu
     task_node[rows] = s_node[s_acc].int()
 
 
-def failure_counts_library(pred, task_req, node_idle, eps, node_ok):
+def failure_counts_library(pred, dyn, task_req, node_idle, eps, node_ok):
     """K4's tallies as the reference reduces them, over [T, N, R] at once
-    (its library yardstick; the plain version takes rows in chunks)."""
-    import torch
-
+    (its library yardstick; the plain version takes rows in chunks), the
+    dynamic predicate a mask or None."""
+    if dyn is not None:
+        pred = pred & dyn
     q = task_req[:, None, :]
     ok = node_ok[None, :]
     fit = ((q <= node_idle[None, :, :]) | (q < eps)).all(dim=-1)
@@ -3163,7 +3423,44 @@ def failure_counts_library(pred, task_req, node_idle, eps, node_ok):
     fe = (pred & fit & ok).sum(dim=1).int()
     short = ((pred & ~fit & ok)[:, :, None] & (q > node_idle[None, :, :])
              & (task_req >= eps)[:, None, :])
-    return pf, short.sum(dim=1).int(), fe
+    return pf, short.sum(dim=1).int(), fe, node_ok.sum().int()
+
+
+def preempt_continue_bound(args):
+    """K6 preempt_continue's least time on `args`, from this run's data:
+    the victims byte of every row, task_node of each candidate victim and
+    rank of each victim on n (the function needs no other row's), p's
+    request row, n's FutureIdle row, eps, p, n and the row's cell at n
+    read once; the 11 output bytes written once. Operations: a node
+    compare a victim, a key a victim on n, two compares a dimension."""
+    import torch
+
+    rank, victims, task_node, task_req, future, eps, p, n, dyn_row = args
+    T, R = task_req.shape
+    V = int(victims.sum())
+    on_n = int((victims & (task_node == n)).sum())
+    nbytes = T + 4 * V + 4 * on_n + 3 * R * 4 + 16 + 11
+    if isinstance(dyn_row, torch.Tensor):
+        nbytes += 1
+    return bound(nbytes, V + on_n + 2 * R)
+
+
+def failure_counts_bound(args):
+    """K4's least time on `args`: bytes, each input read once (the
+    predicate mask, the dynamic mask or K10's words and thresholds, the
+    requests, idle rows, eps and node_ok) and the tallies written once.
+    A cell's fit and shortfalls depend on (request class, node) only, so
+    no per-cell operation is charged."""
+    import torch
+
+    pred, dyn, task_req, node_idle, eps, node_ok = args
+    (T, N), R = pred.shape, task_req.shape[1]
+    n = T * N + T * R * 4 + N * R * 4 + R * 4 + N + (T * (2 + R) + 1) * 4
+    if isinstance(dyn, torch.Tensor):
+        n += T * N
+    elif dyn is not None:
+        n += (dyn.task_words.numel() + dyn.node_words.numel() + dyn.thr.numel()) * 4
+    return bound(n, 0)
 
 
 def predicate_bound(snap):
@@ -3294,10 +3591,16 @@ def phase_kernels(rec: Recorder):
     record("failure_counts", fargs,
            time_ms(lambda: k4.failure_counts(*fargs)),
            time_ms(lambda: k4.failure_counts_plain(*fargs)),
-           bound(T * N + T * R * 4 + N * R * 4 + N + (2 + R) * 4 * T,
-                 T * N * (5 * R + 4)),
+           failure_counts_bound(fargs),
            time_ms(lambda: failure_counts_library(*fargs), warmup=1, runs=3))
-    pf, ins, fe = k4.failure_counts(*fargs)
+    log(json.dumps({"phase": "kernel-note", "name": "failure_counts",
+                    **k4_request_classes(fargs[2])}))
+    # ... and every call of the path (one a cycle)
+    k4_checks = check_all(rec, ("failure_counts",))["failure_counts"]
+    log(json.dumps({"phase": "main-path-k4", "equal_to_plain": True, **k4_checks}))
+    if k4_checks["calls"] != k4_checks["calls_made"]:
+        fail("main path: not every failure_counts call was checked")
+    pf, ins, fe, _nodes = k4.failure_counts(*fargs)
     if not bool((ins > 0).any()):
         fail("main path: cycle 2's failure tallies found no insufficient node")
 
@@ -3470,6 +3773,10 @@ def phase_row_patch(rec: Recorder) -> dict:
 
     from kube_batch_tpu_torch.kernels import row_patch as k9
 
+    k4 = check_all(rec, ("failure_counts",))["failure_counts"]
+    log(json.dumps({"phase": "host-cycle-k4", "equal_to_plain": True, **k4}))
+    if k4["calls"] <= 0 or k4["calls"] != k4["calls_made"]:
+        fail("K4: not every failure_counts call of the host cycle was checked")
     checks = check_all(rec, ("row_patch",))["row_patch"]
     log(json.dumps({"phase": "host-cycle-k9", "equal_to_plain": True, **checks}))
     if checks["calls"] <= 0 or checks["calls"] != checks["calls_made"]:
@@ -3599,9 +3906,10 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
                     **{k: v for k, v in sched.last_stats.items() if k.endswith("rounds")},
                     **{k: v for k, v in sched.last_stats.items() if k.endswith("cancelled")},
                     **{f"{k}_launches": now[k] - before[k] for k in AFFINITY_KERNELS}}
-            if now["affinity_mask"] - before["affinity_mask"] > 1:
+            if now["affinity_mask"] - before["affinity_mask"]:
                 fail(f"affinity path: cycle {cycle + 1} launched affinity_mask "
-                     f"{now['affinity_mask'] - before['affinity_mask']} times (at most once)")
+                     f"{now['affinity_mask'] - before['affinity_mask']} times (the "
+                     "failure tallies take its words)")
             # one K11 build per auction round, plus the failure tallies'
             rounds = (sum(sched.last_stats.get("allocate_rounds", []))
                       + sum(sched.last_stats.get("backfill_rounds", [])))
@@ -3625,11 +3933,16 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     for name in AFFINITY_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the affinity path")
-    # every auction round builds its words once, then proposes: the n-th
-    # recorded words and K2 calls are one round's
-    if rec.seen["affinity_words"] != rec.seen["propose_best"]:
+    # every auction round builds its words once, then proposes; every
+    # cycle's failure tallies build them once more and hand them to K4
+    from kube_batch_tpu_torch.kernels.affinity import AffinityWords
+
+    if rec.seen["affinity_words"] != rec.seen["propose_best"] + 2:
         fail(f"affinity path: {rec.seen['affinity_words']} affinity_words calls for "
-             f"{rec.seen['propose_best']} auction rounds")
+             f"{rec.seen['propose_best']} auction rounds and 2 cycles")
+    tallies = [a for _c, _r, a in rec.calls["failure_counts"]]
+    if len(tallies) != 2 or not all(isinstance(a[1], AffinityWords) for a in tallies):
+        fail("affinity path: the failure tallies did not take K10's words")
     if not sessions[0][1] or not sessions[1][1]:
         fail("an affinity-path cycle bound nothing")
     _check_invariants(cache)
@@ -3995,14 +4308,17 @@ class AuctionWindows:
 
 def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     """K11 on every call of the affinity path (immediate and FutureIdle
-    rounds both met), K10's mask and task words on each of
-    their calls (one a cycle), K10's words and K2 on every 300th round,
-    K5 given K10's row operand on every opening step of ROW_WORLD's card
-    run (against K5's plain version fed the plain row) and K10's cell form
-    on every continuing step there, if one occurs; the row form timed on
-    a recorded operand beside K5 with and without it; K12 on every
+    rounds both met), K10's task words and words on each of their calls
+    (a snapshot; a round and a cycle), K2 on every 300th round, K4 on
+    both cycles' tallies (the words form), K5 given K10's row operand on
+    every opening step of ROW_WORLD's card run (against K5's plain version
+    fed the plain row); the row form timed on a recorded operand beside
+    K5 with and without it; K10's mask (no path launches it) on the
+    tallies' operands of cycle 2, and K4's words form there against the
+    parent's chain (the mask, the AND, K4 on the AND); K12 on every
     10th call of the joint path (after auction and evict steps both
-    met), each against its plain version; K11 timed on an immediate and
+    met) and K6 on every continuing step of it, each against its plain
+    version; K11 timed on an immediate and
     a FutureIdle round of cycle 2, the rest on cycle 2's inputs of their
     paths; K2 given the words against K2 given K10's mask of the same
     tables (outputs equal, both timed); and K12 on a recorded evict step
@@ -4012,6 +4328,7 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     import torch
 
     from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import failure_counts as k4
     from kube_batch_tpu_torch.kernels import joint_tier as k12
     from kube_batch_tpu_torch.kernels import propose as k2
     from kube_batch_tpu_torch.kernels import resident as k11
@@ -4022,15 +4339,21 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     for label, rec, names in (("affinity-path", arec, AFFINITY_KERNELS),
                               ("affinity-path-k2", arec, ("propose_best", "propose_pick",
                                                           "resolve", "apply")),
-                              ("row-world", row_rec, ("victim_prefix", "affinity_cell")),
-                              ("joint-path", jrec, JOINT_ONLY)):
+                              ("affinity-path-k4", arec, ("failure_counts",)),
+                              ("row-world", row_rec, ("victim_prefix",)),
+                              ("joint-path", jrec, JOINT_ONLY + ("preempt_continue",
+                                                                 "failure_counts"))):
         got = check_all(rec, names)
         log(json.dumps({"phase": f"{label}-kernels", "equal_to_plain": True, **got}))
         checks.update(got)
         for name in names:
-            # a continuing step (a cell test) occurs only where a plan evicts
-            if got[name]["calls"] <= 0 and name != "affinity_cell":
+            if got[name]["calls"] <= 0:
                 fail(f"{label}: no {name} call was recorded")
+    # every continuing step of the joint path (K6 with p and n on the card)
+    # and every cycle's tallies
+    for name in ("preempt_continue", "failure_counts"):
+        if checks[name]["calls"] != checks[name]["calls_made"]:
+            fail(f"joint path: not every {name} call was recorded")
     out = {}
 
     def record(name, ms, plain_ms, b, library_ms=None, **note):
@@ -4079,9 +4402,18 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
            bound(T * (3 * K + 2 * K2) * 4 + T * nw * 4, T * (3 * K + 2 * K2)),
            tasks=T, words=nw)
 
-    # K10's mask: cycle 2's call (the failure tallies, Idle orientation)
-    args = second_cycle(arec, "affinity_mask")[0]
-    fields, resident = args[:8], args[8]
+    # K10's mask, which no path launches since the tallies take its words:
+    # timed on cycle 2's task words call's fields and the tallies' K11
+    # build (Idle orientation), the operands the parent's cycle gave it
+    tally_words = [a for c, r, a in arec.calls["affinity_words"]
+                   if c == max(c2 for c2, _r, _a in arec.calls["affinity_words"])][-1]
+    term_key, term_label, nkd, resident = tally_words[1:]
+    args = (*second_cycle(arec, "affinity_task_words")[0], term_key, term_label, nkd,
+            resident)
+    mask_err = require_equal("affinity_mask on the tallies' operands",
+                             [(k10.affinity_mask(*args), k10.affinity_mask_plain(*args))])
+    checks["affinity_mask"] = {"max_abs_err": mask_err}
+    fields = args[:8]
     T, N = fields[0].shape[0], resident.Hb.shape[0]
     KW, K2W = k10.words(K), k10.words(K2)
     in_bytes = (sum(x.numel() * x.element_size() for x in fields)
@@ -4095,9 +4427,43 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
            cells=T * N, live_words=[KW, K2W])
     mask_fields = fields
 
-    # K10's words and K2's words form: the last recorded round (cycle 2)
-    wargs = arec.calls["affinity_words"][-1][2]
-    bargs = arec.calls["propose_best"][-1][2]
+    # K4's words form on cycle 2's tallies, against the parent's chain
+    # (K10's mask, the AND, K4 on the AND) on the same operands
+    fargs = second_cycle(arec, "failure_counts")[-1]
+    pred, words_t, rest = fargs[0], fargs[1], fargs[2:]
+    tally_mask = k10.affinity_mask(*args)
+    chain = (pred & tally_mask, None, *rest)
+    k4_err = require_equal("failure_counts words form against the parent's chain",
+                           list(zip(k4.failure_counts(*fargs), k4.failure_counts(*chain))))
+    k4_ms = time_ms(lambda: k4.failure_counts(*fargs))
+    k4_bound = failure_counts_bound(fargs)
+    path_time("failure_counts", ("affinity",), k4_ms, k4_bound[0])
+
+    def parent_chain():
+        m = k10.affinity_mask(*args)
+        return k4.failure_counts(pred & m, None, *rest)
+
+    words_build_ms = time_ms(lambda: k10.affinity_words(*tally_words))
+    chain_ms = time_ms(parent_chain)
+    log(json.dumps({
+        "phase": "k4-words-form", "tasks": T, "nodes": N,
+        "words": words_t.node_words.shape[1], "max_abs_err": k4_err,
+        "failure_counts_words_ms": round(k4_ms, 4),
+        "failure_counts_words_bound_ms": round(k4_bound[0], 6),
+        "failure_counts_mask_form_ms": round(time_ms(
+            lambda: k4.failure_counts(pred, tally_mask, *rest)), 4),
+        "failure_counts_on_and_ms": round(time_ms(lambda: k4.failure_counts(*chain)), 4),
+        "affinity_words_ms": round(words_build_ms, 4),
+        "tallies_words_ms": round(words_build_ms + k4_ms, 4),
+        "parent_chain_ms": round(chain_ms, 4),
+        "parent_chain_note": "affinity_mask, the AND, then K4 on the AND"}))
+
+    # K10's words and K2's words form: the last recorded round (cycle 2),
+    # its words the first words call of that (cycle, round) (the tallies'
+    # comes after the cycle's last round)
+    b_cycle, b_round, bargs = arec.calls["propose_best"][-1]
+    wargs = next(a for c, r, a in arec.calls["affinity_words"]
+                 if (c, r) == (b_cycle, b_round))
     pargs = arec.calls["propose_pick"][-1][2]
     words = bargs[1]
     tw, term_key, term_label, nkd, resident = wargs
@@ -4174,9 +4540,9 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
 
     # K10's row form, launched on its own, on the operand of the K5 call
     # of ROW_WORLD's cycle 2 whose row vetoes the most nodes (its opening
-    # steps test the row inside K5): the
-    # row, the one-cell test, and K5 with the operand beside K5 alone and
-    # beside the parent's sequence (the row, then K5 given it)
+    # steps test the row inside K5): the row, and K5 with the operand
+    # beside K5 alone and beside the parent's sequence (the row, then K5
+    # given it)
     k5_args = max(second_cycle(row_rec, "victim_prefix"),
                   key=lambda a: int((~a[11].row()).sum()))   # the row that vetoes most
     op = k5_args[11]
@@ -4188,15 +4554,13 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     KW, K2W = k10.words(K), k10.words(K2)
     row_bytes = (op.task_words.shape[1] * 4 + 2 * K2 * 4 + nkd.numel() * 4
                  + _resident_read_bytes(resident, now=False) + N)
-    n0 = torch.zeros((), dtype=torch.int64, device=op.p.device)
-    checks["affinity_row"] = {"max_abs_err": max(row_err, checks["affinity_cell"]["max_abs_err"])}
+    checks["affinity_row"] = {"max_abs_err": row_err}
     record("affinity_row", time_ms(lambda: k10.affinity_row(*rargs)),
            time_ms(lambda: k10.affinity_row_plain(*rargs[:10])),
            bound(row_bytes, N * (5 * KW + 4 * K2W)),
            # the reference's products of the 0/1 tables for one row are
            # the plain version's form
-           time_ms(lambda: k10.affinity_row_plain(*rargs[:10])), nodes=N,
-           cell_ms=round(time_ms(lambda: k10.affinity_cell(*rargs[:10], n0, rargs[10])), 4))
+           time_ms(lambda: k10.affinity_row_plain(*rargs[:10])), nodes=N)
     alone = list(k5_args)
     alone[11] = None
     with_mask = list(k5_args)
@@ -4343,7 +4707,8 @@ REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "P
               "affinity_task_words": "PR 7", "propose_best": "PR 8", "vtime": "PR 8",
               "victim_prefix": "PR 9", "propose_pick": "PR 9",
               "resolve": "PR 10", "predicate_mask": "PR 10",
-              "affinity_row": "PR 11", "apply": "PR 11"}
+              "affinity_row": "PR 11", "apply": "PR 11",
+              "preempt_continue": "PR 12", "failure_counts": "PR 12"}
 
 
 def excess_by_path(k, path_times) -> dict:
@@ -4419,6 +4784,8 @@ def main() -> int:
         edge_errs["victim_prefix"] = phase_k5_edge(device)
         edge_errs["resolve"] = phase_k3_edge(device)
         edge_errs["predicate_mask"] = phase_k1_edge(device)
+        edge_errs["preempt_continue"] = phase_k6_continue_edge(device)
+        edge_errs["failure_counts"] = phase_k4_edge(device)
         edge_errs["affinity_row"] = 0.0
         for name, err in (list(phase_k10_row_edge(device).items())
                           + list(phase_k3_apply_edge(device).items())):

@@ -60,8 +60,8 @@ def make_cycle_solver(policy, action_names: Sequence[str], joint: bool = False):
                 evict_masks[name] = ((state.task_state == releasing)
                                      & (prev != releasing) & snap.task_mask)
         job_ready = policy.job_ready_mask(snap, state)
-        dyn = policy.dynamic_predicate_fn(snap, state, immediate=True)
-        diag = failure_counts(snap, state, pred if dyn is None else pred & dyn)
+        diag = failure_counts(snap, state, pred,
+                              policy.auction_dyn_predicate(snap, state, immediate=True))
         return state, evict_masks, job_ready, diag
 
     return cycle
@@ -174,8 +174,8 @@ def make_joint_cycle(policy, action_names: Sequence[str]):
             stats=stats,
         )
         job_ready = policy.job_ready_mask(snap, state)
-        dyn = policy.dynamic_predicate_fn(snap, state, immediate=True)
-        diag = failure_counts(snap, state, pred if dyn is None else pred & dyn)
+        diag = failure_counts(snap, state, pred,
+                              policy.auction_dyn_predicate(snap, state, immediate=True))
         evict_masks = {
             name: (evict_code == action_names.index(name) + 1) & snap.task_mask
             for name in evicting

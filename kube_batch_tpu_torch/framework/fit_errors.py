@@ -20,16 +20,19 @@ from kube_batch_tpu_torch.kernels import failure_counts as _k4
 MAX_DIAG_EVENTS = 1000
 
 
-def failure_counts(snap, state, predicate_mask: torch.Tensor) -> dict:
+def failure_counts(snap, state, predicate_mask: torch.Tensor, dyn=None) -> dict:
     """Per-task failure tallies over real, ready nodes: "nodes" (i32
     scalar), "predicate_failed" i32[T], "insufficient" i32[T, R] (nodes
-    short on each dim), "feasible" i32[T] (nodes fully fitting)."""
+    short on each dim), "feasible" i32[T] (nodes fully fitting).  The
+    predicate is `predicate_mask` ANDed with `dyn`: the dynamic predicates
+    as a bool[T, N] mask, as kernel K10's words (`kernels/affinity.py ·
+    AffinityWords`, tested inside kernel K4's launch), or None."""
     node_ok = snap.node_mask & snap.node_ready
-    pf, ins, fe = _k4.failure_counts(
-        predicate_mask, snap.task_req, state.node_idle, snap.eps, node_ok
+    pf, ins, fe, nodes = _k4.failure_counts(
+        predicate_mask, dyn, snap.task_req, state.node_idle, snap.eps, node_ok
     )
     return {
-        "nodes": node_ok.sum().int(),
+        "nodes": nodes,
         "predicate_failed": pf,
         "insufficient": ins,
         "feasible": fe,

@@ -24,22 +24,25 @@ pass), the same tables otherwise:
   anti_topo] as bits.  They read only the snapshot: built once per
   snapshot and kept (`SnapshotTensors.affinity_task_words`); K11 reads
   its label rows from them.
-* `affinity_mask(fields..., resident)` → bool[T, N];
+* `affinity_mask(fields..., resident)` → bool[T, N] (no path launches
+  it since the failure tallies take the words form; an entry still);
 * `affinity_row(fields..., resident, p, task_words)` → bool[N]: the same
   for task `p` (an int or a 0-dim device tensor, never read on the host)
   against the future tables, from the kept task words (the card reads
-  them, the plain version the fields); `affinity_cell(..., p, n,
-  task_words)` → bool[]: its one cell (p, n), n a 0-dim device tensor,
-  one warp, answered in the word K11's build keeps for it;
+  them, the plain version the fields);
 * `AffinityRow`: the row of one task as an operand — the fields, the
   kept task words, the state's K11 tables and p — that kernel K5 tests
-  node by node inside its own launch (`kernels/victim_prefix.py`), so a
-  preemption step that opens a plan launches nothing for the row; its
-  `row()` and `cell(n)` are the two forms above;
+  node by node inside its own launch (`kernels/victim_prefix.py`) and
+  kernel K6 at a continuing step's node (`kernels/preempt_scan.py`), so
+  no preemption step launches anything for the row; its `row()` is the
+  row above;
 * `affinity_words(task_words, term_key, term_label, node_key_domain,
   resident)` → `AffinityWords`: the mask's operands as 32-bit words and
   per-task thresholds, nothing per cell.  Kernel K2 takes it in place of
-  the mask and tests each cell in its own tiles (`kernels/propose.py`).
+  the mask and tests each cell in its own tiles (`kernels/propose.py`),
+  and so does kernel K4 for the cycle's failure tallies
+  (`kernels/failure_counts.py`), with the same test
+  (`csrc/affinity_words.cuh`).
 
 Every operand is 0/1, so every count is an exact integer: the kernel and
 the plain version (the reference's float matrix products) agree bit for
@@ -62,7 +65,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "kb_affinity_mask": [_P] * 15 + [_I] * 5 + [_P] * 5,
     "kb_affinity_row": [_P] * 10 + [_I] * 4 + [_P] * 2,
-    "kb_affinity_cell": [_P] * 11 + [_I] * 3 + [_P] * 2,
     "kb_affinity_words": [_P] * 11 + [_I] * 5 + [_P] * 3,
     "kb_affinity_task_words": [_P] * 6 + [_I] * 3 + [_P] * 2,
 }
@@ -354,32 +356,6 @@ def affinity_row(aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
     return out
 
 
-def affinity_cell(aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
-                  node_key_domain, resident: ResidentWords, p, n, task_words=None):
-    """bool[]: cell (p, n) of `affinity_row`, n an int64 device scalar in
-    [0, N) on the card.  One warp; the answer is a view of the word past
-    `resident`'s tables (`ResidentWords.answer`), valid until the next
-    cell test of the same build.  Counted with affinity_row's launches
-    (the row form's entry in the kernels line)."""
-    fields = (aff, anti, labels, aff_topo, anti_topo, term_key, term_label,
-              node_key_domain)
-    if not _on_card(aff, "affinity_cell"):
-        return affinity_row_plain(*fields, resident, p)[n]
-    dev = aff.device
-    if task_words is None:
-        raise ValueError("affinity_cell on the card reads the snapshot's task words")
-    args = _row_operand("affinity_cell", resident, task_words, term_key, term_label,
-                        node_key_domain, _device_scalar(p, dev))
-    n = _device_scalar(n, dev)
-    _check("affinity_cell", (n,), (torch.int64,), dev)
-    out = resident.answer()
-    err = _fn("kb_affinity_cell")(*args[:10], n.data_ptr(), *args[10:], out.data_ptr(),
-                                  build.stream_handle(dev))
-    build.check(err, "affinity_cell")
-    affinity_row.launches += 1
-    return out
-
-
 @dataclasses.dataclass(frozen=True)
 class AffinityRow:
     """pod_affinity_row of one task as the operand kernel K5 tests node by
@@ -408,22 +384,20 @@ class AffinityRow:
         r = affinity_row_plain(*self.fields, self.resident, self.p)
         return r if self.mask is None else r & self.mask
 
-    def cell(self, n) -> torch.Tensor:
-        """bool[]: the row at node n (`affinity_cell`, one launch of one
-        warp on the card)."""
-        c = affinity_cell(*self.fields, self.resident, self.p, n, self.task_words)
-        return c if self.mask is None else c & self.mask[n]
-
     def and_mask(self, m: torch.Tensor) -> "AffinityRow":
         """The same predicate ANDed with a bool[N] row."""
         return dataclasses.replace(self, mask=m if self.mask is None else self.mask & m)
 
-    def kernel_args(self) -> tuple:
-        """The operand's C arguments for K5 (`csrc/affinity_row.cuh ·
-        Operand`), checked."""
+    def kernel_args(self, what: str, dev) -> tuple:
+        """The operand's C arguments for kernel `what` on device `dev`
+        (`csrc/affinity_row.cuh · Operand`), checked: every table of the
+        operand on `dev`."""
+        if self.task_words.device != dev:
+            raise ValueError(f"{what}: the affinity row operand lies on "
+                             f"{self.task_words.device}, the other operands on {dev}")
         term_key, term_label, nkd = self.fields[5:8]
-        return _row_operand("victim_prefix", self.resident, self.task_words, term_key,
-                            term_label, nkd, self.p)
+        return _row_operand(what, self.resident, self.task_words, term_key, term_label,
+                            nkd, self.p)
 
 
 

@@ -9,7 +9,7 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 A library is built at first use, from the sources in this checkout, into
 `kernels/_build/` (listed in .gitignore), under a name that carries the
 hash of its source, the local headers it includes (`#include "x.cuh"`,
-e.g. `csrc/cta_sort.cuh`) and the flags, so an edited source or header
+e.g. `csrc/cta_sort.cuh`, `csrc/affinity_words.cuh`) and the flags, so an edited source or header
 is rebuilt.
 `build_all()` starts one `nvcc` per source at once and waits for all of
 them.  Nothing here runs at import time: the CPU tests import every
@@ -32,7 +32,7 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("predicate_mask", "propose", "resolve", "victim_prefix",
+SOURCES = ("predicate_mask", "propose", "resolve", "failure_counts", "victim_prefix",
            "preempt_scan", "segment_sum", "lex_rank", "row_patch",
            "resident_tables", "affinity_mask", "joint_tier")
 NVCC_FLAGS = (

@@ -47,9 +47,9 @@
 // p's thresholds and topology terms into shared memory, then each node's
 // cell is tested in registers; nothing is written but the answer.
 // Kernel K5 (victim_prefix.cu) runs the same test inside its own launch,
-// so a preemption step that opens a plan launches nothing for the row;
-// kb_affinity_row (a thread a node) and kb_affinity_cell (one warp, the
-// cell (p, n) of a continuing step) are its forms launched on their own.
+// and kernel K6 (preempt_scan.cu) tests the one cell of a continuing
+// step in its launch, so no preemption step launches anything for the
+// row; kb_affinity_row (a thread a node) is the row launched on its own.
 // Bound: bytes (p's words, the words of the nodes tested, one byte each).
 
 #include <cstdint>
@@ -251,15 +251,6 @@ __global__ void affinity_row_kernel(affinity_row::Operand o, int N, uint8_t* __r
   if (n < N) out[n] = affinity_row::cell(o, s, n) ? 1 : 0;
 }
 
-// The cell (p, *n) alone: one warp, out u8[1].
-__global__ void affinity_cell_kernel(affinity_row::Operand o, const int64_t* __restrict__ n,
-                                     uint8_t* __restrict__ out) {
-  __shared__ affinity_row::Shared s;
-  affinity_row::prepare(o, s);
-  __syncwarp();
-  if (threadIdx.x == 0) out[0] = affinity_row::cell(o, s, (int)*n) ? 1 : 0;
-}
-
 Dims make_dims(int T, int N, int K, int K2, int TK) {
   Dims d{T, N, K, K2, TK, (K + 31) / 32, (K2 + 31) / 32};
   return d;
@@ -341,21 +332,6 @@ extern "C" int kb_affinity_row(const uint32_t* task_words, const uint32_t* Hb,
   affinity_row_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
       row_operand(task_words, Hb, Ab, Hd, Ad, exists, nkd, term_key, term_label, p, K, K2, TK),
       N, out);
-  return (int)cudaGetLastError();
-}
-
-// The one cell (p, *n) of the row above (n int64 on the card, in [0, N)):
-// out u8[1], one warp.
-extern "C" int kb_affinity_cell(const uint32_t* task_words, const uint32_t* Hb,
-                                const uint32_t* Ab, const uint32_t* Hd, const uint32_t* Ad,
-                                const uint32_t* exists, const int32_t* nkd,
-                                const int32_t* term_key, const int32_t* term_label,
-                                const int64_t* p, const int64_t* n, int K, int K2, int TK,
-                                uint8_t* out, cudaStream_t stream) {
-  if (K > affinity_row::MAXK2 || K2 > affinity_row::MAXK2) return (int)cudaErrorInvalidValue;
-  affinity_cell_kernel<<<1, 32, 0, stream>>>(
-      row_operand(task_words, Hb, Ab, Hd, Ad, exists, nkd, term_key, term_label, p, K, K2, TK),
-      n, out);
   return (int)cudaGetLastError();
 }
 

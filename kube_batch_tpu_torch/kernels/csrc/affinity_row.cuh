@@ -16,8 +16,9 @@
 // from K11's tables in registers, and only the words and terms p uses.
 // Every count is a popcount of 0/1 words, so the test is exact.
 //
-// Included by affinity_mask.cu (the row and cell entries) and
-// victim_prefix.cu (kernel K5 tests node n inside its own launch).
+// Included by affinity_mask.cu (the row and cell entries),
+// victim_prefix.cu (kernel K5 tests node n inside its own launch) and
+// preempt_scan.cu (kernel K6 tests the plan's node of a continuing step).
 
 #pragma once
 
@@ -141,3 +142,18 @@ __device__ __forceinline__ bool cell(const Operand& o, const Shared& s, int n) {
 }
 
 }  // namespace affinity_row
+
+// The row operand as a C entry takes it (victim_prefix.cu's and
+// preempt_scan.cu's), Operand's fields in order: task_words, Hb, Ab, Hd,
+// Ad, exists, nkd, term_key, term_label, p (row_p), K, K2, TK;
+// row_task_words null: no affinity row.
+#define KB_ROW_PARAMS                                                                     \
+  const uint32_t *row_task_words, const uint32_t *row_Hb, const uint32_t *row_Ab,         \
+      const uint32_t *row_Hd, const uint32_t *row_Ad, const uint32_t *row_exists,         \
+      const int32_t *row_nkd, const int32_t *row_term_key, const int32_t *row_term_label, \
+      const int64_t *row_p, int row_K, int row_K2, int row_TK
+#define KB_ROW_OPERAND                                                                \
+  const affinity_row::Operand row{row_task_words, row_Hb,   row_Ab,       row_Hd,         \
+                                  row_Ad,         row_exists, row_nkd,    row_term_key,   \
+                                  row_term_label, row_p,    row_K,        row_K2,         \
+                                  row_K2 ? row_TK : 0}

@@ -12,9 +12,14 @@
 //     any_direct_fit      ∃ t eligible, n real and ready:
 //                         fits(req[t], FutureIdle[n]) — an early-exit
 //                         [T, N, R] reduction of fp32 compares
-//   kb_preempt_continue (a plan is open on node n)
+//   kb_preempt_continue (a plan is open on node n) — the continuing
+//     step's whole classification (ops/preemption.py lines 241-257)
 //     v, any_victim       argmin of sacrifice (= −rank) over candidate
 //                         victims on node n, lowest index on ties
+//     fit_now             fits(req[p], FutureIdle[n], eps)
+//     viable              the preemptor's dynamic row at n (a bool[N] row
+//                         and / or the inter-pod affinity row operand,
+//                         tested here as kernel K5 tests it); 1 without one
 //
 // On an opening step the victim on the chosen node comes from K5, which
 // already walks that node's victims in sacrifice order; and the direct-fit
@@ -59,33 +64,35 @@
 // row meets every ready node; at the preempt path's shapes, launch
 // latency.
 //
-// preempt_continue stays one block: it reads [T] vectors once.
+// preempt_continue reads p and n on the card (the plan's device scalars),
+// so no launch of a continuing step takes the host's copy of n, and the
+// step needs no cast, fit test or row launch around it.  One launch of a
+// grid of blocks, 4 rows a thread (a block 1,024 rows), so the T scan
+// spreads over the SMs: a thread reads its rows' victim bytes as one word,
+// task_node only of the victims among them and rank only of those on n; a
+// block folds the packed key (T−1−rank) << 32 | t by warp shuffles and
+// makes one 64-bit atomicMax on its complement; block 0 meanwhile tests
+// fit_now and the row's cell at n (one warp prepares p's words, as K5
+// does).  The last block to arrive (a ticket after a fence) writes v and
+// any_victim and clears the scratch words, which live past the outputs in
+// the buffer the loop's carry keeps (zeroed once when allocated): no
+// memset, no allocation, no cast a call.  Bound on this card: launch
+// latency; the bytes the function needs (the victims bytes, then 4 bytes
+// a candidate and 4 a candidate on n) are under 0.6 MB at 65,536 rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "affinity_row.cuh"
+
 namespace {
 
 constexpr int MAX_R = 8;
-constexpr int THREADS = 1024;
 constexpr unsigned long long NONE = ~0ull;
 
 __device__ bool allocated(int32_t s) {
   // ALLOCATED, BINDING, BOUND, RUNNING (api/types.py · ALLOCATED_STATUSES)
   return s == 1 || s == 3 || s == 4 || s == 5;
-}
-
-__device__ unsigned long long block_min(unsigned long long v, unsigned long long* shared) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_down_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  if ((threadIdx.x & 31) == 0) shared[threadIdx.x >> 5] = v;
-  __syncthreads();
-  unsigned long long b = NONE;
-  for (int w = 0; w < THREADS / 32; ++w) b = shared[w] < b ? shared[w] : b;
-  __syncthreads();
-  return b;
 }
 
 // int32 words of the scratch, zeroed before each launch
@@ -239,22 +246,96 @@ int sm_count() {
   return n;
 }
 
-__global__ void preempt_continue_kernel(
-    int T, const int32_t* __restrict__ rank, const uint8_t* __restrict__ victims,
-    const int32_t* __restrict__ task_node, int n, int32_t* __restrict__ out) {
-  __shared__ unsigned long long warp_min[THREADS / 32];
-  unsigned long long key = NONE;
-  for (int t = threadIdx.x; t < T; t += THREADS) {
-    if (victims[t] && task_node[t] == n) {
-      // sacrifice = −rank; T−1−rank orders the same way and is ≥ 0
-      const unsigned long long k = ((unsigned long long)(uint32_t)(T - 1 - rank[t]) << 32) | (uint32_t)t;
-      key = k < key ? k : key;
+// The continuing step's buffer (bytes): v i64 at 0, any_victim, fit_now
+// and viable u8 at 8, 9, 10; scratch: the complement of the least key
+// (u64, 0 while none) at 16, the arrival ticket (u32) at 24, both zero
+// between calls.
+constexpr int CONT_THREADS = 256;
+constexpr int CONT_ROWS = 4;      // rows a thread
+constexpr int CONT_KEY = 16, CONT_TICKET = 24;
+
+struct ContinueArgs {
+  const int32_t* rank;       // i32[T] dense ranks; sacrifice T-1-rank
+  const uint8_t* victims;    // bool[T] candidate victims
+  const int32_t* task_node;  // i32[T]
+  const float* req;          // f32[T, R]
+  const float* future;       // f32[N, R] FutureIdle
+  const float* eps;          // f32[R]
+  const int64_t* p;          // the plan's preemptor, on the card
+  const int64_t* n;          // the plan's node, on the card
+  const uint8_t* dyn;        // bool[N] or null
+  affinity_row::Operand row; // p's inter-pod affinity row (task_words null: none)
+  int T, R, vec;             // vec: victims read a word (4 rows) at a time
+  uint8_t* buf;
+};
+
+__global__ void __launch_bounds__(CONT_THREADS) preempt_continue_kernel(ContinueArgs a) {
+  __shared__ unsigned long long warp_min[CONT_THREADS / 32];
+  __shared__ affinity_row::Shared s_row;
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = (int)*a.n;
+  // block 0: fit_now and viable, beside its share of the scan
+  if (blockIdx.x == 0) {
+    if (a.row.task_words && warp == 0) affinity_row::prepare(a.row, s_row);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int64_t p = *a.p;
+      bool fit = true;
+      for (int r = 0; r < a.R; ++r) {
+        const float q = a.req[p * a.R + r];
+        fit = fit && ((q <= a.future[(int64_t)n * a.R + r]) || (q < a.eps[r]));
+      }
+      bool viable = !a.dyn || a.dyn[n];
+      if (a.row.task_words) viable = viable && affinity_row::cell(a.row, s_row, n);
+      a.buf[9] = fit ? 1 : 0;
+      a.buf[10] = viable ? 1 : 0;
     }
   }
-  const unsigned long long v = block_min(key, warp_min);
+  // the scan: the least (T-1-rank, t) over the victims on n
+  unsigned long long key = NONE;
+  const int t0 = (blockIdx.x * CONT_THREADS + threadIdx.x) * CONT_ROWS;
+  if (t0 < a.T) {
+    uint32_t vw = 0u;
+    if (a.vec) {
+      vw = *reinterpret_cast<const uint32_t*>(a.victims + t0);
+    } else {
+      for (int j = 0; j < CONT_ROWS; ++j)
+        if (t0 + j < a.T && a.victims[t0 + j]) vw |= 0xffu << (8 * j);
+    }
+    for (int j = 0; vw && j < CONT_ROWS; ++j) {
+      const int t = t0 + j;
+      if (((vw >> (8 * j)) & 0xffu) && a.task_node[t] == n) {
+        const unsigned long long k =
+            ((unsigned long long)(uint32_t)(a.T - 1 - a.rank[t]) << 32) | (uint32_t)t;
+        key = k < key ? k : key;
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long o = __shfl_down_sync(0xffffffffu, key, off);
+    key = o < key ? o : key;
+  }
+  if (lane == 0) warp_min[warp] = key;
+  __syncthreads();
+  unsigned long long* key_word = reinterpret_cast<unsigned long long*>(a.buf + CONT_KEY);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(a.buf + CONT_TICKET);
   if (threadIdx.x == 0) {
-    out[0] = v == NONE ? 0 : (int32_t)(v & 0xffffffffu);
-    out[1] = v == NONE ? 0 : 1;
+    unsigned long long b = NONE;
+    for (int w = 0; w < CONT_THREADS / 32; ++w) b = warp_min[w] < b ? warp_min[w] : b;
+    if (b != NONE) atomicMax(key_word, ~b);
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  // the last block to arrive: the outputs, and the scratch cleared
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    const unsigned long long k = ~atomicExch(key_word, 0ull);
+    atomicExch(ticket, 0u);
+    const int64_t v = k == NONE ? 0 : (int64_t)(k & 0xffffffffu);
+    *reinterpret_cast<int64_t*>(a.buf) = v;
+    a.buf[8] = k == NONE ? 0 : 1;
   }
 }
 
@@ -295,10 +376,25 @@ extern "C" int kb_preempt_open(int T, int N, int R, const int32_t* rank,
   return (int)cudaGetLastError();
 }
 
-// out: [victim on n, any victim on n]
-extern "C" int kb_preempt_continue(int T, const int32_t* rank, const uint8_t* victims,
-                                   const int32_t* task_node, int n, int32_t* out,
-                                   cudaStream_t stream) {
-  preempt_continue_kernel<<<1, THREADS, 0, stream>>>(T, rank, victims, task_node, n, out);
+// buf: the continuing step's buffer (above), 8-byte aligned, its scratch
+// words zero (they are again when the launch ends); p and n int64 on the
+// card; dyn bool[N] or null; the row operand as affinity_row.cuh takes it.
+extern "C" int kb_preempt_continue(int T, int R, const int32_t* rank, const uint8_t* victims,
+                                   const int32_t* task_node, const float* req,
+                                   const float* future, const float* eps, const int64_t* p,
+                                   const int64_t* n, const uint8_t* dyn, KB_ROW_PARAMS,
+                                   uint8_t* buf, cudaStream_t stream) {
+  if (T < 1 || R < 1 || R > MAX_R || row_K > affinity_row::MAXK2 ||
+      row_K2 > affinity_row::MAXK2)
+    return (int)cudaErrorInvalidValue;
+  KB_ROW_OPERAND;
+  ContinueArgs a;
+  a.rank = rank; a.victims = victims; a.task_node = task_node; a.req = req;
+  a.future = future; a.eps = eps; a.p = p; a.n = n; a.dyn = dyn; a.row = row;
+  a.T = T; a.R = R; a.buf = buf;
+  a.vec = T % CONT_ROWS == 0 && ((uintptr_t)victims & 3u) == 0;
+  const int per_block = CONT_THREADS * CONT_ROWS;
+  const int blocks = (T + per_block - 1) / per_block;
+  preempt_continue_kernel<<<blocks, CONT_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -99,6 +99,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "affinity_words.cuh"
+
 namespace {
 
 constexpr int MAX_R = 8;
@@ -149,52 +151,30 @@ struct NodeRow {
   bool mask;
 };
 
-// Affinity words of one node or task row, groups [0..5) of W words each
-// (node: Hb, Hb_anti, sym, present, present_now; task: aff, anti,
-// labels, aff_topo, anti_topo), zero past the vocabulary's words.
-template <int W>
-struct Words {
-  uint32_t v[W > 0 ? 5 * W : 1];
-};
+// Affinity words of a row and the cell test: affinity_words.cuh, shared
+// with kernel K4.
+using affinity_words::Words;
+using affinity_words::words_ok;
 
-__device__ __forceinline__ int words_stride(const Args& a) { return 3 * a.KW + 2 * a.K2W; }
+__device__ __forceinline__ int words_stride(const Args& a) {
+  return affinity_words::row_words(a.KW, a.K2W);
+}
 
 template <int W>
 __device__ __forceinline__ uint32_t word_at(const Args& a, const uint32_t* row, int g, int w) {
-  const bool topo = g >= 3;
-  if (w >= (topo ? a.K2W : a.KW)) return 0u;
-  return row[topo ? 3 * a.KW + (g - 3) * a.K2W + w : g * a.KW + w];
+  return affinity_words::word_at<W>(a.KW, a.K2W, row, g, w);
 }
 
 // The 5·W words of a row starting at `p` (device or shared memory).
 template <int W>
 __device__ __forceinline__ void load_words_at(const Args& a, const uint32_t* p, Words<W>& out) {
-#pragma unroll
-  for (int g = 0; g < 5; ++g)
-#pragma unroll
-    for (int w = 0; w < W; ++w) out.v[g * W + w] = word_at<W>(a, p, g, w);
+  affinity_words::load_words_at<W>(a.KW, a.K2W, p, out);
 }
 
 template <int W>
 __device__ __forceinline__ void load_words(const Args& a, const uint32_t* base, int row,
                                            Words<W>& out) {
   load_words_at<W>(a, base + (size_t)row * words_stride(a), out);
-}
-
-// K10's cell test on a task row's words `tw` (5·W) and its thresholds.
-template <int W>
-__device__ __forceinline__ bool words_ok(const uint32_t* tw, int thr0, int thr1,
-                                         const Words<W>& nw) {
-  int have = 0, have2 = 0;
-  uint32_t hit = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    have += __popc(tw[w] & nw.v[w]);
-    hit |= (tw[W + w] & nw.v[W + w]) | (tw[2 * W + w] & nw.v[2 * W + w])
-         | (tw[4 * W + w] & nw.v[4 * W + w]);
-    have2 += __popc(tw[3 * W + w] & nw.v[3 * W + w]);
-  }
-  return hit == 0 && have >= thr0 && have2 >= thr1;
 }
 
 __device__ __forceinline__ void load_node(const Args& a, int n, NodeRow& nr) {
@@ -848,11 +828,7 @@ Args make_args(const uint8_t* pred, const uint8_t* dyn, const float* req,
 }
 
 // Word count W of the instantiation a call takes (0: no words).
-int words_case(const Args& a) {
-  if (!a.tw) return 0;
-  const int w = a.KW > a.K2W ? a.KW : a.K2W;
-  return w <= 1 ? 1 : (w <= 2 ? 2 : 8);
-}
+int words_case(const Args& a) { return affinity_words::words_case(a.tw != nullptr, a.KW, a.K2W); }
 
 template <int W>
 int launch_best(const Args& a, const Scratch& sc, float* best, int32_t* ties,

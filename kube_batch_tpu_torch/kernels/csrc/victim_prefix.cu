@@ -394,20 +394,6 @@ ChooseArgs make_args(const uint8_t* victims, const int32_t* task_node, const int
 
 }  // namespace
 
-// The row operand of both entries (affinity_row.cuh · Operand), in its
-// order: task_words, Hb, Ab, Hd, Ad, exists, nkd, term_key, term_label, p
-// (row_p), K, K2, TK; row_task_words null: no affinity row.
-#define KB_ROW_PARAMS                                                                     \
-  const uint32_t *row_task_words, const uint32_t *row_Hb, const uint32_t *row_Ab,         \
-      const uint32_t *row_Hd, const uint32_t *row_Ad, const uint32_t *row_exists,         \
-      const int32_t *row_nkd, const int32_t *row_term_key, const int32_t *row_term_label, \
-      const int64_t *row_p, int row_K, int row_K2, int row_TK
-#define KB_ROW_OPERAND                                                                \
-  const affinity_row::Operand row{row_task_words, row_Hb,   row_Ab,       row_Hd,         \
-                                  row_Ad,         row_exists, row_nkd,    row_term_key,   \
-                                  row_term_label, row_p,    row_K,        row_K2,         \
-                                  row_K2 ? row_TK : 0}
-
 // out: i32[N + 5] — k[N], then [n_best, any_feasible, first victim on
 // n_best (0 if none), any victim on n_best, preemptor fits n_best with no
 // victim].  One launch: 1 <= T <= CTA_MAX_T, 1 <= N, (N + 1)·T <= 2^32,

@@ -1,47 +1,65 @@
-"""K4 · failure tallies (Triton), one launch per cycle.
+"""K4 · failure tallies (CUDA C++, `csrc/failure_counts.cu`), one launch
+per cycle.
 
 Replaces kube_batch_tpu/framework/fit_errors.py · failure_counts: per
-task, over the real and ready nodes, the count of predicate-vetoed nodes,
-of nodes short on each resource dim (`req[r] > idle[r] and req[r] >=
-eps[r]` among predicate-passing nodes that do not fit), and of fitting
-nodes.
+task, over the real and ready nodes, the count of nodes its predicates
+veto, of nodes short on each resource dim (`req[r] > idle[r] and req[r]
+>= eps[r]` among predicate-passing nodes that do not fit), and of
+fitting nodes; and the count of real and ready nodes.  What bounds it on
+the card and its design are noted in the source.
 
-Bound on the card: bytes — the bool[T, N] mask is read once (0.54 GB at
-the flagship shapes); the [N, R] idle rows stay in L2 and the outputs are
-(2 + R) int32 per task.  Design: one program per block of BLOCK_T task
-rows walks the node axis in BLOCK_N tiles and reduces boolean compares
-into int32 counters; fit is recomputed on the fly, never stored.
-
-Why Triton here and CUDA C++ for K1-K3: this is a pure row reduction of
-boolean compares into integer counts, exact in any order.  It has no
-float-order or FMA hazard and no segment walk, and Triton's block
-reduction says it in a few lines.
+The predicate is the static mask `pred` ANDed with the dynamic
+predicates `dyn`, which come as a second bool[T, N] mask, as the inter-pod
+affinity words of kernel K10 (`kernels/affinity.py · AffinityWords`,
+tested inside the launch with kernel K2's test, once per class of rows
+with equal requests and words and per node), or as None.  The plain version ANDs `pred` with the words' plain cell test
+(`affinity.affinity_cells_plain`).
 
 `failure_counts` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other.
-`triton` is imported, and the kernel defined, only when it first launches.
+kernel for CUDA tensors (or raises); it never falls back from one to the
+other.  The ctypes function is bound once.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-BLOCK_T = 16
-BLOCK_N = 256
+from kube_batch_tpu_torch.kernels import build
+from kube_batch_tpu_torch.kernels.affinity import AffinityWords, affinity_cells_plain
+from kube_batch_tpu_torch.kernels.resident import words
+
+MAX_R = 8
+MAX_WORDS = 8            # words a vocabulary (K, K2 <= 256)
 #: Rows per chunk of the plain version (bounds its [rows, N] temporaries).
 PLAIN_ROWS = 4096
 
-def failure_counts_plain(pred, task_req, node_idle, eps, node_ok):
-    """(predicate_failed i32[T], insufficient i32[T, R], feasible i32[T])."""
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURE = [_P] * 5 + [_I] * 2 + [_P] * 4 + [_I] * 3 + [_P] * 5
+
+
+def _outputs(T: int, R: int, dev):
+    """(pf i32[T], ins i32[T, R], fe i32[T], nodes i32[]) in one allocation."""
+    buf = torch.empty(T * (2 + R) + 1, dtype=torch.int32, device=dev)
+    return (buf[:T], buf[T:T + T * R].view(T, R), buf[T + T * R:T * (2 + R)],
+            buf[T * (2 + R)])
+
+
+def failure_counts_plain(pred, dyn, task_req, node_idle, eps, node_ok):
+    """(predicate_failed i32[T], insufficient i32[T, R], feasible i32[T],
+    nodes i32[])."""
     T, R = task_req.shape
-    dev = task_req.device
-    pf = torch.empty(T, dtype=torch.int32, device=dev)
-    ins = torch.empty((T, R), dtype=torch.int32, device=dev)
-    fe = torch.empty(T, dtype=torch.int32, device=dev)
+    pf, ins, fe, nodes = _outputs(T, R, task_req.device)
+    nodes.copy_(node_ok.sum())
     ok = node_ok[None, :]
     for lo in range(0, T, PLAIN_ROWS):
         rows = slice(lo, min(T, lo + PLAIN_ROWS))
         p = pred[rows]
+        if isinstance(dyn, AffinityWords):
+            p = p & affinity_cells_plain(dyn.rows(rows))
+        elif dyn is not None:
+            p = p & dyn[rows]
         q = task_req[rows]
         fit = torch.all(
             (q[:, None, :] <= node_idle[None, :, :]) | (q[:, None, :] < eps),
@@ -55,93 +73,80 @@ def failure_counts_plain(pred, task_req, node_idle, eps, node_ok):
                 q[:, r] >= eps[r]
             )[:, None]
             ins[rows, r] = short.sum(dim=1).int()
-    return pf, ins, fe
+    return pf, ins, fe, nodes
+
+
+def _args_ok(pred, mask, task_req, node_idle, eps, node_ok, w) -> bool:
+    """One pass of attribute tests (the call's host time counts): dtypes,
+    shapes, the card; the words' own shapes are tested apart."""
+    T, R = task_req.shape
+    N = node_idle.shape[0]
+    return (pred.dtype == torch.bool and task_req.dtype == torch.float32
+            and node_idle.dtype == torch.float32 and eps.dtype == torch.float32
+            and node_ok.dtype == torch.bool and pred.shape == (T, N)
+            and node_idle.shape == (N, R) and eps.shape == (R,) and node_ok.shape == (N,)
+            and 1 <= R <= MAX_R and pred.is_cuda and task_req.is_cuda and node_idle.is_cuda
+            and eps.is_cuda and node_ok.is_cuda
+            and (mask is None or (mask.dtype == torch.bool and mask.shape == (T, N)
+                                  and mask.is_cuda))
+            and (w is None or (w.task_words.dtype == torch.int32 and w.task_words.is_cuda
+                               and w.node_words.dtype == torch.int32
+                               and w.node_words.is_cuda and w.thr.dtype == torch.int32
+                               and w.thr.is_cuda)))
 
 
 _kernel = None
 
 
-def _compile():
-    """Define the Triton kernel at first launch (this module is imported
-    on machines without triton).  `tl` is bound as a module global here
-    because Triton resolves the kernel's names in its module scope."""
-    global _kernel, tl
-    if _kernel is not None:
-        return _kernel
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def kernel(pred_ptr, req_ptr, idle_ptr, eps_ptr, ok_ptr,
-               pf_ptr, ins_ptr, fe_ptr, T, N,
-               R: tl.constexpr, RP: tl.constexpr,
-               BT: tl.constexpr, BN: tl.constexpr):
-        rows = tl.program_id(0) * BT + tl.arange(0, BT)
-        rmask = rows < T
-        rcol = tl.arange(0, RP)
-        pf = tl.zeros([BT], dtype=tl.int32)
-        fe = tl.zeros([BT], dtype=tl.int32)
-        ins = tl.zeros([BT, RP], dtype=tl.int32)
-        for n0 in range(0, N, BN):
-            cols = n0 + tl.arange(0, BN)
-            cmask = cols < N
-            m2 = rmask[:, None] & cmask[None, :]
-            p = tl.load(pred_ptr + rows[:, None].to(tl.int64) * N + cols[None, :],
-                        mask=m2, other=0).to(tl.int32)
-            ok = tl.load(ok_ptr + cols, mask=cmask, other=0).to(tl.int32)
-            okb = (ok[None, :] != 0) & m2
-            fit = m2
-            for r in tl.static_range(R):
-                q = tl.load(req_ptr + rows * R + r, mask=rmask, other=0.0)
-                e = tl.load(eps_ptr + r)
-                idle = tl.load(idle_ptr + cols * R + r, mask=cmask, other=0.0)
-                fit = fit & ((q[:, None] <= idle[None, :]) | (q[:, None] < e))
-            fit_i = fit.to(tl.int32)
-            passed = (p != 0) & okb
-            pf += tl.sum(((p == 0) & okb).to(tl.int32), axis=1)
-            fe += tl.sum((passed & (fit_i != 0)).to(tl.int32), axis=1)
-            unfit = passed & (fit_i == 0)
-            for r in tl.static_range(R):
-                q = tl.load(req_ptr + rows * R + r, mask=rmask, other=0.0)
-                e = tl.load(eps_ptr + r)
-                idle = tl.load(idle_ptr + cols * R + r, mask=cmask, other=0.0)
-                short = unfit & (q[:, None] > idle[None, :]) & (q >= e)[:, None]
-                cnt = tl.sum(short.to(tl.int32), axis=1)
-                ins += tl.where(rcol[None, :] == r, cnt[:, None], 0)
-        tl.store(pf_ptr + rows, pf, mask=rmask)
-        tl.store(fe_ptr + rows, fe, mask=rmask)
-        tl.store(ins_ptr + rows[:, None] * R + rcol[None, :], ins,
-                 mask=rmask[:, None] & (rcol[None, :] < R))
-
-    _kernel = kernel
-    return kernel
-
-
-def failure_counts(pred, task_req, node_idle, eps, node_ok):
-    """Per-task tallies over the nodes where `node_ok` (real and ready)."""
+def failure_counts(pred, dyn, task_req, node_idle, eps, node_ok):
+    """(predicate_failed, insufficient, feasible, nodes) over the nodes
+    where `node_ok` (real and ready), the predicate `pred` & `dyn` — see
+    the module docstring.  On the card nothing is converted (other dtypes
+    raise); a tensor that is not contiguous is copied."""
+    global _kernel
     dev = task_req.device
     if dev.type == "cpu":
-        return failure_counts_plain(pred, task_req, node_idle, eps, node_ok)
+        return failure_counts_plain(pred, dyn, task_req, node_idle, eps, node_ok)
     if dev.type != "cuda":
         raise RuntimeError(f"failure_counts: unsupported device {dev}")
-    import triton
-
-    kernel = _compile()
     T, R = task_req.shape
     N = node_idle.shape[0]
-    pf = torch.empty(T, dtype=torch.int32, device=dev)
-    ins = torch.empty((T, R), dtype=torch.int32, device=dev)
-    fe = torch.empty(T, dtype=torch.int32, device=dev)
+    w = dyn if isinstance(dyn, AffinityWords) else None
+    mask = None if w is not None else dyn
+    if not _args_ok(pred, mask, task_req, node_idle, eps, node_ok, w):
+        raise ValueError(
+            "failure_counts takes bool pred [T, N] and node_ok [N], float32 task_req "
+            f"[T, R <= {MAX_R}], node_idle [N, R] and eps [R], and a bool [T, N] mask, "
+            "AffinityWords or None as dyn, on the card; got "
+            f"{[(x.dtype, tuple(x.shape), x.device.type) for x in (pred, mask, task_req, node_idle, eps, node_ok) if x is not None]}")
+    KW = K2W = 0
+    tw = thr = nwd = None
+    if w is not None:
+        KW, K2W = words(w.K), words(w.K2)
+        nw = 3 * KW + 2 * K2W
+        if (KW > MAX_WORDS or K2W > MAX_WORDS or w.task_words.shape != (T, nw)
+                or w.node_words.shape != (N, nw) or w.thr.shape != (T, 2)):
+            raise ValueError(f"failure_counts: affinity words of {nw} words a row for "
+                             f"{T} tasks and {N} nodes, vocabularies of at most "
+                             f"{32 * MAX_WORDS} columns")
+        tw, thr, nwd = w.task_words, w.thr, w.node_words
+    pf, ins, fe, nodes = _outputs(T, R, dev)
     if T:
-        kernel[(triton.cdiv(T, BLOCK_T),)](
-            pred.contiguous().view(torch.uint8), task_req.contiguous(),
-            node_idle.contiguous(), eps.contiguous(),
-            node_ok.contiguous().view(torch.uint8), pf, ins, fe, T, N,
-            R=R, RP=triton.next_power_of_2(R), BT=BLOCK_T, BN=BLOCK_N,
-            num_warps=4,
-        )
+        if _kernel is None:
+            _kernel = build.function("failure_counts", "kb_failure_counts", _SIGNATURE)
+        # the contiguous tensors are kept (not only their pointers) until
+        # the launch is queued
+        c = [None if x is None else x if x.is_contiguous() else x.contiguous()
+             for x in (pred, mask, tw, thr, nwd, task_req, node_idle, eps, node_ok)]
+        err = _kernel(*(None if x is None else x.data_ptr() for x in c[:5]), KW, K2W,
+                      *(x.data_ptr() for x in c[5:]), T, N, R, pf.data_ptr(),
+                      ins.data_ptr(), fe.data_ptr(), nodes.data_ptr(),
+                      build.stream_handle(dev))
+        build.check(err, "failure_counts")
         failure_counts.launches += 1
-    return pf, ins, fe
+    else:
+        nodes.copy_(node_ok.sum())
+    return pf, ins, fe, nodes
 
 
 failure_counts.launches = 0

@@ -17,10 +17,7 @@ the Releasing ones; when the snapshot has topology-scoped terms (K2 >
 
 A `ResidentWords` describes the state it was built from and nothing
 later: every build has a buffer of its own, so a later build never
-writes a table a consumer still holds.  A build on the card keeps one
-word past its tables (`answer`): K10's one-cell test of this state
-(`kernels/affinity.py · affinity_cell`) writes its answer there, so the
-test allocates nothing.  An auction round hands its
+writes a table a consumer still holds.  An auction round hands its
 consumers (the dynamic predicate, `bootstrap_mask`, the pod-affinity
 score) one `RoundResident`, which the first of them fills; the round
 makes it afresh, so no build crosses `apply_round`.
@@ -108,14 +105,6 @@ class ResidentWords:
             flat = self.buf[off:off + (KW if rows is None else rows * KW)]
             view = self._views[name] = flat if rows is None else flat.view(rows, KW)
         return view
-
-    def answer(self) -> torch.Tensor:
-        """bool[] (a view): the byte a one-cell test of this state writes,
-        in the word past the tables of a build on the card."""
-        size = _layout(self.N, self.D, words(self.K), self.with_now, self.K2 > 0)[2]
-        if self.buf.numel() <= size:
-            raise ValueError("this ResidentWords has no answer word (built on the CPU)")
-        return self.buf[size:size + 1].view(torch.uint8)[0].view(torch.bool)
 
     def address(self, name: str) -> int | None:
         """Device address of table `name` (None when it does not exist)."""
@@ -235,8 +224,7 @@ def resident_words(task_words, task_node, task_state, task_mask, node_key_domain
         raise ValueError("resident_words: task words do not match K and K2")
     domains = K2 > 0
     TK = node_key_domain.shape[1] if domains else 0
-    # the tables, then the answer word of a one-cell test
-    buf = torch.empty(_layout(N, D, KW, with_now, domains)[2] + 1, dtype=torch.int32,
+    buf = torch.empty(_layout(N, D, KW, with_now, domains)[2], dtype=torch.int32,
                       device=dev)
     err = build.function("resident_tables", "kb_resident_words", _SIGNATURE)(
         *(x.data_ptr() for x in args), T, N, D, KW, K2W, TK, int(with_now),

@@ -174,7 +174,7 @@ def victim_prefix(victims, task_node, rank, req, future, eps, p, preq_rows, pred
     dev = req.device
     out = torch.empty(N + 5, dtype=torch.int32, device=dev)
     stream = build.stream_handle(dev)
-    row_args = _NO_ROW if row is None else row.kernel_args()
+    row_args = _NO_ROW if row is None else row.kernel_args("victim_prefix", dev)
     if T <= CTA_MAX_T and (N + 1) * T <= 2**32:
         err = _fn("kb_victim_choose")(
             victims.data_ptr(), task_node.data_ptr(), rank.data_ptr(), req.data_ptr(),

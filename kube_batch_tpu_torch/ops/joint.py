@@ -166,7 +166,8 @@ def joint_rounds(
                 line.update({k: v for k, v in tally.items() if k != "steps"})
             tiers.append(line)
             c = EvictCarry(tried=c.tried, prov=c.prov, excl=c.excl,
-                           excl_p=torch.full((), -1, dtype=torch.long, device=dev))
+                           excl_p=torch.full((), -1, dtype=torch.long, device=dev),
+                           scan=c.scan)
             step_out, last = None, None
             tally, placed = new_tally(), 0
             phase, step = phase + 1, 0

@@ -21,15 +21,15 @@ Per step, on the step's device:
 * kernel K6 (kernels/preempt_scan.py), one launch: with no plan open
   (`preempt_open`), the rank-first eligible preemptor, whether anything
   is evictable and whether any eligible task fits some node directly;
-  with a plan open on node n (`preempt_continue`), the sacrifice-first
-  victim on n;
+  with a plan open on node n (`preempt_continue`), the step's whole
+  classification: the sacrifice-first victim on n, whether the preemptor
+  fits n now and whether its dynamic row still allows n (p and n read on
+  the card, the outputs in a buffer the carry keeps);
 * kernel K5 (kernels/victim_prefix.py), when a plan opens, in one
   launch: the candidate victims sorted by (node, sacrifice), per node the
   fewest victims whose release fits, the preemptor's node mask (with its
   inter-pod affinity row, tested in the same launch from the operand
   `dyn_predicate_row_fn` gives), the chosen node and its first victim;
-  while a plan is open, the row at the plan's node only (one cell,
-  kernel K10, one launch);
 * plain torch glue for the rank (B7), the veto masks and the updates,
   with the segment sums of the vetoes in kernel K7.
 
@@ -55,11 +55,10 @@ from typing import Callable
 
 import torch
 
-from kube_batch_tpu_torch.api.snapshot import SnapshotTensors, fits
+from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels import preempt_scan as _k6
 from kube_batch_tpu_torch.kernels import victim_prefix as _k5
-from kube_batch_tpu_torch.kernels.affinity import AffinityRow
 from kube_batch_tpu_torch.ops.assignment import AllocState
 
 BIG_K = _k5.BIG_K
@@ -104,7 +103,10 @@ class EvictCarry:
     """The loop carry between steps: `tried` latches served preemptors
     (or those out of nodes), `prov` the open plan's provisional victims,
     `excl` the nodes whose plan failed for preemptor `excl_p`; the plan
-    itself (open or not, its preemptor and node) as the host read it."""
+    itself (open or not, as the host read it; its preemptor and node as
+    device scalars, which no launch reads on the host); `scan`, the
+    buffer a continuing step's kernel K6 writes (kept for the whole
+    loop)."""
 
     tried: torch.Tensor       # bool[T]
     prov: torch.Tensor        # bool[T]
@@ -112,16 +114,18 @@ class EvictCarry:
     excl_p: torch.Tensor      # i64[] (-1: none)
     active: bool = False      # a plan is open
     p: torch.Tensor | None = None     # its preemptor (0-dim device tensor)
-    n: int = 0                # its node
-    n_t: torch.Tensor | None = None
+    n_t: torch.Tensor | None = None   # its node (0-dim device tensor)
+    scan: _k6.ContinueBuffer | None = None
 
     @classmethod
     def fresh(cls, T: int, N: int, device) -> "EvictCarry":
+        device = torch.device(device)
         return cls(
             tried=torch.zeros(T, dtype=torch.bool, device=device),
             prov=torch.zeros(T, dtype=torch.bool, device=device),
             excl=torch.zeros(N, dtype=torch.bool, device=device),
             excl_p=torch.full((), -1, dtype=torch.long, device=device),
+            scan=_k6.ContinueBuffer(device) if device.type == "cuda" else None,
         )
 
 
@@ -142,6 +146,7 @@ class StepOut:
     flags: torch.Tensor       # i64[7]
     is_v: torch.Tensor        # bool[T] the victim evicted this step
     fail: torch.Tensor        # bool[] the open plan rolled back
+    scan: _k6.ContinueBuffer | None = None   # the carry's, passed on
 
 
 FLAG_KEYS = ("progressed", "evicted", "node", "opened", "finalized",
@@ -204,9 +209,13 @@ def evict_step(
     dyn_row = (dyn_predicate_row_fn(snap, st, p)
                if dyn_predicate_row_fn is not None else None)
     if c.active:
-        scan = _k6.preempt_continue(rank, victims, st.task_node, c.n)
-        v, any_vic = scan[0].long(), scan[1].bool()
-        fit_now = fits(preq, st.node_future[c.n], eps)
+        # K6: the victim on n, the fit at n and the row's cell at n, one
+        # launch reading p and n on the card
+        v, any_vic, fit_now, viable = _k6.preempt_continue(
+            rank, victims, st.task_node, snap.task_req, st.node_future, eps, p, n_t,
+            dyn_row, c.scan)
+        if dyn_row is None:
+            viable = None
         n = n_t
         progressed_t = have_p
     else:
@@ -222,12 +231,9 @@ def evict_step(
         no_node = have_p & ~node_found
         active = opening
         progressed_t = have_p & any_possible_or_fit
-    # the plan is still legal while the preemptor's dynamic row holds at
-    # its node: re-read every continuing step (one cell); an opening
-    # step's node passed the same row inside K5, so there it holds
-    viable = None
-    if c.active and dyn_row is not None:
-        viable = dyn_row.cell(n) if isinstance(dyn_row, AffinityRow) else dyn_row[n]
+        # an opening step's node passed the preemptor's dynamic row inside
+        # K5; a continuing step re-reads the row at its node (K6's viable)
+        viable = None
     go = active if viable is None else active & viable
     stuck = ~fit_now & ~any_vic
     finalize = go & fit_now
@@ -259,7 +265,7 @@ def evict_step(
         tried=c.tried | (is_p & (no_node | finalize)),
         prov=~closed & (c.prov | is_v),
         excl=torch.where(fail, excl | (idx_n == n), excl),
-        excl_p=p, p=p, n_t=n, flags=flags, is_v=is_v, fail=fail,
+        excl_p=p, p=p, n_t=n, flags=flags, is_v=is_v, fail=fail, scan=c.scan,
     )
 
 
@@ -267,7 +273,7 @@ def next_carry(out: StepOut, flags: list[int]) -> EvictCarry:
     """The carry after a step whose flag vector the host has read."""
     return EvictCarry(tried=out.tried, prov=out.prov, excl=out.excl,
                       excl_p=out.excl_p, active=bool(flags[1]), p=out.p,
-                      n=flags[2], n_t=out.n_t)
+                      n_t=out.n_t, scan=out.scan)
 
 
 def tally_step(tally: dict, flags: list[int]) -> None:

@@ -194,7 +194,8 @@ def pod_affinity_row(snap, state, p):
     victims leave (≙ kube_batch_tpu plugins/predicates.py ·
     pod_affinity_row), as `kernels/affinity.py · AffinityRow`: this
     state's K11 tables (a build of its own), the snapshot's kept task
-    words and p.  Kernel K5 tests it node by node inside its own launch;
+    words and p.  Kernel K5 tests it node by node inside its own launch
+    (an opening step), kernel K6 at the plan's node (a continuing step);
     `.row()` gives the bool[N] row and `.cell(n)` one cell (kernel K10).
     None when no task carries an affinity term."""
     if not affinity_active(snap, state):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build every CUDA kernel of the port and hold K10's row operand (the
-preemptor's inter-pod affinity test inside K5's launch, and its row and
-cell forms) and K3 `apply` (row-parallel float64 sums) against their plain
+preemptor's inter-pod affinity test inside K5's launch, and its row
+form) and K3 `apply` (row-parallel float64 sums) against their plain
 versions on the card, on chip_smoke.py's edge inputs (`phase_k10_row_edge`,
 `phase_k3_apply_edge`); then time both on the calls of the port's paths
 and, given a parent checkout, beside the parent's kernels.
@@ -29,8 +29,7 @@ build, one JSON line per edge case, then:
 * `k10-row-timing`: on the K5 calls of chip_smoke's ROW_WORLD card run
   (config 5 with affinity at 500 nodes under examples/scheduler.conf),
   the cycle-2 opening step with the most candidate victims: K5 given
-  the row operand, K5 alone, the row form and the cell form launched on
-  their own, and with PARENT the parent's sequence (its row kernels, its
+  the row operand, K5 alone, the row form launched on its own, and with PARENT the parent's sequence (its row kernels, its
   scratch and output, then its K5 given the row) — the choice equal to
   K5's plain version fed the plain row.
 * `opening-step-ab` (with PARENT): ROW_WORLD's 2 cycles on the card in a
@@ -234,14 +233,11 @@ def row_timings(libs: dict) -> None:
     alone[11] = None
     rargs = (*op.fields, op.resident, op.p, op.task_words)
     row = op.row_plain()
-    n0 = torch.zeros((), dtype=torch.int64, device=op.p.device)
     calls = {"k5_with_row": lambda: k5.victim_prefix(*k5_args),
              "k5_alone": lambda: k5.victim_prefix(*alone),
-             "row": lambda: k10.affinity_row(*rargs),
-             "cell": lambda: k10.affinity_cell(*rargs[:10], n0, rargs[10])}
+             "row": lambda: k10.affinity_row(*rargs)}
     chip_smoke.require_equal("K5 given the row operand", [(calls["k5_with_row"](), want)])
     chip_smoke.require_equal("affinity_row", [(calls["row"](), row)])
-    chip_smoke.require_equal("affinity_cell", [(calls["cell"]().clone(), row[0])])
     if {"parent_affinity_mask", "parent_victim_prefix"} <= libs.keys():
         calls["parent_row_then_k5"] = _parent_row_then_k5(libs, k5_args)
         chip_smoke.require_equal("the parent's row then K5",

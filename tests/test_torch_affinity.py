@@ -473,10 +473,13 @@ def _run_cycles(pkg: str, cycles: int = 2, builds=None):
         if pkg == "jax":
             state, node, ready = (ssn.host_task_state(), ssn.host_task_node(),
                                   ssn.job_ready())
+            diag = ssn._diag
         else:
             state, node, ready = ssn.host_task_state, ssn.host_task_node, ssn.job_ready
+            diag = {k: v.cpu() for k, v in ssn.diag.items()}
         meta = ssn.meta
         out.append({
+            "diag": {k: np.asarray(v).tolist() for k, v in diag.items()},
             "bound": sorted(ssn.bound),
             "tasks": {p.name: (int(state[t]),
                                meta.node_names[node[t]] if node[t] >= 0 else None)
@@ -490,9 +493,11 @@ def _run_cycles(pkg: str, cycles: int = 2, builds=None):
 
 
 def test_default_cycle_on_affinity_world_matches_reference(monkeypatch):
-    """The default cycle's decisions equal the reference's over 2 cycles
-    with a wave, and the port builds the resident tables (K11) once per
-    auction round plus once a cycle for the failure tallies."""
+    """The default cycle's decisions and failure tallies equal the
+    reference's over 2 cycles with a wave (the port's tallies take the
+    inter-pod affinity predicate as K10's words), and the port builds the
+    resident tables (K11) once per auction round plus once a cycle for
+    the failure tallies."""
     real = k11.resident_words
 
     def counted(*args, **kw):

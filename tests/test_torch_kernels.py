@@ -47,6 +47,7 @@ from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.conf import default_conf
 from kube_batch_tpu_torch.framework.fit_errors import failure_counts
 from kube_batch_tpu_torch.framework.session import build_policy
+from kube_batch_tpu_torch.kernels import affinity as k10
 from kube_batch_tpu_torch.kernels import predicate_mask as k1
 from kube_batch_tpu_torch.kernels import propose as k2
 from kube_batch_tpu_torch.kernels import resolve as k3
@@ -257,20 +258,35 @@ def _jax_diag(policy, snap, state):
     return jax_failure_counts(snap, state, mask if dyn is None else mask & dyn)
 
 
-@pytest.mark.parametrize("world,stage", [
-    ("config3", "one_round"), ("affinity", "one_round"),
-    ("config5_small", "packed"), ("volume", "packed"), ("oracle", "packed"),
+_TALLY_WORLDS = [("config3", "one_round"), ("affinity", "one_round"),
+                 ("config5_small", "packed"), ("volume", "packed"), ("oracle", "packed")]
+
+
+@pytest.mark.parametrize("world,stage,form", [
+    pytest.param(w, s, form, id=f"{w}-{s}" + ("" if form == "mask" else "-words"))
+    for form in ("mask", "words") for w, s in _TALLY_WORLDS
 ])
-def test_failure_counts_matches_reference(world, stage):
+def test_failure_counts_matches_reference(world, stage, form):
+    """The cycle's tallies against the reference fed `mask & dyn`, the
+    dynamic predicate given as a bool mask (`dynamic_predicate_fn`) or
+    as what the cycle hands kernel K4 (`auction_dyn_predicate`: K10's
+    words on the affinity world)."""
     pair = Pair(world, stage)
     want = jax.jit(functools.partial(_jax_diag, pair.jpolicy))(
         pair.jsnap, pair.jstate
     )
     mask = pair.policy.predicate_mask(pair.snap)
-    dyn = pair.policy.dynamic_predicate_fn(pair.snap, pair.state, True)
-    got = failure_counts(pair.snap, pair.state, mask if dyn is None else mask & dyn)
+    if form == "mask":
+        dyn = pair.policy.dynamic_predicate_fn(pair.snap, pair.state, True)
+    else:
+        dyn = pair.policy.auction_dyn_predicate(pair.snap, pair.state, immediate=True)
+        assert isinstance(dyn, k10.AffinityWords) == (world == "affinity")
+    got = failure_counts(pair.snap, pair.state, mask, dyn)
     for key in ("nodes", "predicate_failed", "insufficient", "feasible"):
         _eq(got[key], want[key], key)
+    if world == "affinity":   # the dynamic predicate vetoes some cells here
+        plain = failure_counts(pair.snap, pair.state, mask)
+        assert (got["predicate_failed"] > plain["predicate_failed"]).any()
 
 
 def test_wrappers_refuse_other_devices():
@@ -285,7 +301,7 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(RuntimeError):
         k3.resolve(idx, idx, req, idle, eps, False, None)
     with pytest.raises(RuntimeError):
-        k4.failure_counts(mask, req, idle, eps, mask[0])
+        k4.failure_counts(mask, None, req, idle, eps, mask[0])
     with pytest.raises(RuntimeError):
         k2.propose_best(mask, None, req, idle, eps, mask[0], mask[:, 0], idle,
                         idle, k2.ScoreSpec(), [], 0.0)

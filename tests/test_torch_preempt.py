@@ -394,24 +394,90 @@ def test_preempt_scan_open_matches_brute_force(seed):
                    int(direct)]
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+def _jax_classify(rank, victims, task_node, task_req, future, eps, p, n, dyn_row):
+    """The reference's classification lines of a step with a plan open on
+    node n (kube_batch_tpu/ops/preemption.py · preemption_rounds: fit_now,
+    viable, victims_on_n, any_vic, v), written out in jax.numpy:
+    (v, any_vic, fit_now, viable) as Python values."""
+    from kube_batch_tpu.api.snapshot import fits as jax_fits
+
+    rank, victims, task_node, task_req, future, eps, dyn_row = (
+        jnp.asarray(x) for x in (rank, victims, task_node, task_req, future, eps, dyn_row))
+    preq = task_req[p]
+    fit_now = jax_fits(preq[None, :], future[n][None, :], eps)[0]
+    victims_on_n = victims & (task_node == n)
+    v = jnp.argmin(jnp.where(victims_on_n, -rank, np.iinfo(np.int32).max))
+    return int(v), bool(jnp.any(victims_on_n)), bool(fit_now), bool(dyn_row[n])
+
+
+def _continue_worlds(case):
+    """Seeded operands of K6's continuing step: (rank, victims, task_node,
+    task_req, future, eps, row, ps) a world, `ps` the preemptors to try at
+    each node (None: one drawn a node).  Cases 0-2: 64 rows, 5 nodes,
+    ranks with ties, no victim at all in case 2; the named cases each at
+    97 x 6 x R = 4, 1 x 3 x 2 and 64 x 1 x 8: ranks a permutation, tied
+    ranks, every victim on one node, no victim."""
+    if isinstance(case, int):
+        rng = np.random.default_rng(case)
+        T, N, R = 64, 5, 3
+        rank = rng.integers(0, 12, T).astype(np.int32)
+        victims = rng.random(T) < (0.0 if case == 2 else 0.4)
+        task_node = rng.integers(-1, N, T).astype(np.int32)
+        task_req = rng.integers(0, 4, (T, R)).astype(np.float32)
+        future = rng.integers(0, 4, (N, R)).astype(np.float32)
+        yield (rank, victims, task_node, task_req, future, np.full(R, 0.5, np.float32),
+               rng.random(N) < 0.5, None, rng)
+        return
+    rng = np.random.default_rng(("permutation", "tied_ranks", "one_node_holds_all",
+                                 "no_victim").index(case))
+    for T, N, R in ((97, 6, 4), (1, 3, 2), (64, 1, 8)):
+        rank = (rng.integers(0, 5, T) if case == "tied_ranks"
+                else rng.permutation(T)).astype(np.int32)
+        victims = rng.random(T) < (0.0 if case == "no_victim" else 0.5)
+        task_node = rng.integers(-1, N, T).astype(np.int32)
+        if case == "one_node_holds_all":
+            task_node[victims] = N - 1
+        task_req = rng.integers(0, 4, (T, R)).astype(np.float32)
+        future = rng.integers(-1, 5, (N, R)).astype(np.float32)
+        yield (rank, victims, task_node, task_req, future, np.full(R, 1.0, np.float32),
+               rng.random(N) < 0.5, sorted({0, T - 1, int(rng.integers(0, T))}), rng)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, "permutation", "tied_ranks",
+                                  "one_node_holds_all", "no_victim"])
 def test_preempt_scan_continue_matches_brute_force(seed):
     """K6's plain `preempt_continue`: among the candidate victims on node
-    n, the one with the smallest sacrifice (-rank), lowest index on ties;
-    (0, 0) when n holds none."""
+    n, the one with the smallest sacrifice (-rank), lowest index on ties,
+    and whether n holds one ((0, False) when it holds none); whether the
+    preemptor p fits n's FutureIdle; and the dynamic row at n (True
+    without one) — by brute force and by the reference's classification
+    lines, without a row and with a bool[N] row.  p and n come as device
+    scalars; the outputs are 0-dim int64 and bools."""
     from kube_batch_tpu_torch.kernels import preempt_scan as k6
 
-    rng = np.random.default_rng(seed)
-    T, N = 64, 5
-    rank = rng.integers(0, 12, T).astype(np.int32)
-    victims = rng.random(T) < (0.0 if seed == 2 else 0.4)
-    task_node = rng.integers(-1, N, T).astype(np.int32)
-    for n in range(N):
-        out = k6.preempt_continue(torch.from_numpy(rank), torch.from_numpy(victims),
-                                  torch.from_numpy(task_node), n).tolist()
-        on_n = [t for t in range(T) if victims[t] and task_node[t] == n]
-        want = min(on_n, key=lambda t: (-int(rank[t]), t)) if on_n else 0
-        assert out == [want, int(bool(on_n))]
+    for rank, victims, task_node, task_req, future, eps, row, ps, rng in \
+            _continue_worlds(seed):
+        T, N = task_req.shape[0], future.shape[0]
+        for n in range(N):
+            for p in ps if ps is not None else [int(rng.integers(0, T))]:
+                for dyn in (None, row):
+                    out = k6.preempt_continue(
+                        torch.from_numpy(rank), torch.from_numpy(victims),
+                        torch.from_numpy(task_node), torch.from_numpy(task_req),
+                        torch.from_numpy(future), torch.from_numpy(eps), torch.tensor(p),
+                        torch.tensor(n), None if dyn is None else torch.from_numpy(dyn))
+                    assert [x.dtype for x in out] == [torch.int64] + [torch.bool] * 3
+                    assert all(x.dim() == 0 for x in out)
+                    got = (int(out[0]), bool(out[1]), bool(out[2]), bool(out[3]))
+                    on_n = [t for t in range(T) if victims[t] and task_node[t] == n]
+                    want = min(on_n, key=lambda t: (-int(rank[t]), t)) if on_n else 0
+                    assert got[:2] == (want, bool(on_n))
+                    assert got[2] == bool(np.all((task_req[p] <= future[n])
+                                                 | (task_req[p] < eps)))
+                    assert got[3] == (True if dyn is None else bool(dyn[n]))
+                    assert got == _jax_classify(
+                        rank, victims, task_node, task_req, future, eps, p, n,
+                        np.ones(N, bool) if dyn is None else dyn), (T, n, p, dyn is None)
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +577,7 @@ def test_new_wrappers_refuse_other_devices():
         k5.victim_prefix(mask, idx.int(), idx.int(), req, req, vec, idx[0], req, mask[None],
                          mask, mask, None)
     with pytest.raises(RuntimeError):
-        k6.preempt_continue(idx.int(), mask, idx.int(), 0)
+        k6.preempt_continue(idx.int(), mask, idx.int(), req, req, vec, idx[0], idx[0])
     with pytest.raises(RuntimeError):
         k6.preempt_open(idx.int(), mask, idx.int(), idx.int(), mask, mask, req,
                         req, mask, vec)

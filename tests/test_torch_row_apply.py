@@ -10,14 +10,14 @@ kernels' function.  Every comparison is exact.
   (48 nodes) with an oversubscribing wave after cycle 1, and a 4-node
   world whose preemptors need anchors for their required affinity and
   avoid an anti-affinity label, so their plans evict twice (continuing
-  steps test one cell).  The cycle that preempts (the first, or for the
+  steps test one cell, inside K6's launch).  The cycle that preempts (the first, or for the
   affinity world the one after its wave) has task_state, task_node,
   evictions and job_ready equal to the reference's cycle on the port's
   own packed arrays; at each of its steps the operand's row, and its
   cell (p, n) at a node that moves with the step, equal the reference's
   pod_affinity_row(snap, state, p).
-* An opening step makes no row call (K5 tests it), a continuing step one
-  cell call; the policy composes a plain bool row with the operand as
+* An opening step makes no row call (K5 tests it), nor does a continuing
+  step (K6 tests the cell at its node); the policy composes a plain bool row with the operand as
   K5's mask, and K5's plain version ANDs both.
 * `apply_plain` (through the CPU wrapper) against the reference's apply
   (kube_batch_tpu/ops/assignment.py:421-431, its jnp expressions): one
@@ -142,6 +142,22 @@ def _jax_cycle(joint: bool):
 _jax_row = jax.jit(jax_pred.pod_affinity_row)
 
 
+def _k6_viable(row: k10.AffinityRow, n: int) -> bool:
+    """The operand's cell at node n as a continuing step reads it: K6
+    preempt_continue's `viable` (its plain version on the CPU), p and n
+    as device scalars."""
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
+
+    T, N = int(row.p) + 1, row.resident.N
+    out = k6.preempt_continue(torch.zeros(T, dtype=torch.int32),
+                              torch.zeros(T, dtype=torch.bool),
+                              torch.zeros(T, dtype=torch.int32), torch.zeros((T, 1)),
+                              torch.zeros((N, 1)), torch.ones(1),
+                              torch.as_tensor(row.p, dtype=torch.int64),
+                              torch.tensor(n, dtype=torch.int64), row)
+    return bool(out[3])
+
+
 @pytest.mark.parametrize("joint", [False, True], ids=["sequential", "joint"])
 @pytest.mark.parametrize("world", sorted(WORLDS))
 def test_preemption_steps_with_row_operand_match_reference(world, joint, monkeypatch):
@@ -187,7 +203,7 @@ def test_preemption_steps_with_row_operand_match_reference(world, joint, monkeyp
             ref = np.asarray(_jax_row(jsnap, jst, int(row.p)))
             np.testing.assert_array_equal(row.row().numpy(), ref, err_msg=f"step {i}")
             n = i % ref.shape[0]
-            assert bool(row.cell(torch.tensor(n))) == bool(ref[n]), (i, n)
+            assert _k6_viable(row, n) == bool(ref[n]), (i, n)
             cells += 1
     assert cells > 0
     if world == "affinity_evictions":
@@ -197,28 +213,33 @@ def test_preemption_steps_with_row_operand_match_reference(world, joint, monkeyp
 def test_opening_step_makes_no_row_call_and_continuing_step_one_cell(monkeypatch):
     """On the 4-node eviction world: every step without an open plan
     hands K5 the operand and calls neither form of the row; every step
-    with a plan open calls the cell form once (each plan: an opening
-    step that evicts, a continuing step that evicts, one that
-    finalizes)."""
-    calls = {"row": 0, "cell": 0, "k5_with_row": 0, "k5": 0}
-    real_row, real_cell, real_k5 = k10.affinity_row, k10.affinity_cell, k5.victim_prefix
+    with a plan open hands K6 the operand, which tests the one cell at the
+    plan's node inside its own launch, and calls neither form either
+    (each plan: an opening step that evicts, a continuing step that
+    evicts, one that finalizes)."""
+    from kube_batch_tpu_torch.kernels import preempt_scan as k6
+
+    calls = {"row": 0, "k5_with_row": 0, "k5": 0, "k6_with_row": 0, "k6": 0}
+    real_row, real_k5 = k10.affinity_row, k5.victim_prefix
+    real_k6 = k6.preempt_continue
 
     def row(*a, **kw):
         calls["row"] += 1
         return real_row(*a, **kw)
-
-    def cell(*a, **kw):
-        calls["cell"] += 1
-        return real_cell(*a, **kw)
 
     def k5_call(*a, **kw):
         calls["k5"] += 1
         calls["k5_with_row"] += isinstance(a[11], k10.AffinityRow)
         return real_k5(*a, **kw)
 
+    def k6_call(*a, **kw):
+        calls["k6"] += 1
+        calls["k6_with_row"] += isinstance(a[8], k10.AffinityRow)
+        return real_k6(*a, **kw)
+
     monkeypatch.setattr(k10, "affinity_row", row)
-    monkeypatch.setattr(k10, "affinity_cell", cell)
     monkeypatch.setattr(k5, "victim_prefix", k5_call)
+    monkeypatch.setattr(k6, "preempt_continue", k6_call)
     cache, _sim, _ = _affinity_evictions()
     sched = Scheduler(cache, conf=parse_conf(_conf_text()), device="cpu")
     ssn = sched.run_once()
@@ -226,9 +247,9 @@ def test_opening_step_makes_no_row_call_and_continuing_step_one_cell(monkeypatch
     opened = sum(loop["opened"] for loop in loops)
     steps = sum(loop["steps"] for loop in loops)
     assert len(ssn.evicted) == 4 and opened == 2
-    assert calls["k5_with_row"] == calls["k5"] == steps - calls["cell"]
+    assert calls["k5_with_row"] == calls["k5"] == steps - calls["k6"]
     assert calls["row"] == 0
-    assert calls["cell"] == 2 * opened
+    assert calls["k6_with_row"] == calls["k6"] == 2 * opened
 
 
 def _packed_eviction_world():
@@ -269,7 +290,7 @@ def test_policy_composes_plain_rows_with_the_operand():
     np.testing.assert_array_equal(k5.victim_prefix_plain(*args, got).numpy(),
                                   k5.victim_prefix_plain(*args, both).numpy())
     for n in range(N):
-        assert bool(got.cell(torch.tensor(n))) == bool(both[n])
+        assert _k6_viable(got, n) == bool(both[n])
 
 
 # ---------------------------------------------------------------------------
