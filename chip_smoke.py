@@ -8,7 +8,19 @@ Run from the root of a checkout on a machine with a CUDA card and
 
 1. card and build — the card's name and power limit, torch/CUDA
    versions, and the build of every CUDA kernel from this checkout's
-   sources (one nvcc per source, all at once: K1–K12), timed;
+   sources (one nvcc per source, all at once: K1–K12), timed; the host
+   link's rate (`host_link_rate`: a 64 MiB pinned copy, on a line with
+   the card's name and power limit); K9 on `phase_k9_edge` (rows of 1, 3,
+   12 and 16 bytes with padded duplicates, a payload past the slot so
+   the ring grows, a slot reused by calls issued back to back, an index
+   outside its buffer refused) and K7's
+   water-fill on `fill_edge_inputs` (Q = 1,024 with R = 40, one queue,
+   33 queues, every queue masked, no capacity, 5,000 queues on the
+   global scratch, and the fused form with the queue sums at the main
+   path's shape, at Q = 1,024 / R = 40, at Q = 880 / R = 4 where the
+   sum's static shared memory narrows the fill's plan, at 5,000 queues
+   and with long segments; two runs equal, exactly equal to the plain version, the
+   iterations to the fixed point logged);
    then K7 and K6 on their edge inputs (K7: one segment, mostly empty
    segments, every row masked out, one segment holding every row,
    non-integer values — two runs bitwise equal, the plain version equal,
@@ -148,7 +160,12 @@ Run from the root of a checkout on a machine with a CUDA card and
    of the main path and every 25th of the preempt path, timed at both
    paths' widths (T = 65,536 and 8,192), with K8's launches on both
    paths and per preemption step; K9 on every call of the host
-   cycle, timed on the largest; K11 on every call of the affinity
+   cycle in both forms (a device copy of the pinned staging slot, and the
+   slot read over the host link), timed on the largest, its bound
+   counting the host link (`row_patch_bound`); K7's water-fill (with its
+   queue sums: `RequestRows`) on every call of every path, timed on the
+   main and preempt paths (`waterfill_bound`: this call's iterations to
+   the fixed point); K11 on every call of the affinity
    path (timed on an immediate and a FutureIdle round), K10's mask and
    task words on each of their calls, K10's words with K2's two passes
    every 300th round (K2 given the words against K2 given K10's mask,
@@ -322,9 +339,10 @@ HOST_EVICTED = 20            # pods evicted after the cycle without arrivals
 # and the K2 and K3 calls of every 300th round; the joint path every 10th
 # K12 call, every K6 continuing step and every K4 call
 AFFINITY_EVERY = {"resident_words": 1, "affinity_task_words": 1, "affinity_words": 1,
-                  "failure_counts": 1, "propose_best": 300, "propose_pick": 300,
-                  "resolve": 300, "apply": 300}
-JOINT_EVERY = {"tier_control": 10, "preempt_continue": 1, "failure_counts": 1}
+                  "failure_counts": 1, "waterfill": 1, "propose_best": 300,
+                  "propose_pick": 300, "resolve": 300, "apply": 300}
+JOINT_EVERY = {"tier_control": 10, "preempt_continue": 1, "failure_counts": 1,
+               "waterfill": 1}
 JOINT_CYCLES = 3
 # the parity world whose preemption steps hand K5 K10's row operand
 ROW_WORLD = "config5_affinity_mid_preempt"
@@ -389,6 +407,29 @@ def require_equal(name: str, pairs) -> float:
 # phase 1
 # ---------------------------------------------------------------------------
 
+# the card's name and power limit as nvidia-smi gives them, and the host
+# link's measured rate (host_link_rate), for the lines and bounds that
+# need them
+CARD: dict = {}
+HOST_LINK: dict = {}
+
+
+def host_link_rate(device, nbytes: int = 64 << 20) -> float:
+    """Bytes a second of one pinned host-to-device copy of `nbytes`
+    (64 MiB), by CUDA events; printed on a line of its own with the
+    card's name and power limit."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    ms = time_ms(lambda: dst.copy_(src, non_blocking=True))
+    rate = nbytes / (ms / 1e3)
+    HOST_LINK["bytes_per_s"] = rate
+    log(json.dumps({"phase": "host-link", "card": CARD.get("line"), "bytes": nbytes,
+                    "ms": round(ms, 4), "gb_per_s": round(rate / 1e9, 3)}))
+    return rate
+
+
 def phase_card_and_build():
     import torch
 
@@ -398,7 +439,8 @@ def phase_card_and_build():
     )
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    CARD["line"] = smi.stdout.strip().splitlines()[0]
+    log(CARD["line"])
     log(json.dumps({
         "phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0),
@@ -1639,6 +1681,202 @@ def phase_k1_edge(device) -> float:
     return err
 
 
+def fill_world(Q: int, R: int, seed: int = 0):
+    """numpy weights f32[Q] (1 to 5), integer requests f32[Q, R],
+    capacity f32[R] between 0.4 and 1.2 of the total request, and a mask
+    with about one queue in five out: some queues clamp, the rest share."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed * 1000 + Q * 7 + R)
+    weights = rng.integers(1, 6, Q).astype(np.float32)
+    request = (rng.integers(0, 40, (Q, R)) * 1000).astype(np.float32)
+    total = (request.sum(axis=0) * rng.uniform(0.4, 1.2, R)).astype(np.float32)
+    return weights, request, total, rng.random(Q) < 0.8
+
+
+def fill_edge_inputs(device, seed: int = 0):
+    """name → the water-fill's four arguments: fill-only at Q = 1,024
+    and R = 40 (seeded), one queue and one column, 33 queues, R = 40 at
+    Q = 3, every queue masked out, no capacity, and 5,000 queues (the
+    state past shared memory); fused (RequestRows over 65,536 rows with
+    their queue index) at the main path's Q = 3 and R = 4, at Q = 1,024
+    and R = 40, at Q = 880 and R = 4 (4 warps whose state, 48,496 bytes,
+    fits 48 KB only without the sum's static shared memory, so the plan
+    takes 3), at Q = 5,000 over 8,192 rows, and at Q = 2 with R = 8,
+    whose long segments run in 64 blocks each."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.api.snapshot import build_segment_index
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    def plain(Q, R, **change):
+        w, req, tot, mask = fill_world(Q, R, seed)
+        if "mask" in change:
+            mask = np.full(Q, change["mask"])
+        if "total" in change:
+            tot = np.full(R, change["total"], np.float32)
+        return [on(w), on(req), on(tot), on(mask)]
+
+    def fused(T, Q, R):
+        rng = np.random.default_rng(seed + T + Q + R)
+        w, _, _, mask = fill_world(Q, R, seed)
+        values = (rng.integers(0, 64, (T, R)) * 250).astype(np.float32)
+        base = rng.integers(-1, Q, T).astype(np.int32)       # -1: padding
+        keep = (rng.random(T) < 0.9) & (base >= 0)
+        total = values[keep].sum(axis=0) * np.float32(0.7)
+        idx = build_segment_index(on(base), Q)
+        seg = torch.where(on(keep), idx.base, Q)
+        return [on(w), k7.RequestRows(on(values), seg, idx.order, idx.offsets),
+                on(total.astype(np.float32)), on(mask)]
+
+    return {
+        "q1024_r40": plain(1024, 40), "q1_r1": plain(1, 1), "q33_r4": plain(33, 4),
+        "q3_r40": plain(3, 40), "all_masked": plain(64, 4, mask=False),
+        "no_capacity": plain(64, 4, total=0.0), "q5000_scratch": plain(5000, 4),
+        "fused_main_q3": fused(65536, 3, 4), "fused_q1024_r40": fused(65536, 1024, 40),
+        "fused_q880_r4": fused(65536, 880, 4),
+        "fused_q5000_scratch": fused(8192, 5000, 4), "fused_long_runs": fused(65536, 2, 8),
+    }
+
+
+def phase_fill_edge(device) -> float:
+    """K7's water-fill on `fill_edge_inputs`: two runs bitwise equal,
+    exactly equal to the plain version, the iterations the fill took to
+    its fixed point logged, the Q = 1,024 / R = 40 case timed."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+
+    err = 0.0
+    for name, args in fill_edge_inputs(device).items():
+        a, b = k7.waterfill(*args), k7.waterfill(*args)
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"waterfill edge {name}: two runs differ")
+        stats = {}
+        err = max(err, require_equal(f"waterfill edge {name}",
+                                     [(a, k7.waterfill_plain(*args, stats=stats))]))
+        Q, R = a.shape
+        fused = isinstance(args[1], k7.RequestRows)
+        warps = k7.sum_shape(args[1].values.shape[0], Q)[0] // 32 if fused \
+            else k7.FILL_WARPS
+        static = k7.static_smem(fused)
+        W, smem, floats = k7.fill_plan(Q, R, warps, static)
+        line = {"phase": "fill-edge", "case": name, "queues": Q, "columns": R,
+                "fused": fused, "iterations": stats["iterations"], "warps": W,
+                "state": "shared" if smem else "scratch", "smem_bytes": smem,
+                "static_smem_bytes": static,
+                "queues_clamped": int((a >= fill_request(args)).all(dim=1).sum())}
+        if name == "q1024_r40":
+            line.update(ms=round(time_ms(lambda: k7.waterfill(*args)), 4),
+                        plain_ms=round(time_ms(lambda: k7.waterfill_plain(*args),
+                                               warmup=1, runs=3), 4),
+                        bound_ms=waterfill_bound(args)[0])
+        log(json.dumps(line))
+    return err
+
+
+def k9_edge_inputs(device, T: int, rows_per_field: int, seed: int = 0):
+    """(device buffers, host arrays, padded rows) of one K9 call over
+    rows of 1, 3, 12, 16 and 4 bytes (bool[T], bool[T, 3], f32[T, 3],
+    f32[T, 4], i32[T]): each field's host array differs from its buffer,
+    its rows a sorted random subset padded to a power of two with the
+    first row."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    hosts = [rng.random(T) < 0.5, rng.random((T, 3)) < 0.5,
+             rng.random((T, 3)).astype(np.float32), rng.random((T, 4)).astype(np.float32),
+             rng.integers(-9, 9, T).astype(np.int32)]
+    bufs = [torch.from_numpy(np.ascontiguousarray(~h if h.dtype == bool else h + 1))
+            .to(device) for h in hosts]
+    rows = []
+    for _ in hosts:
+        r = np.sort(rng.choice(T, rows_per_field, replace=False)).astype(np.int32)
+        kp = 1 << max(1, (len(r) - 1).bit_length())
+        rows.append(np.concatenate([r, np.full(kp - len(r), r[0], np.int32)]))
+    return bufs, hosts, rows
+
+
+def phase_k9_edge(device) -> float:
+    """K9 against its plain version: rows of 1, 3, 12 and 16 bytes with
+    padded duplicates; a payload larger than the slot the ring hands it,
+    so the slot grows; and RING_SLOTS + 1 calls issued back to back with
+    no synchronisation, the first large, so the last lands in the first's
+    slot while the first may still be reading it; an index outside its
+    buffer is refused before anything launches."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import row_patch as k9
+
+    def run(args):
+        bufs, hosts, rows = args
+        got = [b.clone() for b in bufs]
+        k9.row_patch(got, hosts, rows)
+        return got
+
+    def want(args):
+        bufs, hosts, rows = args
+        out = [b.cpu() for b in bufs]
+        k9.row_patch_plain(out, hosts, rows)
+        return out
+
+    err = 0.0
+    key = k9.ring_key(device) if device.type == "cuda" else None
+    saved = k9._rings.get(key)
+    # a ring of its own, its slots at their first size
+    ring = k9._rings[key] = k9._Ring(device)
+    small = k9_edge_inputs(device, 4096, 37)
+    err = max(err, require_equal("row_patch edge widths",
+                                 [(g.cpu(), w) for g, w in zip(run(small), want(small))]))
+    before = max((sl.nbytes for sl in ring.slots if sl is not None), default=0)
+    big = k9_edge_inputs(device, 262144, 40000, seed=1)
+    need = k9.layout(*big)[1]
+    err = max(err, require_equal("row_patch edge growth",
+                                 [(g.cpu(), w) for g, w in zip(run(big), want(big))]))
+    after = max((sl.nbytes for sl in ring.slots if sl is not None), default=0)
+    if device.type == "cuda" and (not need > before or after < need):
+        fail(f"row_patch edge: the ring did not grow ({before} → {after} for {need})")
+    # back to back: call 0 and call RING_SLOTS share a slot
+    calls = [k9_edge_inputs(device, 262144, 40000, seed=2)] + [
+        k9_edge_inputs(device, 4096, 100 + i, seed=3 + i) for i in range(k9.RING_SLOTS)]
+    calls[-1] = k9_edge_inputs(device, 262144, 40000, seed=9)
+    outs = [[b.clone() for b in c[0]] for c in calls]
+    torch.cuda.synchronize()
+    for out, (_, hosts, rows) in zip(outs, calls):
+        k9.row_patch(out, hosts, rows)
+    for i, (out, c) in enumerate(zip(outs, calls)):
+        err = max(err, require_equal(f"row_patch edge back to back call {i}",
+                                     [(g.cpu(), w) for g, w in zip(out, want(c))]))
+    log(json.dumps({"phase": "k9-edge",
+                    "row_bytes": [h.nbytes // h.shape[0] for h in small[1]],
+                    "units": [e[6] for e in k9.layout(*small)[0]],
+                    "slot_bytes_before": before, "payload_bytes": need,
+                    "slot_bytes_after": after, "back_to_back_calls": len(calls)}))
+    torch.cuda.synchronize()
+    for sl in ring.slots:
+        if sl is not None:
+            sl.free()
+    if saved is None:
+        k9._rings.pop(key)
+    else:
+        k9._rings[key] = saved
+    bufs, hosts, rows = k9_edge_inputs(device, 4096, 5)
+    rows[2] = rows[2].copy()
+    rows[2][-1] = 4096
+    try:
+        k9.row_patch(bufs, hosts, rows)
+    except IndexError:
+        pass
+    else:
+        fail("row_patch edge: an index outside its buffer was not refused")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # worlds
 # ---------------------------------------------------------------------------
@@ -1850,11 +2088,12 @@ _MUTATED = {
     "preempt_continue": (),
     "segment_sum": (),
     "segment_count": (),
-    "waterfill": (),
+    "waterfill": (1,),           # the request rows (their values: task_req)
     "lex_push_many": (0, 1),
     "sort_by_segment": (0, 1),
     "vtime": (0, 1, 2, 3),
-    "row_patch": (0,),           # the device buffers, written in place
+    "row_patch": (0, 1),         # the device buffers, written in place, and
+                                 # the host arrays, which the next pack patches
     "resident_words": (1, 2),    # task_node, task_state
     "affinity_mask": (),
     "affinity_row": (),
@@ -1875,6 +2114,7 @@ _SNAPSHOT_ARGS = {
     "tier_control": (6, 7, 10, 14),
     "victim_prefix": (1, 3, 7),  # task_node, task_req (and its preemptor rows)
     "failure_counts": (2,),      # task_req
+    "waterfill": (0, 2, 3),      # queue_weight, cluster_total, queue_mask
 }
 # K2's arguments recorded: pass 1's and pass 2's without their shared
 # scratch (84 MB a round at the main path's shapes, reused by the caching
@@ -1890,15 +2130,16 @@ def _keep(a):
     snapshots (every field)."""
     import dataclasses
 
+    import numpy as np
     import torch
 
-    if isinstance(a, torch.Tensor):
-        return a.clone()
+    if isinstance(a, (torch.Tensor, np.ndarray)):
+        return a.copy() if isinstance(a, np.ndarray) else a.clone()
     if isinstance(a, list):
         return [_keep(x) for x in a]
     if dataclasses.is_dataclass(a):
         return dataclasses.replace(a, **{
-            f.name: getattr(a, f.name).clone() for f in dataclasses.fields(a)})
+            f.name: _keep(getattr(a, f.name)) for f in dataclasses.fields(a)})
     return a
 
 
@@ -2150,9 +2391,13 @@ def check_call(name: str, args):
         return err, {"nonempty_segments": int(torch.unique(seg[seg < num]).numel())}
     if name == "waterfill":
         out = k7.waterfill(*args)
-        err = require_equal(name, [(out, k7.waterfill_plain(*args))])
+        stats = {}
+        err = require_equal(name, [(out, k7.waterfill_plain(*args, stats=stats))])
+        request = fill_request(args)
         return err, {"queues": int(args[3].sum()),
-                     "queues_below_request": int((out < args[1]).any(dim=1).sum())}
+                     "fused_calls": int(isinstance(args[1], k7.RequestRows)),
+                     "iterations": stats["iterations"],
+                     "queues_below_request": int((out < request).any(dim=1).sum())}
     if name == "predicate_mask":
         snap = args[0]
         out = k1.predicate_mask(*args)
@@ -2200,12 +2445,13 @@ def check_call(name: str, args):
         return err, {"valid_rows": int(args[3].sum()),
                      "big_vtime_rows": int((out >= k8.BIG_VTIME).sum())}
     if name == "row_patch":
-        bufs, rows, vals = args
+        bufs, hosts, rows = args
         a_k, a_p = [b.clone() for b in bufs], [b.cpu() for b in bufs]
-        k9.row_patch(a_k, rows, vals)
-        k9.row_patch_plain(a_p, rows, vals)
+        k9.row_patch(a_k, hosts, rows)
+        k9.row_patch_plain(a_p, hosts, rows)
         err = require_equal(name, [(k.cpu(), p) for k, p in zip(a_k, a_p)])
-        return err, {"fields": len(bufs), "rows": sum(len(r) for r in rows)}
+        return err, {"fields": len(bufs), "rows": sum(len(r) for r in rows),
+                     "staged_bytes": k9.layout(bufs, hosts, rows)[1]}
     if name == "resident_words":
         from kube_batch_tpu_torch.kernels import resident as k11
 
@@ -2331,6 +2577,59 @@ def segment_count_timing(args):
             time_ms(lambda: acc32.index_add_(0, idx, vals32)),
             bound(seg.numel() * (seg.element_size() + values.element_size() * C)
                   + num * C * 4, values.numel()))
+
+
+def fill_request(args):
+    """f32[Q, R]: the request a water-fill call fills (summed from its
+    RequestRows by the plain version where it takes rows)."""
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+
+    request = args[1]
+    if isinstance(request, k7.RequestRows):
+        return k7.segment_sum_plain(request.values, request.seg, args[0].shape[0])
+    return request
+
+
+def waterfill_bound(args):
+    """(least ms, what bounds it) of one water-fill call on this run's
+    data: bytes — with RequestRows the ids of every row and the kept rows'
+    values, else the request, and the weights, mask, capacity and output
+    once — against operations: the kept rows' float64 adds, and 9
+    float32 operations an element an iteration for the iterations this
+    call's fill runs to its fixed point (waterfill_plain's count)."""
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
+
+    weights, request = args[0], args[1]
+    Q, R = weights.shape[0], args[2].shape[0]
+    nbytes = 4 * Q + Q + 4 * R + 4 * Q * R
+    ops64 = 0
+    if isinstance(request, k7.RequestRows):
+        kept = int((request.seg < Q).sum())
+        nbytes += 4 * request.seg.numel() + 4 * kept * R
+        ops64 = kept * R
+    else:
+        nbytes += 4 * Q * R
+    stats = {}
+    k7.waterfill_plain(*args, stats=stats)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops64 / F64_OPS_PER_S + 9 * stats["iterations"] * Q * R / F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row_patch_bound(args, link_bytes_per_s: float):
+    """(least ms, "bytes") of one K9 call: the larger of its device
+    memory time (the staged indices and rows read once, the rows written
+    once, at HBM_BYTES_PER_S) and its host link time (the staged indices
+    and rows, which live in host memory, crossing once at the rate
+    host_link_rate measured in this run); and the two times."""
+    bufs, hosts, rows = args
+    rowb = [h.nbytes // h.shape[0] for h in hosts]
+    staged = sum(len(r) * (4 + b) for r, b in zip(rows, rowb))
+    written = sum(len(r) * b for r, b in zip(rows, rowb))
+    hbm = (staged + written) / HBM_BYTES_PER_S * 1e3
+    link = staged / link_bytes_per_s * 1e3
+    return (max(hbm, link), "bytes"), {"hbm_ms": hbm, "link_ms": link,
+                                       "staged_bytes": staged}
 
 
 def widest_float_sum(calls):
@@ -2772,7 +3071,7 @@ def phase_host_cycle(device, **world_kw):
 
     packer.pack = checked_pack
     rec = Recorder({name: 10**9 for name in _MUTATED
-                    if name not in ("row_patch", "failure_counts")})
+                    if name not in ("row_patch", "failure_counts", "waterfill")})
     totals = {}
     for cycle in range(HOST_CYCLES):
         checks["s"] = 0.0
@@ -2840,7 +3139,8 @@ def phase_host_cycle(device, **world_kw):
 def preempt_cycles(device: str, record: bool, check_binds: bool = False):
     """The preempt path: config 4 under examples/scheduler.conf for 3
     cycles, the wave arriving after cycle 1.  Returns (per-cycle records,
-    the Recorder of cycles 2 and 3 or None, the cache, the sessions).
+    the Recorder of cycles 2 and 3 and of cycle 1's water-fill calls, or
+    None; the cache, the sessions).
     With `check_binds`, each cycle's binds are held against its own
     snapshot's predicate mask before the next pack."""
     from kube_batch_tpu_torch.scheduler import Scheduler
@@ -2848,14 +3148,20 @@ def preempt_cycles(device: str, record: bool, check_binds: bool = False):
     cache, sim = preempt_world()
     sched = Scheduler(cache, conf=scheduler_conf(), device=device)
     rec = Recorder(PREEMPT_EVERY) if record else None
+    # cycle 1's water-fill calls are recorded too, at cycle -1
+    first = Recorder({name: 10**9 for name in _MUTATED if name != "waterfill"}) \
+        if record else None
     cycles, sessions = [], []
     for cycle in range(3):
         t0 = time.perf_counter()
-        if rec is not None and cycle >= 1:
-            with rec:
+        if rec is not None:
+            with rec if cycle >= 1 else first:
                 ssn = sched.run_once()
         else:
             ssn = sched.run_once()
+        if cycle == 0 and rec is not None:
+            rec.calls["waterfill"] += [(-1, r, a) for _c, r, a in first.calls["waterfill"]]
+            rec.seen["waterfill"] += first.seen["waterfill"]
         wall_ms = (time.perf_counter() - t0) * 1e3
         if ssn is None:
             fail(f"preempt path: cycle {cycle} found nothing to solve")
@@ -2961,7 +3267,7 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
     from kube_batch_tpu_torch.kernels import victim_prefix as k5
 
     checks = check_all(rec, PREEMPT_KERNELS + ("failure_counts",))
-    for name in ("preempt_continue", "failure_counts"):
+    for name in ("preempt_continue", "failure_counts", "waterfill"):
         if checks[name]["calls"] != checks[name]["calls_made"]:
             fail(f"preempt path: not every {name} call was recorded")
     rolled_back = sum(loop["rolled_back"] for c in cycles[1:]
@@ -3055,12 +3361,10 @@ def phase_preempt_kernels(rec: Recorder, cycles) -> dict:
                     "rows": args[1].numel(), "columns": args[0][0].numel(),
                     "segments": args[2]}))
 
-    # K7's water-fill
+    # K7's water-fill (the queue sum and the fill, one launch)
     args = cycle2("waterfill")[-1]
-    Q, R = args[1].shape
     record("waterfill", time_ms(lambda: k7.waterfill(*args)),
-           time_ms(lambda: k7.waterfill_plain(*args)),
-           bound(Q * 4 + 2 * Q * R * 4 + R * 4 + Q, (Q + 1) * Q * R * 8))
+           time_ms(lambda: k7.waterfill_plain(*args)), waterfill_bound(args))
     preempt_round_timings(rec)
     return out
 
@@ -3518,6 +3822,7 @@ def phase_kernels(rec: Recorder):
     from kube_batch_tpu_torch.kernels import predicate_mask as k1
     from kube_batch_tpu_torch.kernels import propose as k2
     from kube_batch_tpu_torch.kernels import resolve as k3
+    from kube_batch_tpu_torch.kernels import segment_sum as k7
 
     out = {}
 
@@ -3612,8 +3917,16 @@ def phase_kernels(rec: Recorder):
     for name in ("segment_sum", "segment_count"):
         if k7_checks[name].get("nonempty_segments", 0) <= 0:
             fail(f"main path: {name} never met a non-empty segment")
-    if k7_checks["waterfill"]["calls"] <= 0:
-        fail("main path: the water-fill was never called")
+    if not 0 < k7_checks["waterfill"]["calls"] == k7_checks["waterfill"]["calls_made"]:
+        fail("main path: not every water-fill call was checked")
+    wargs = [a for c, _r, a in rec.calls["waterfill"]][-1]
+    ms, plain_ms, b = (time_ms(lambda: k7.waterfill(*wargs)),
+                       time_ms(lambda: k7.waterfill_plain(*wargs)), waterfill_bound(wargs))
+    path_time("waterfill", ("main", "host_cycle"), ms, b[0])
+    log(json.dumps({"phase": "kernel-main-path", "name": "waterfill",
+                    "rows": wargs[1].values.shape[0], "queues": wargs[0].shape[0],
+                    "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                    "bound_ms": round(b[0], 6), "bound_by": b[1]}))
     args = main_timing_input(rec)
     ms, plain_ms, library_ms, b = segment_sum_timing(args)
     path_time("segment_sum", ("main", "host_cycle"), ms, b[0])
@@ -3763,44 +4076,46 @@ def phase_rank_kernels(main_rec: Recorder, preempt_rec: Recorder, main_counts,
 
 
 def phase_row_patch(rec: Recorder) -> dict:
-    """K9 on every call of the host cycle against its plain version;
-    timed on the call with the most rows, beside its plain version on the
-    card, the library form (per field, its indices and values copied from
-    the same host numpy arrays to the card, then one index_copy_) and the
-    bound."""
+    """K4, K7's water-fill and K9 on every call of the host cycle against
+    their plain versions; K9 timed on the call with the most rows, beside
+    its plain version
+    on the card, the library form (per field, its indices and rows
+    copied from the same host arrays to the card, then one index_copy_)
+    and the bound (row_patch_bound, at this run's host link rate)."""
     import numpy as np
     import torch
 
     from kube_batch_tpu_torch.kernels import row_patch as k9
 
-    k4 = check_all(rec, ("failure_counts",))["failure_counts"]
-    log(json.dumps({"phase": "host-cycle-k4", "equal_to_plain": True, **k4}))
-    if k4["calls"] <= 0 or k4["calls"] != k4["calls_made"]:
-        fail("K4: not every failure_counts call of the host cycle was checked")
+    for name in ("failure_counts", "waterfill"):
+        got = check_all(rec, (name,))[name]
+        log(json.dumps({"phase": f"host-cycle-{name}", "equal_to_plain": True, **got}))
+        if got["calls"] <= 0 or got["calls"] != got["calls_made"]:
+            fail(f"host cycle: not every {name} call was checked")
     checks = check_all(rec, ("row_patch",))["row_patch"]
     log(json.dumps({"phase": "host-cycle-k9", "equal_to_plain": True, **checks}))
     if checks["calls"] <= 0 or checks["calls"] != checks["calls_made"]:
         fail("K9: not every row_patch call of the host cycle was checked")
-    bufs, rows, vals = max((a for _c, _r, a in rec.calls["row_patch"]),
-                           key=lambda a: sum(len(r) for r in a[1]))
+    bufs, hosts, rows = max((a for _c, _r, a in rec.calls["row_patch"]),
+                            key=lambda a: sum(len(r) for r in a[2]))
     bufs = [b.clone() for b in bufs]
     dev = bufs[0].device
 
     def library():
-        for b, r, v in zip(bufs, rows, vals):
+        for b, h, r in zip(bufs, hosts, rows):
             b.index_copy_(0, torch.from_numpy(r.astype(np.int64)).to(dev),
-                          torch.from_numpy(np.ascontiguousarray(v)).to(dev))
+                          torch.from_numpy(h[r]).to(dev))
 
-    payload = sum(r.nbytes + v.nbytes for r, v in zip(rows, vals))
-    b = bound(payload + sum(v.nbytes for v in vals), 0)
-    ms = time_ms(lambda: k9.row_patch(bufs, rows, vals))
-    plain_ms = time_ms(lambda: k9.row_patch_plain(bufs, rows, vals))
+    b, parts = row_patch_bound((bufs, hosts, rows), HOST_LINK["bytes_per_s"])
+    ms = time_ms(lambda: k9.row_patch(bufs, hosts, rows))
+    plain_ms = time_ms(lambda: k9.row_patch_plain(bufs, hosts, rows))
     library_ms = time_ms(library)
     log(json.dumps({"phase": "kernel", "name": "row_patch", "fields": len(bufs),
-                    "rows": sum(len(r) for r in rows), "payload_bytes": payload,
-                    "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
-                    "library_ms": round(library_ms, 4), "bound_ms": round(b[0], 6),
-                    "bound_by": b[1]}))
+                    "rows": sum(len(r) for r in rows), "ms": round(ms, 4),
+                    "plain_ms": round(plain_ms, 4), "library_ms": round(library_ms, 4),
+                    "bound_ms": round(b[0], 6), "bound_by": b[1],
+                    "hbm_ms": round(parts["hbm_ms"], 6), "link_ms": round(parts["link_ms"], 6),
+                    "staged_bytes": parts["staged_bytes"]}))
     return {"row_patch": dict(max_abs_err=checks["max_abs_err"], ms=ms,
                               plain_ms=plain_ms, bound=b, library_ms=library_ms)}
 
@@ -4340,15 +4655,19 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
                               ("affinity-path-k2", arec, ("propose_best", "propose_pick",
                                                           "resolve", "apply")),
                               ("affinity-path-k4", arec, ("failure_counts",)),
+                              ("affinity-path-k7", arec, ("waterfill",)),
                               ("row-world", row_rec, ("victim_prefix",)),
                               ("joint-path", jrec, JOINT_ONLY + ("preempt_continue",
-                                                                 "failure_counts"))):
+                                                                 "failure_counts",
+                                                                 "waterfill"))):
         got = check_all(rec, names)
         log(json.dumps({"phase": f"{label}-kernels", "equal_to_plain": True, **got}))
         checks.update(got)
         for name in names:
             if got[name]["calls"] <= 0:
                 fail(f"{label}: no {name} call was recorded")
+        if "waterfill" in names and got["waterfill"]["calls"] != got["waterfill"]["calls_made"]:
+            fail(f"{label}: not every water-fill call was recorded")
     # every continuing step of the joint path (K6 with p and n on the card)
     # and every cycle's tallies
     for name in ("preempt_continue", "failure_counts"):
@@ -4708,7 +5027,8 @@ REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "P
               "victim_prefix": "PR 9", "propose_pick": "PR 9",
               "resolve": "PR 10", "predicate_mask": "PR 10",
               "affinity_row": "PR 11", "apply": "PR 11",
-              "preempt_continue": "PR 12", "failure_counts": "PR 12"}
+              "preempt_continue": "PR 12", "failure_counts": "PR 12",
+              "row_patch": "PR 13", "waterfill": "PR 13"}
 
 
 def excess_by_path(k, path_times) -> dict:
@@ -4777,7 +5097,10 @@ def main() -> int:
         cpu_parity = {w: ppool.apply_async(parity_cpu, (ROOT, w))
                       for w in PARITY_WORLDS}
         phase_card_and_build()
+        host_link_rate(device)
         edge_errs = phase_edge_inputs(device)
+        edge_errs["row_patch"] = phase_k9_edge(device)
+        edge_errs["waterfill"] = phase_fill_edge(device)
         edge_errs.update(phase_k8_edge(device))
         edge_errs.update(phase_words_edge(device))
         edge_errs["vtime"] = phase_vtime_edge(device)

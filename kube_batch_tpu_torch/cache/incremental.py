@@ -11,8 +11,9 @@ each cycle, patches exactly the rows whose pods/nodes changed.
 
 The DEVICE side is row-granular too: dirty rows are tracked per field,
 and a steady cycle ships only those rows, all fields at once, through
-kernel K9 (``kernels/row_patch.py``: one staged copy and one launch that
-writes the rows into the live device buffers) instead of re-uploading
+kernel K9 (``kernels/row_patch.py``: the dirty rows gathered from the host
+arrays straight into a pinned staging slot, and one launch that writes
+them into the live device buffers) instead of re-uploading
 every touched array in full.  Whole-array upload remains the fallback
 once the dirty fraction of a field crosses ``ROW_PATCH_MAX_FRAC`` (a
 dense patch costs more than a fresh copy past that), and is what full
@@ -362,24 +363,8 @@ class IncrementalPacker:
                 patch[f] = np.fromiter(
                     sorted(rows), np.int32, count=len(rows))
         nbytes = sum(arr.nbytes for arr in whole.values())
-        fields, rows_l, vals_l = [], [], []
-        for f, ridx in patch.items():
-            # Bucket the row count as the reference does (its scatter
-            # compiles once per bucket); the pad rows repeat row 0 with
-            # row 0's value, an idempotent duplicate write.
-            kp = bucket(len(ridx), minimum=2)
-            if kp != len(ridx):
-                ridx = np.concatenate([
-                    ridx, np.full(kp - len(ridx), ridx[0], np.int32),
-                ])
-            vals = a[f][ridx]
-            fields.append(f)
-            rows_l.append(ridx)
-            vals_l.append(vals)
-            nbytes += ridx.nbytes + vals.nbytes
-        if fields:
-            _k9.row_patch([getattr(self._snap, f) for f in fields],
-                          rows_l, vals_l)
+        if patch:
+            nbytes += self._row_patch(patch)
         uploaded = {f: to_device(arr, self.device) for f, arr in whole.items()}
         prev = self._snap
         self._snap = dataclasses.replace(prev, **uploaded)
@@ -387,6 +372,28 @@ class IncrementalPacker:
         carry_segment_indexes(prev, self._snap, changed.fields)
         self.last_h2d_bytes = nbytes
         return bool(patch)
+
+    def _row_patch(self, patch: dict[str, np.ndarray]) -> int:
+        """K9 for the sparsely-dirty fields (field → sorted int32 rows):
+        the rows are padded to their bucket by repeating the first row (as
+        the reference pads; its scatter compiles once per bucket), and the
+        kernel's wrapper gathers each field's rows straight from the host
+        array into its staging slot.  Returns the bytes the reference
+        counts: the padded indices and one row of values each."""
+        a = self._ints.arrays
+        arrays, rows_l, nbytes = [], [], 0
+        for f, ridx in patch.items():
+            kp = bucket(len(ridx), minimum=2)
+            if kp != len(ridx):
+                ridx = np.concatenate([
+                    ridx, np.full(kp - len(ridx), ridx[0], np.int32),
+                ])
+            arr = a[f]
+            arrays.append(arr)
+            rows_l.append(ridx)
+            nbytes += ridx.nbytes + kp * (arr.nbytes // arr.shape[0])
+        _k9.row_patch([getattr(self._snap, f) for f in patch], arrays, rows_l)
+        return nbytes
 
     # -- jobs -----------------------------------------------------------
 

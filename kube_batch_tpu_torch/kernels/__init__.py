@@ -8,9 +8,9 @@
 | K4 | failure_counts.failure_counts (the dynamic predicate as a mask or as K10's words, tested in its own launch) | CUDA C++ | framework/fit_errors.py · failure_counts |
 | K5 | victim_prefix.victim_prefix (the opening step's node choice: sort, walk, mask, choice) | CUDA C++ | ops/preemption.py · _min_victims_per_node, choose_node |
 | K6 | preempt_scan.preempt_open, preempt_scan.preempt_continue (a continuing step's whole classification) | CUDA C++ | ops/preemption.py · preemption_rounds (the step's scans and a continuing step's classification) |
-| K7 | segment_sum.segment_sum, segment_sum.segment_count, segment_sum.waterfill | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved |
+| K7 | segment_sum.segment_sum, segment_sum.segment_count, segment_sum.waterfill (a warp a column to its fixed point; given RequestRows, the queue-request sum in the same launch) | CUDA C++ | api/snapshot.py · count_per_job / sum_req_per_job and the plugins' segment sums; ops/waterfill.py · waterfill_deserved with proportion's queue_request |
 | K8 | lex_rank.lex_push_many, lex_rank.sort_by_segment, lex_rank.vtime | CUDA C++ | framework/policy.py · rank_fn, virtual_start_times; ops/assignment.py · rank_from_keys |
-| K9 | row_patch.row_patch | CUDA C++ | cache/incremental.py · _row_patch |
+| K9 | row_patch.row_patch (dirty rows gathered from the host arrays into a pinned ring slot; one launch, every field's copy units in one grid) | CUDA C++ | cache/incremental.py · _row_patch |
 | K10 | affinity.affinity_words (tested in K2's and K4's launches), affinity.affinity_task_words, affinity.affinity_mask, affinity.affinity_row | CUDA C++ | plugins/predicates.py · _topo_feasibility, _affinity_candidate_ok, pod_affinity_predicate, pod_affinity_row |
 | K11 | resident.resident_words | CUDA C++ | plugins/predicates.py · resident_podlabels, _resident_mask, resident_domain_labels, bootstrap_mask's Hb.any(0) |
 | K12 | joint_tier.tier_control | CUDA C++ | ops/joint.py · _haswork_fn, advance (the tier_done test), the step's read |

@@ -23,6 +23,7 @@ from kube_batch_tpu_torch.framework.policy import (
     task_queue_of,
     virtual_start_times,
 )
+from kube_batch_tpu_torch.kernels.segment_sum import RequestRows
 from kube_batch_tpu_torch.ops.waterfill import waterfill_deserved
 
 BIG_SHARE = 1e9
@@ -42,20 +43,31 @@ def queue_allocated(snap, state) -> torch.Tensor:
     )
 
 
-def queue_request(snap) -> torch.Tensor:
-    """f32[Q, R]: total request of every task in the queue's jobs."""
+def _request_rows(snap):
+    """(valid bool[T], seg i32[T], the queue index): the rows that count
+    toward a queue's request, and their queue (num_queues: dropped)."""
     valid = snap.task_mask & (snap.task_job >= 0)
     idx = snap.segment_index("queue")
-    seg = torch.where(valid, idx.base, snap.num_queues)
+    return valid, torch.where(valid, idx.base, snap.num_queues), idx
+
+
+def queue_request(snap) -> torch.Tensor:
+    """f32[Q, R]: total request of every task in the queue's jobs.  The
+    cycle takes it inside `queue_deserved`; this form is its reference."""
+    valid, seg, idx = _request_rows(snap)
     return segment_sum(
         torch.where(valid[:, None], snap.task_req, 0.0), seg, snap.num_queues, idx
     )
 
 
 def queue_deserved(snap) -> torch.Tensor:
-    """f32[Q, R] water-filled deserved (state-independent within a cycle)."""
+    """f32[Q, R] water-filled deserved (state-independent within a cycle):
+    `queue_request` and its fill, in one K7 launch on the card (the sum
+    skips the rows seg drops, so it takes task_req unmasked)."""
+    _valid, seg, idx = _request_rows(snap)
     return waterfill_deserved(
-        snap.queue_weight, queue_request(snap), snap.cluster_total, snap.queue_mask
+        snap.queue_weight, RequestRows(snap.task_req, seg, idx.order, idx.offsets),
+        snap.cluster_total, snap.queue_mask,
     )
 
 

@@ -161,7 +161,7 @@ def test_rank_and_row_patch_wrappers_refuse_other_devices():
         k8.vtime(idx.int(), idx.int(), torch.zeros((4, 4), device=meta), key.bool(),
                  torch.zeros((2, 4), device=meta), torch.zeros((2, 4), device=meta), 2)
     with pytest.raises(RuntimeError):
-        k9.row_patch([key], [np.zeros(2, np.int32)], [np.zeros(2, np.float32)])
+        k9.row_patch([key], [np.zeros(4, np.float32)], [np.zeros(2, np.int32)])
 
 
 @pytest.mark.parametrize("module", [

@@ -20,7 +20,8 @@ version); exact equality throughout:
 * `rank_fn` and `job_rank` against the reference's under the default
   conf and examples/scheduler.conf, on packed and mid-cycle states;
 * `row_patch`'s plain version against the reference's `_row_patch`, on
-  buffers of every snapshot dtype.
+  buffers of every snapshot dtype, rows padded with duplicates and rows
+  of 3 bytes, and the in-place slot layout the kernel reads.
 """
 
 from __future__ import annotations
@@ -266,38 +267,75 @@ def test_rank_fn_and_job_rank_match_reference(world, conf, stage):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int32, np.bool_, np.int64])
 def test_row_patch_plain_matches_reference(dtype):
+    """The wrapper takes the host arrays and the padded rows; the
+    reference's scatter takes the rows' values, which the reference's
+    `_upload` gathers from the same host arrays."""
     rng = np.random.default_rng(np.dtype(dtype).itemsize)
     shapes = [(64,), (64, 3), (16, 5)]
-    bufs, rows, vals = [], [], []
+    bufs, hosts, rows = [], [], []
     for shape in shapes:
         bufs.append((rng.random(shape) * 100).astype(dtype))
         k = int(rng.integers(1, shape[0] // 2))
         r = np.sort(rng.choice(shape[0], k, replace=False)).astype(np.int32)
         pad = 8 - k % 8 if k % 8 else 0   # bucket padding: row 0 repeated
-        v = (rng.random((k,) + shape[1:]) * 100).astype(dtype)
+        host = bufs[-1].copy()
+        host[r] = (rng.random((k,) + shape[1:]) * 100).astype(dtype)
+        hosts.append(host)
         rows.append(np.concatenate([r, np.full(pad, r[0], np.int32)]))
-        vals.append(np.concatenate([v, np.repeat(v[:1], pad, axis=0)]))
     names = [f"f{i}" for i in range(len(shapes))]
     want = jax.device_get(jax_row_patch(
         {n: jnp.asarray(b) for n, b in zip(names, bufs)},
         {n: jnp.asarray(r) for n, r in zip(names, rows)},
-        {n: jnp.asarray(v) for n, v in zip(names, vals)}))
+        {n: jnp.asarray(h[r]) for n, h, r in zip(names, hosts, rows)}))
     got = [torch.from_numpy(b.copy()) for b in bufs]
-    row_patch.row_patch(got, rows, vals)
-    for n, g in zip(names, got):
+    row_patch.row_patch(got, hosts, rows)
+    for n, g, h in zip(names, got, hosts):
         np.testing.assert_array_equal(g.numpy(), np.asarray(want[n]), err_msg=n)
+        np.testing.assert_array_equal(g.numpy(), h, err_msg=n)
 
 
 def test_row_patch_staging_layout():
-    """The staged bytes the kernel reads: one table entry per field,
-    16-byte aligned indices and values that decode back to the input."""
-    bufs = [torch.zeros(32, 3), torch.zeros(32, dtype=torch.bool)]
-    rows = [np.array([4, 9], np.int32), np.array([1, 1], np.int32)]
-    vals = [np.arange(6, dtype=np.float32).reshape(2, 3), np.array([True, True])]
-    staged = row_patch.stage(bufs, rows, vals)
-    table = staged[: 2 * 40].view(np.int64).reshape(2, 5)
-    assert table[:, 1].tolist() == [12, 1] and table[:, 2].tolist() == [2, 2]
-    for (dst, row_bytes, k, idx_off, val_off), b, r, v in zip(table, bufs, rows, vals):
-        assert dst == b.data_ptr() and idx_off % 16 == 0 and val_off % 16 == 0
-        np.testing.assert_array_equal(staged[idx_off: idx_off + 4 * k].view(np.int32), r)
-        assert staged[val_off: val_off + k * row_bytes].tobytes() == v.tobytes()
+    """The staged bytes the kernel reads, written in place: one table
+    entry per field (destination, buffer rows, row bytes, rows, offsets,
+    copy unit, first unit), the units numbered across fields, 16-byte
+    aligned indices and values that decode back to host_array[rows]."""
+    bufs = [torch.zeros(32, 3), torch.zeros(32, dtype=torch.bool),
+            torch.zeros((32, 3), dtype=torch.bool), torch.zeros(32, 4)]
+    rng = np.random.default_rng(0)
+    hosts = [rng.random((32, 3)).astype(np.float32), rng.random(32) < 0.5,
+             rng.random((32, 3)) < 0.5, rng.random((32, 4)).astype(np.float32)]
+    rows = [np.array([4, 9], np.int32), np.array([1, 1], np.int32),
+            np.array([0, 31, 5, 0], np.int32), np.array([7, 2], np.int32)]
+    entries, nbytes, units = row_patch.layout(bufs, hosts, rows)
+    # the alignment gaps are never written, so the slot needs no zero fill
+    slot = np.full(nbytes + 64, 0xAB, np.uint8)
+    row_patch.stage_into(slot, entries, hosts, rows)
+    table = slot[: len(bufs) * 64].view(np.int64).reshape(len(bufs), 8)
+    assert nbytes % 16 == 0 and table.tolist() == [list(e) for e in entries]
+    assert table[:, 2].tolist() == [12, 1, 3, 16]           # row bytes
+    assert table[:, 3].tolist() == [2, 2, 4, 2]             # rows
+    assert table[:, 6].tolist() == [4, 1, 1, 16]            # copy unit
+    assert table[:, 7].tolist() == [0, 6, 8, 20]            # first unit
+    assert units == 22
+    for (dst, n, row_bytes, k, idx_off, val_off, unit, _), b, h, r in zip(
+            table, bufs, hosts, rows):
+        assert dst == b.data_ptr() and n == 32
+        assert idx_off % 16 == 0 and val_off % 16 == 0
+        np.testing.assert_array_equal(slot[idx_off: idx_off + 4 * k].view(np.int32), r)
+        assert slot[val_off: val_off + k * row_bytes].tobytes() == h[r].tobytes()
+    # the kernel's walk: unit u of field f copies row (u - first) // per_row
+    got = [np.zeros(h.nbytes, np.uint8) for h in hosts]
+    firsts = table[:, 7]
+    for u in range(units):
+        f = int(np.searchsorted(firsts, u, side="right")) - 1
+        _, _, row_bytes, _, idx_off, val_off, unit, first = table[f]
+        per_row = row_bytes // unit
+        i, j = divmod(u - first, per_row)
+        row = slot[idx_off: idx_off + 4 * i + 4].view(np.int32)[i]
+        src = val_off + i * row_bytes + j * unit
+        got[f][row * row_bytes + j * unit: row * row_bytes + (j + 1) * unit] = \
+            slot[src: src + unit]
+    for g, h, r in zip(got, hosts, rows):
+        want = np.zeros_like(h)
+        want[r] = h[r]
+        assert g.tobytes() == want.tobytes()
