@@ -2102,6 +2102,15 @@ _MUTATED = {
     # task_state, tried, prov, code, node_future, excl, phase, work, read
     "tier_control": (5, 11, 12, 13, 15, 16, 17, 18, 19),
 }
+# Arguments that are a loop's static buffers (ops/graphs.py: the state,
+# the carry and the step's outputs, written in place by every later step),
+# cloned per recorded call like the mutated ones.
+_STATIC_ARGS = {
+    "preempt_open": (3, 5, 7),           # task_state, prov, node_future
+    "preempt_continue": (2, 4, 6, 7),    # task_node, node_future, p, n
+    "victim_prefix": (4,),               # node_future
+    "tier_control": (4,),                # the last step's accept mask or flags
+}
 # Arguments that are snapshot fields, constant within a cycle but
 # row-patched by the next pack: cloned once per cycle and shared by the
 # calls of that cycle.
@@ -2153,7 +2162,9 @@ class Recorder:
     per cycle (the next pack row-patches them).  `hooks[name]` (optional)
     sees the arguments of every call of `name` before it launches; a call
     for which it returns true is not recorded (its clones would land in
-    a traced window)."""
+    a traced window).  While active, the loops' step graphs run eagerly
+    (`ops/graphs.py · eager_graphs`), so every kernel call goes through
+    its wrapper."""
 
     def __init__(self, every: dict | None = None, hooks: dict | None = None) -> None:
         import kube_batch_tpu_torch.plugins.predicates as plug
@@ -2215,16 +2226,18 @@ class Recorder:
 
     def _row_clone(self, row):
         """K5's row operand with its snapshot fields and task words cloned
-        once per cycle (its K11 build and preemptor are the step's own)."""
+        once per cycle and its preemptor per call (a continuing step's is
+        the loop's static scalar; its K11 build is the step's own)."""
         import dataclasses
 
         return dataclasses.replace(row, fields=tuple(self._cycle_clone(f) for f in row.fields),
-                                   task_words=self._cycle_clone(row.task_words))
+                                   task_words=self._cycle_clone(row.task_words),
+                                   p=row.p.clone())
 
     def _wrap(self, name, fn):
         from kube_batch_tpu_torch.kernels.affinity import AffinityRow
 
-        mutated = _MUTATED[name]
+        mutated = _MUTATED[name] + _STATIC_ARGS.get(name, ())
         shared = _SNAPSHOT_ARGS.get(name, ())
         every = self.every.get(name, 1)
         hook = self.hooks.get(name)
@@ -2248,6 +2261,8 @@ class Recorder:
         return wrapper
 
     def __enter__(self):
+        from kube_batch_tpu_torch.ops import graphs
+
         for mod, attr, name in self.sites:
             fn = getattr(mod, attr)
             w = self._wrap(name, fn)
@@ -2256,14 +2271,21 @@ class Recorder:
             w.launches = getattr(fn, "launches", 0)
             self._saved.append((mod, attr, fn, w, w.launches))
             setattr(mod, attr, w)
+        # a graph replay calls no wrapper: the loops run their bodies
+        # eagerly, one auction round a read, while the Recorder records
+        self._loop_graphs = graphs.loop_graphs
+        graphs.loop_graphs = graphs.eager_graphs
         return self
 
     def __exit__(self, *exc):
+        from kube_batch_tpu_torch.ops import graphs
+
         for mod, attr, fn, w, start in self._saved:
             setattr(mod, attr, fn)
             if hasattr(fn, "launches"):
                 fn.launches += w.launches - start
         self._saved = []
+        graphs.loop_graphs = self._loop_graphs
 
 
 # ---------------------------------------------------------------------------
@@ -2653,6 +2675,7 @@ def _cycle_record(ssn, sched) -> dict:
         "job_ready": ssn.job_ready.copy(),
         "diag": {k: v.cpu().numpy() for k, v in ssn.diag.items()},
         "rounds": dict(sched.last_stats),
+        "timings": dict(sched.last_timings),
     }
 
 
@@ -2708,6 +2731,194 @@ def _same(a, b) -> bool:
     )
 
 
+def decision_stats(stats: dict) -> dict:
+    """A cycle's stats without its times (each preemption loop's and
+    joint tier's "ms"): rounds, cancellations, steps by outcome, tier
+    steps and placements, evictions, the pack's mode and bytes."""
+    return {k: [{kk: vv for kk, vv in x.items() if kk != "ms"} if isinstance(x, dict)
+                else x for x in v] if isinstance(v, list) else v
+            for k, v in stats.items()}
+
+
+def same_run(a: list, b: list) -> bool:
+    """Two runs' cycles decide alike, their stats included."""
+    return len(a) == len(b) and all(
+        _same(x, y) and decision_stats(x["rounds"]) == decision_stats(y["rounds"])
+        for x, y in zip(a, b))
+
+
+def path_cycles(device, build, n: int, after, conf=None, joint=False, timed=None):
+    """`n` cycles of a fresh Scheduler on `build()`'s world (uid counter
+    restarted), `after(cache, sim, cycle)` after each (the tick and the
+    path's arrivals); returns the cycle records.  Cycle `timed`
+    (0-based) runs with every graph replay timed by CUDA events, and its
+    record gets `idle`: the share of its wall (and of its solve) the card
+    spent outside the replays."""
+    import itertools
+
+    import torch
+
+    import kube_batch_tpu_torch.cache.cluster as cluster
+    from kube_batch_tpu_torch.ops import graphs
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    cluster._uid_counter = itertools.count()
+    cache, sim = build()
+    sched = Scheduler(cache, conf=conf, device=device, joint_solve=joint)
+    cycles = []
+    for cycle in range(n):
+        timing = cycle == timed
+        if timing:
+            torch.cuda.synchronize()
+            before = graphs.totals["replay_ms"]
+            graphs.TIME_REPLAYS = True
+        t0 = time.perf_counter()
+        try:
+            ssn = sched.run_once()
+        finally:
+            graphs.TIME_REPLAYS = False
+        if timing:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if ssn is None:
+            fail(f"cycle {cycle + 1} found nothing to solve")
+        c = _cycle_record(ssn, sched)
+        c["wall_ms"] = wall_ms
+        if timing:
+            busy = graphs.totals["replay_ms"] - before
+            c["idle"] = {"cycle": cycle + 1, "wall_ms": round(wall_ms, 3),
+                         "solve_ms": round(c["timings"]["solve_ms"], 3),
+                         "replay_device_ms": round(busy, 3),
+                         "idle_share_of_wall": round(1 - busy / wall_ms, 4),
+                         "idle_share_of_solve": round(1 - busy / c["timings"]["solve_ms"], 4)}
+        cycles.append(c)
+        after(cache, sim, cycle)
+    return cycles
+
+
+def _per_step(cycles) -> list:
+    """Per cycle: ms per auction round (solve ms over the rounds, on a
+    cycle without evictions loops), per preemption step and per joint
+    step by tier kind (each loop's or tier's ms over its steps)."""
+    out = []
+    for c in cycles:
+        st, line = c["rounds"], {}
+        loops = st.get("preempt_steps", []) + st.get("reclaim_steps", [])
+        tiers = st.get("joint_tiers", [])
+        rounds = sum(st.get("allocate_rounds", [])) + sum(st.get("backfill_rounds", []))
+        if rounds and not loops and not tiers:
+            line["rounds"] = rounds
+            line["ms_per_round"] = round(c["timings"]["solve_ms"] / rounds, 4)
+        if loops:
+            steps = sum(lp["steps"] for lp in loops)
+            line["steps"] = steps
+            line["ms_per_step"] = round(sum(lp["ms"] for lp in loops) / max(steps, 1), 4)
+        for kind in ("auction", "evict"):
+            ts = [t for t in tiers if t["kind"] == kind]
+            steps = sum(t["steps"] for t in ts)
+            if steps:
+                line[f"{kind}_steps"] = steps
+                line[f"ms_per_{kind}_step"] = round(sum(t["ms"] for t in ts) / steps, 4)
+        line["solve_ms"] = round(c["timings"]["solve_ms"], 3)
+        out.append(line)
+    return out
+
+
+def graph_totals() -> dict:
+    """The step graphs of the loop calls since `graphs.reset_totals()`:
+    graphs captured, replays, bodies run eagerly (a key's first), host
+    reads (an auction chunk, a step, a joint iteration), the chunk cap,
+    nodes per graph by body kind ([min, median, max]) and capture ms."""
+    import statistics
+
+    from kube_batch_tpu_torch.ops import graphs
+
+    t = graphs.totals
+    nodes = {k: None if None in v else [min(v), int(statistics.median(v)), max(v)]
+             for k, v in t["nodes"].items()}
+    return {"loops": t["loops"], "graphs_captured": t["captured"], "replays": t["replays"],
+            "eager_bodies": t["eager"], "reads": t["reads"], "chunk_cap": t["chunk_cap"],
+            "nodes_per_graph": nodes, "capture_ms": round(t["capture_ms"], 3)}
+
+
+def phase_captured(path: str, run, recorded: list, recorded_s: float, cpu=None):
+    """`path` again with its loops captured (no Recorder: each body a
+    graph replay after its first): every cycle must decide as the
+    recorded run (`recorded`, its cycle records) and the CPU twin
+    (`cpu`, where the path has one), stats included; the graphs must have
+    replayed.  Logs the path's `step-graphs` line and returns the
+    captured run's cycles."""
+    from kube_batch_tpu_torch.ops import graphs
+
+    graphs.reset_totals()
+    t0 = time.perf_counter()
+    cycles = run()
+    seconds = time.perf_counter() - t0
+    if not same_run(cycles, recorded):
+        fail(f"{path}: the captured run decides otherwise than the recorded run")
+    if cpu is not None and not same_run(cycles, cpu):
+        fail(f"{path}: the captured run decides otherwise than the CPU twin")
+    totals = graph_totals()
+    if totals["graphs_captured"] <= 0 or totals["replays"] <= 0:
+        fail(f"{path}: the captured run replayed no graph")
+    log(json.dumps({
+        "phase": "step-graphs", "path": path, **totals,
+        "captured_s": round(seconds, 3), "recorded_s": round(recorded_s, 3),
+        "captured": _per_step(cycles), "recorded": _per_step(recorded),
+        "idle": [c["idle"] for c in cycles if "idle" in c],
+        "identical_to_recorded": True, "identical_to_cpu": None if cpu is None else True,
+    }))
+    return cycles
+
+
+def _tick_then(first_after):
+    """`path_cycles`' `after`: the tick, then `first_after(cache, sim)`
+    after the first cycle (a path's second wave)."""
+    def after(cache, sim, cycle):
+        sim.tick()
+        if cycle == 0:
+            first_after(cache, sim)
+    return after
+
+
+def main_cycles(device, wave: int = MAIN_WAVE_PODS, timed=None, **world_kw):
+    """The main path's cycles (phase_main_path's, unrecorded)."""
+    from kube_batch_tpu_torch.models.workloads import config5_full
+
+    return path_cycles(device, lambda: config5_full(seed=0, **world_kw), 2,
+                       _tick_then(lambda cache, sim: arrivals(cache, sim, wave)),
+                       timed=timed)
+
+
+def host_cycles(device, **world_kw):
+    """The host cycle's incremental cycles and churn (phase_host_cycle's,
+    unrecorded, without its checks and its full-pack twin)."""
+    from kube_batch_tpu_torch.models.workloads import config5_full
+
+    def after(cache, sim, cycle):
+        if cycle + 1 < HOST_CYCLES:
+            host_churn(cache, sim, cycle, cycle != 1)
+
+    return path_cycles(device, lambda: config5_full(seed=0, **world_kw), HOST_CYCLES,
+                       after)
+
+
+def affinity_cycles(device, wave: int = MAIN_WAVE_PODS, timed=None, **world_kw):
+    """The affinity path's cycles (phase_affinity_path's, unrecorded)."""
+    return path_cycles(device, lambda: config5_affinity(**world_kw), 2,
+                       _tick_then(lambda cache, sim: arrivals(cache, sim, wave)),
+                       timed=timed)
+
+
+def evict_cycles(device, joint: bool, timed=None, n: int = 3):
+    """The preempt path's (or, `joint`, the joint path's) cycles,
+    unrecorded: config 4 under examples/scheduler.conf, the wave after
+    cycle 1."""
+    return path_cycles(device, lambda: _config(4), n,
+                       _tick_then(lambda cache, sim: preempt_wave(sim)),
+                       conf=scheduler_conf(), joint=joint, timed=timed)
+
+
 def parity_cpu(root: str, world: str):
     """A parity world's CPU run, in a worker process (spawned: a fresh
     import that never touches the card); returns (cycles, seconds)."""
@@ -2731,9 +2942,12 @@ def phase_parity(cpu_runs):
     inter-pod affinity row operand)."""
     from kube_batch_tpu_torch import kernels
 
+    from kube_batch_tpu_torch.ops import graphs
+
     seen = {}
     parity_counts = {}
     row_counts = row_rec = None
+    captured_lines = []
     for world in PARITY_WORLDS:
         t0 = time.perf_counter()
         kernels.reset_counts()
@@ -2744,12 +2958,27 @@ def phase_parity(cpu_runs):
         if world == ROW_WORLD:
             row_counts, row_rec = world_counts, rec
         t1 = time.perf_counter()
+        cuda_s = t1 - t0
+        # the same world with its loops captured, while the CPU twin runs
+        graphs.reset_totals()
+        captured = _run(world, "cuda", record=False)[0]
+        if not same_run(captured, gpu):
+            fail(f"{world}: the captured run decides otherwise than the recorded run")
+        captured_lines.append({"world": world, **graph_totals(),
+                               "captured_s": round(time.perf_counter() - t1, 3),
+                               "recorded_s": round(t1 - t0, 3),
+                               "captured": _per_step(captured), "recorded": _per_step(gpu)})
+        if captured_lines[-1]["replays"] <= 0:
+            fail(f"{world}: the captured run replayed no graph")
+        t1 = time.perf_counter()
         cpu, cpu_s = cpu_runs[world].get(timeout=1200)
         t2 = time.perf_counter()
         for c, (g, h) in enumerate(zip(gpu, cpu)):
             if not _same(g, h):
                 fail(f"{world}: cycle {c} decisions or failure tallies differ "
                      "between cuda and cpu")
+        if not same_run(captured, cpu):
+            fail(f"{world}: the captured run decides otherwise than the CPU twin")
         checks = check_all(rec)
         for name, acc in checks.items():
             for k, v in acc.items():
@@ -2760,7 +2989,7 @@ def phase_parity(cpu_runs):
             "evicted_per_cycle": [len(c["evicted"]) for c in gpu],
             "rounds_per_cycle": [_brief(c["rounds"]) for c in gpu],
             "binds_refused_once": refused,
-            "cuda_s": round(t1 - t0, 3), "cpu_worker_s": round(cpu_s, 3),
+            "cuda_s": round(cuda_s, 3), "cpu_worker_s": round(cpu_s, 3),
             "waited_for_cpu_s": round(t2 - t1, 3),
             "cycle_kind": gpu[-1]["rounds"].get("cycle"), "identical": True,
         }))
@@ -2805,6 +3034,9 @@ def phase_parity(cpu_runs):
              "continuing steps without the affinity row operand")
     if row_counts["affinity_row"]:
         fail(f"{ROW_WORLD}: affinity_row launched {row_counts['affinity_row']} times")
+    for line in captured_lines:
+        log(json.dumps({"phase": "step-graphs", "path": "parity", **line,
+                        "identical_to_recorded": True, "identical_to_cpu": True}))
     log(json.dumps({"phase": "parity-launches", **parity_counts}))
     # the failure tallies take K10's words: no parity world launches its mask
     if parity_counts["affinity_mask"]:
@@ -2869,6 +3101,7 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     sched = Scheduler(cache, device=device)
     cuda = device.type == "cuda"
     rec = Recorder(MAIN_EVERY)
+    rec.records, t_start = [], time.perf_counter()
     sessions = []
     kernels.reset_counts()
     with rec:
@@ -2888,6 +3121,7 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
             if cuda:
                 rec_line["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
             log(json.dumps(rec_line))
+            rec.records.append(_cycle_record(ssn, sched))
             _check_binds_allowed(ssn)
             sessions.append((ssn.snap.num_tasks, len(ssn.bound)))
             sim.tick()
@@ -2896,6 +3130,7 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
                 n = arrivals(cache, sim, wave)
                 log(json.dumps({"phase": "main-path-arrivals", "pods": n,
                                 "submit_ms": round((time.perf_counter() - t0) * 1e3, 3)}))
+    rec.seconds = time.perf_counter() - t_start
     counts = kernels.counts()
     log(json.dumps({"phase": "main-path-launches", **counts}))
     for name, n in counts.items():
@@ -3072,6 +3307,7 @@ def phase_host_cycle(device, **world_kw):
     packer.pack = checked_pack
     rec = Recorder({name: 10**9 for name in _MUTATED
                     if name not in ("row_patch", "failure_counts", "waterfill")})
+    rec.records, rec.seconds = [], 0.0
     totals = {}
     for cycle in range(HOST_CYCLES):
         checks["s"] = 0.0
@@ -3085,6 +3321,8 @@ def phase_host_cycle(device, **world_kw):
             totals[name] = totals.get(name, 0) + n
         if ssn is None:
             fail(f"host cycle: cycle {cycle + 1} found nothing to solve")
+        rec.records.append(_cycle_record(ssn, sched))
+        rec.seconds += wall_ms / 1e3
         _check_binds_allowed(ssn)
         t0 = time.perf_counter()
         fssn = fsched.run_once()
@@ -3169,7 +3407,6 @@ def preempt_cycles(device: str, record: bool, check_binds: bool = False):
             _check_binds_allowed(ssn)
         c = _cycle_record(ssn, sched)
         c["wall_ms"] = wall_ms
-        c["timings"] = dict(sched.last_timings)
         cycles.append(c)
         sessions.append(ssn)
         sim.tick()
@@ -3245,6 +3482,7 @@ def phase_preempt_path(cpu_result):
         fail("preempt path: cycle 3 bound no pod of the wave")
     _check_invariants(cache)
     cpu_cycles, cpu_s = cpu_result.get(timeout=900)
+    rec.cpu_cycles = cpu_cycles
     for c, (g, h) in enumerate(zip(cycles, cpu_cycles)):
         if not _same(g, h):
             fail(f"preempt path: cycle {c + 1} decisions, evictions or failure "
@@ -4201,6 +4439,7 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     cache, sim = config5_affinity(**world_kw)
     sched = Scheduler(cache, device=device)
     rec = Recorder({**{name: 10**9 for name in _MUTATED}, **AFFINITY_EVERY})
+    rec.records, t_start = [], time.perf_counter()
     kernels.reset_counts()
     before = kernels.counts()
     sessions = []
@@ -4235,6 +4474,7 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
                      f"{k11_launches} times in {rounds} rounds (at most one a round "
                      "plus one a cycle)")
             before = now
+            rec.records.append(_cycle_record(ssn, sched))
             _check_binds_allowed(ssn)
             line.update(_check_affinity(ssn, cache))
             log(json.dumps(line))
@@ -4243,6 +4483,7 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
             if cycle == 0:
                 log(json.dumps({"phase": "affinity-path-arrivals",
                                 "pods": arrivals(cache, sim, wave)}))
+    rec.seconds = time.perf_counter() - t_start
     counts = kernels.counts()
     log(json.dumps({"phase": "affinity-path-launches", **counts}))
     for name in AFFINITY_KERNELS:
@@ -4309,6 +4550,7 @@ def phase_joint_path(device, seq_cycles, n_cycles: int = JOINT_CYCLES):
             fail(f"joint path: cycle {cycle + 1} ran {sched.last_stats.get('cycle')}")
         _check_binds_allowed(ssn)
         c = _cycle_record(ssn, sched)
+        c["wall_ms"] = wall_ms
         cycles.append(c)
         seq = seq_cycles[cycle]
         binds, seq_binds = set(c["binds"]), set(seq["binds"])
@@ -5121,16 +5363,25 @@ def main() -> int:
         ppool.close()
         ppool.join()
         counts, rec = phase_main_path(device)
+        phase_captured("main", lambda: main_cycles(device), rec.records, rec.seconds)
         records = phase_kernels(rec)
         host_counts, hrec = phase_host_cycle(device)
+        phase_captured("host_cycle", lambda: host_cycles(device), hrec.records,
+                       hrec.seconds)
         records.update(phase_row_patch(hrec))
         del hrec
         affinity_counts, arec = phase_affinity_path(device)
+        phase_captured("affinity", lambda: affinity_cycles(device, timed=1), arec.records,
+                       arec.seconds)
         preempt_counts, prec, pcycles = phase_preempt_path(cpu_preempt)
+        phase_captured("preempt", lambda: evict_cycles(device, False, timed=1), pcycles,
+                       sum(c["wall_ms"] for c in pcycles) / 1e3, cpu=prec.cpu_cycles)
         records.update(phase_preempt_kernels(prec, pcycles))
         records.update(phase_rank_kernels(rec, prec, counts, preempt_counts, pcycles))
         del rec, prec
-        joint_counts, jrec, _ = phase_joint_path(device, pcycles)
+        joint_counts, jrec, jcycles = phase_joint_path(device, pcycles)
+        phase_captured("joint", lambda: evict_cycles(device, True), jcycles,
+                       sum(c["wall_ms"] for c in jcycles) / 1e3)
         affinity_records, k2_errs = phase_affinity_kernels(arec, row_rec, jrec)
         records.update(affinity_records)
         del arec, row_rec, jrec

@@ -27,7 +27,12 @@ import numpy as np
 import torch
 
 from kube_batch_tpu_torch.actions.backfill import besteffort_mask
-from kube_batch_tpu_torch.api.snapshot import allocated_mask, count_per_job, status_is
+from kube_batch_tpu_torch.api.snapshot import (
+    allocated_mask,
+    count_per_job,
+    row_at,
+    status_is,
+)
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.framework.plugin import Action, register_action
 from kube_batch_tpu_torch.framework.policy import task_queue_of
@@ -72,13 +77,13 @@ def preempt_victim_fn(policy):
     def victim_fn(snap, state, p):
         tq = task_queue_of(snap)
         tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
-        pj = torch.clamp(snap.task_job[p], 0, snap.num_jobs - 1).long()
+        pj = torch.clamp(row_at(snap.task_job, p), 0, snap.num_jobs - 1).long()
         jrank = policy.job_rank(snap, state)
         return (
             snapshot_victims(snap, state)
-            & (tq == tq[p])                          # same queue
-            & (snap.task_job != snap.task_job[p])    # other jobs only
-            & (jrank[tj] > jrank[pj])                # less-deserving jobs
+            & (tq == row_at(tq, p))                  # same queue
+            & (snap.task_job != row_at(snap.task_job, p))   # other jobs only
+            & (jrank[tj] > row_at(jrank, pj))        # less-deserving jobs
             & policy.preemptable_mask(snap, state, p)
         )
 
@@ -92,8 +97,8 @@ def preempt_victim_fn_intra(policy):
     def victim_fn_intra(snap, state, p):
         return (
             snapshot_victims(snap, state)
-            & (snap.task_job == snap.task_job[p])
-            & (snap.task_prio < snap.task_prio[p])
+            & (snap.task_job == row_at(snap.task_job, p))
+            & (snap.task_prio < row_at(snap.task_prio, p))
             & policy.preemptable_mask(snap, state, p)
         )
 

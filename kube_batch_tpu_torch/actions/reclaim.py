@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from kube_batch_tpu_torch.actions.backfill import non_besteffort_eligible
 from kube_batch_tpu_torch.actions.preempt import snapshot_victims, wanting_jobs_mask
+from kube_batch_tpu_torch.api.snapshot import row_at
 from kube_batch_tpu_torch.framework.plugin import Action, register_action
 from kube_batch_tpu_torch.framework.policy import task_queue_of
 from kube_batch_tpu_torch.ops.preemption import preemption_rounds
@@ -31,7 +32,7 @@ def reclaim_victim_fn(policy):
         tq = task_queue_of(snap)
         return (
             snapshot_victims(snap, state)
-            & (tq != tq[p])                           # cross-queue only
+            & (tq != row_at(tq, p))                   # cross-queue only
             & victim_stays_above_deserved(snap, state)
             & policy.reclaimable_mask(snap, state, p)
         )

@@ -224,6 +224,15 @@ class SegmentIndex:
     num_segments: int
 
 
+def row_at(x: torch.Tensor, i) -> torch.Tensor:
+    """x[i] for an index that may be a 0-dim device tensor (a preemption
+    step's p or v), gathered on the device: `x[i]` would read such an
+    index on the host, which a captured step cannot."""
+    if not isinstance(i, torch.Tensor):
+        return x[i]
+    return x.index_select(0, i.reshape(1)).squeeze(0)
+
+
 def task_queue_of(snap: SnapshotTensors) -> torch.Tensor:
     """i32[T]: each task's queue index via its job (padding → 0, masked)."""
     job = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()

@@ -412,12 +412,16 @@ class TensorPolicy:
 
 def _weighted(w: float, fn):
     """(snap, state, resident) -> w·fn(snap, state, resident) in float32,
-    or None when the term is exactly zero for this snapshot."""
+    or None when the term is exactly zero for this snapshot.  The weight
+    is a float32 CPU scalar made once: a scalar operand of a device
+    product, copied to no device (a captured round cannot copy from
+    pageable host memory)."""
+    w32 = torch.tensor(w, dtype=torch.float32)
 
     def term(snap, state, resident=None):
         raw = fn(snap, state, resident)
         if raw is None:
             return None
-        return torch.tensor(w, dtype=torch.float32, device=raw.device) * raw
+        return w32 * raw
 
     return term

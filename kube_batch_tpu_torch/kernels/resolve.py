@@ -191,6 +191,22 @@ def _resolve_args_ok(prop_node, active, rank, task_req, avail, eps,
                      and cancelled.is_cuda and cancelled.is_contiguous())))
 
 
+# kb_resolve's row scratch past 131,072 rows, by (device, stream): every
+# launch writes what it reads there, so one buffer serves the calls of a
+# stream (which run in order); grown when a call has more rows.  Kept, not
+# allocated a call, so a captured round bakes in one that outlives it.
+_row_scratch: dict = {}
+
+
+def _row_scratch_for(dev, stream: int, nbytes: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _row_scratch.get(key)
+    if buf is None or buf.numel() * 4 < nbytes:
+        buf = _row_scratch[key] = torch.empty(-(-nbytes // 4), dtype=torch.int32,
+                                              device=dev)
+    return buf
+
+
 def resolve(prop_node, active, rank, task_req, avail, eps,
             one_per_node: bool = False, serialize_mask=None, cancelled=None):
     """(kept bool[T], perm i64[T], s_node i64[T]) of one auction round:
@@ -200,7 +216,8 @@ def resolve(prop_node, active, rank, task_req, avail, eps,
     (its element 0 gains the acceptances the watermark cancelled).  Every
     tensor on the card, contiguous, of those dtypes; nothing is converted
     (others raise).  The kernel takes any T (past 131,072 rows on an H100
-    through a device-memory scratch of 16 bytes a row)."""
+    through a device-memory scratch of 16 bytes a row, kept per device and
+    stream)."""
     if prop_node.device.type == "cpu":
         return resolve_plain(prop_node, active, rank, task_req, avail, eps,
                              one_per_node, serialize_mask, cancelled)
@@ -222,15 +239,15 @@ def resolve(prop_node, active, rank, task_req, avail, eps,
     perm = torch.empty(T, dtype=torch.int64, device=dev)
     s_node = torch.empty(T, dtype=torch.int64, device=dev)
     kept = torch.empty(T, dtype=torch.bool, device=dev)
-    scratch = (torch.empty(scratch_bytes // 4, dtype=torch.int32, device=dev)
-               if scratch_bytes else None)
+    stream = build.stream_handle(dev)
+    scratch = _row_scratch_for(dev, stream, scratch_bytes) if scratch_bytes else None
     err = _fn("kb_resolve")(
         prop_node.data_ptr(), active.data_ptr(), rank.data_ptr(), task_req.data_ptr(),
         avail.data_ptr(), eps.data_ptr(),
         None if serialize_mask is None else serialize_mask.data_ptr(),
         int(one_per_node), T, N, R, perm.data_ptr(), s_node.data_ptr(), kept.data_ptr(),
         None if cancelled is None else cancelled.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), build.stream_handle(dev))
+        None if scratch is None else scratch.data_ptr(), stream)
     build.check(err, "resolve")
     resolve.launches += 1
     return kept, perm, s_node

@@ -19,16 +19,22 @@ Each auction round, as [T, N] tensor work on the snapshot's device:
    (and `node_idle` in the Idle pass), `task_state`/`task_node` are
    written (kernel K3 apply).
 
-The reference package runs the rounds in a device `lax.while_loop`;
-PyTorch has none, so the host drives them and reads one `progress` flag
-per round.  A round that accepts nothing leaves the state unchanged, so
-the loop ends there, exactly like the reference's fixed point.  The
-same loop runs the pipelining pass (`use_future=True`): placements
-against FutureIdle become PIPELINED and consume no Idle (≙ ssn.Pipeline).
+The reference package runs the rounds in a device `lax.while_loop`.
+Here a round (proposal, resolve, serialize steps and apply) is one body
+of the loop's step graphs (ops/graphs.py): captured once on the card
+and replayed, run eagerly on the CPU.  A round that accepts nothing
+leaves the state unchanged, the reference's fixed point, so rounds run
+in chunks of 1, 2, 4, ... up to the loop's chunk cap with ONE host read a
+chunk: a device `done` flag gates every round of a chunk that starts
+after the fixed point (it accepts, cancels and counts nothing), so
+`rounds` and `cancelled` are the reference's.  The same loop runs the
+pipelining pass (`use_future=True`): placements against FutureIdle
+become PIPELINED and consume no Idle (≙ ssn.Pipeline).
 
-`AllocState` is a plain dataclass the loop updates IN PLACE (the apply
-kernel writes its tensors); `init_state` copies the snapshot fields, so
-the snapshot itself is never mutated.
+`AllocState` is a plain dataclass; `allocate_rounds` updates the one it
+is given IN PLACE (its rounds write static copies, copied back at the
+end); `init_state` copies the snapshot fields, so the snapshot itself is
+never mutated.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels import lex_rank, propose, resolve
 from kube_batch_tpu_torch.kernels.resident import RoundResident
+from kube_batch_tpu_torch.ops import graphs
 
 NEG_INF = -1e30
 INT32_MAX = 2**31 - 1
@@ -71,6 +78,16 @@ class AllocState:
     node_idle: torch.Tensor    # f32[N, R]
     node_future: torch.Tensor  # f32[N, R]
     aux: dict = dataclasses.field(default_factory=dict)
+
+
+def loop_copy(state: AllocState, writes_idle: bool) -> AllocState:
+    """The static copy of a state that a loop's bodies write (the step
+    graphs' buffers, ops/graphs.py): task_state, task_node, node_future,
+    and node_idle when the loop writes it (else shared, as `aux` is)."""
+    return AllocState(
+        task_state=state.task_state.clone(), task_node=state.task_node.clone(),
+        node_idle=state.node_idle.clone() if writes_idle else state.node_idle,
+        node_future=state.node_future.clone(), aux=state.aux)
 
 
 def init_state(snap: SnapshotTensors) -> AllocState:
@@ -201,6 +218,7 @@ def auction_round(
     serialize_mask: torch.Tensor | None = None,
     cancelled: torch.Tensor | None = None,
     eligible: torch.Tensor | None = None,
+    scratch: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One auction round up to its apply: every eligible pending task
     proposes (K2), nodes resolve conflicts (K3 resolve), the serialize
@@ -215,7 +233,8 @@ def auction_round(
     in place of calling `eligible_fn`.  Returns (accept bool[T], perm,
     sorted node ids) for `apply_round`; nothing is read on the host.
     `cancelled` (i64[3], on the device) gains the acceptances each step
-    of CANCEL_STEPS cancelled."""
+    of CANCEL_STEPS cancelled.  `scratch` is K2's (`propose.best_scratch`,
+    kept by the loop; None: one of the round's own)."""
     avail = state.node_future if use_future else state.node_idle
     if eligible is None:
         pending = (state.task_state == int(TaskStatus.PENDING)) & snap.task_mask
@@ -227,7 +246,8 @@ def auction_round(
     )
     extras = score_spec.extra_terms(snap, state, resident)
     # pass 1 leaves the eligible list and its tie summaries here for pass 2
-    scratch = propose.best_scratch(snap.num_tasks, snap.num_nodes, snap.device)
+    if scratch is None:
+        scratch = propose.best_scratch(snap.num_tasks, snap.num_nodes, snap.device)
     best, cnt, active = propose.propose_best(
         predicate_mask, dyn, snap.task_req, avail, eps, snap.node_mask,
         eligible, state.node_future, snap.node_cap, score_spec, extras,
@@ -299,24 +319,64 @@ def allocate_rounds(
     the argmax, so near-equal nodes tie and round-robin dealing spreads
     proposals across them.  `serialize_mask` is the anti-affinity
     per-node serialization set (None when the snapshot has no such
-    terms).  `stats["rounds"]` receives the number of rounds run and
-    `stats["cancelled"]` the acceptances each step of CANCEL_STEPS
-    cancelled over them (counted on the device, read once)."""
+    terms).  `stats["rounds"]` receives the number of rounds run, the
+    last one (which accepts nothing) included, and `stats["cancelled"]`
+    the acceptances each step of CANCEL_STEPS cancelled over them
+    (counted on the device, read once).
+
+    Each round is the body `round_body` below, run by the loop's step
+    graphs (ops/graphs.py) on static copies of the state, in chunks of 1,
+    2, 4, ... rounds (at most the step graphs' `chunk_cap`, never past
+    `max_rounds`) with one read of `ctl` = [done, rounds] a chunk.  A
+    round that starts with `done` set is gated: it accepts nothing and
+    adds nothing to `cancelled` or to the round count.  Any other round
+    counts, and sets `done` when it accepts nothing."""
     if max_rounds is None:
         max_rounds = snap.num_tasks
-    cancelled = (None if stats is None else
-                 torch.zeros(len(CANCEL_STEPS), dtype=torch.int64, device=snap.device))
-    rounds = 0
-    for _ in range(max_rounds):
-        rounds += 1
+    dev = snap.device
+    st = loop_copy(state, writes_idle=not use_future)
+    ctl = torch.zeros(2, dtype=torch.int64, device=dev)     # [done, rounds]
+    cancelled = round_cancelled = None
+    if stats is not None:
+        cancelled = torch.zeros(len(CANCEL_STEPS), dtype=torch.int64, device=dev)
+        round_cancelled = torch.zeros_like(cancelled)
+    scratch = propose.best_scratch(snap.num_tasks, snap.num_nodes, dev)
+
+    def round_body():
+        if round_cancelled is not None:
+            round_cancelled.zero_()
         accept, perm, s_node = auction_round(
-            snap, state, predicate_mask, score_spec, rank_fn, eligible_fn,
+            snap, st, predicate_mask, score_spec, rank_fn, eligible_fn,
             eps, use_future, one_per_node, score_quantum, dyn_predicate_fn,
-            global_serialize_fn, domain_serialize_fn, serialize_mask, cancelled,
+            global_serialize_fn, domain_serialize_fn, serialize_mask,
+            round_cancelled, None, scratch,
         )
-        if not bool(accept.any()):
-            break
-        apply_round(snap, state, accept, perm, s_node, use_future)
+        live = ctl[0] == 0
+        accept = accept & live
+        apply_round(snap, st, accept, perm, s_node, use_future)
+        if cancelled is not None:
+            cancelled.add_(round_cancelled * live)
+        ctl[1:].add_(live.long())
+        ctl[:1].bitwise_or_((~accept.any()).long())
+
+    drv = graphs.loop_graphs(dev)
+    ran, chunk, rounds = 0, 1, 0
+    try:
+        while ran < max_rounds:
+            k = min(chunk, max_rounds - ran)
+            for _ in range(k):
+                drv.run("round", round_body)
+            ran += k
+            done, rounds = drv.read(ctl)             # the chunk's one read
+            if done:
+                break
+            chunk = min(2 * chunk, drv.chunk_cap)
+    finally:
+        drv.close()
+    for a, b in ((state.task_state, st.task_state), (state.task_node, st.task_node),
+                 (state.node_idle, st.node_idle), (state.node_future, st.node_future)):
+        if a is not b:
+            a.copy_(b)
     if stats is not None:
         stats["rounds"] = rounds
         stats["cancelled"] = dict(zip(CANCEL_STEPS, cancelled.tolist()))

@@ -24,12 +24,16 @@ loop body, and, when done, the advance applied in place.  K12 writes
 the tier's work mask, which the next step takes in place of computing
 the masks again, and packs the step's flags with its own [done,
 has_work, phase] into one buffer: the host reads ONE vector per
-iteration.  The work mask and the read buffer belong to the loop.  The
+iteration.  K12 and the tier's masks stay host-launched between the
+steps (K12 takes the step count and `step <= 1` from the host).  The
 steps themselves are the port's own machinery: ops/assignment.py ·
 auction_round / apply_round (K2, K3, the serialize steps, one resident
 table build per round) and ops/preemption.py · evict_step (K5, K6, the
-plan open / continue branch), with the joint solve's differences kept:
-a tier ends when its work test is empty, and an open plan left at a
+plan open / continue branch), each one body of the loop's step graphs
+(ops/graphs.py; a graph per tier and branch, captured on the card and
+replayed, eager on the CPU) on static state, carry, eviction codes,
+work mask and step outputs, with the joint solve's differences kept: a
+tier ends when its work test is empty, and an open plan left at a
 tier's step bound is discarded by the advance.
 
 Float rules: the discarded plan's request sum is float64, rounded once
@@ -48,12 +52,20 @@ import torch
 
 from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
 from kube_batch_tpu_torch.kernels import joint_tier as _k12
-from kube_batch_tpu_torch.ops.assignment import AllocState, apply_round, auction_round
+from kube_batch_tpu_torch.kernels import propose
+from kube_batch_tpu_torch.ops import graphs
+from kube_batch_tpu_torch.ops.assignment import (
+    AllocState,
+    apply_round,
+    auction_round,
+    loop_copy,
+)
 from kube_batch_tpu_torch.ops.preemption import (
+    FLAG_KEYS,
     EvictCarry,
     evict_step,
+    land_step,
     new_tally,
-    next_carry,
     tally_step,
 )
 
@@ -123,74 +135,93 @@ def joint_rounds(
     evict_code = torch.zeros(T, dtype=torch.int32, device=dev)
     if not phases:
         return state, evict_code
-    st = state
+    st = loop_copy(state, writes_idle=True)     # the Idle passes write node_idle
     c = EvictCarry.fresh(T, N, dev)
     phase_reg = torch.zeros(1, dtype=torch.int32, device=dev)
     work, read = _k12.tier_buffers(T, dev)
+    accept = torch.zeros(T, dtype=torch.bool, device=dev)    # an auction step's
+    flags = torch.zeros(len(FLAG_KEYS), dtype=torch.int64, device=dev)  # an evict step's
+    scratch = propose.best_scratch(T, N, dev)
+
+    def auction_body(ph):
+        def body():
+            acc, perm, s_node = auction_round(
+                snap, st, predicate_mask, ph.score_spec, rank_fn,
+                ph.eligible_fn, eps, ph.use_future, False, ph.score_quantum,
+                dyn_predicate_fn, global_serialize_fn, domain_serialize_fn,
+                serialize_mask, None, work, scratch,
+            )
+            apply_round(snap, st, acc, perm, s_node, ph.use_future)
+            accept.copy_(acc)
+        return body
+
+    def evict_body(ph):
+        def body():
+            out = evict_step(snap, st, c, predicate_mask, ph.victim_fn,
+                             ph.starving_fn, rank_fn, ph.eligible_fn, eps,
+                             dyn_predicate_row_fn, work)
+            # the codes before the carry moves on: a rollback clears the
+            # codes of the plan's victims as they were before this step
+            evict_code.masked_fill_(out.is_v, ph.evict_code)
+            evict_code.masked_fill_(out.fail & c.prov, 0)
+            land_step(st, c, out, flags)
+        return body
+
+    bodies = [auction_body(ph) if isinstance(ph, AuctionPhase) else evict_body(ph)
+              for ph in phases]
+    drv = graphs.loop_graphs(dev)
     step_out = None                  # the last step's accept mask or flags
-    last = None                      # the last evict step's StepOut
     phase, step = 0, 0
     tiers = []
     tally, placed = new_tally(), 0
     t0 = time.perf_counter()
-    while phase < len(phases):
-        ph = phases[phase]
-        auction = isinstance(ph, AuctionPhase)
-        # the carry tensors as the last step left them (K12 may reset them)
-        cur = c if last is None else last
-        _k12.tier_control(
-            _k12.AUCTION if auction else _k12.EVICT,
-            auction and ph.gated_on_evictions, step, _max_steps(ph, T, N),
-            step_out, st.task_state, snap.task_state, snap.task_mask,
-            ph.eligible_fn(snap, st),
-            None if auction else ph.starving_fn(snap, st),
-            snap.task_job, cur.tried, cur.prov, evict_code, snap.task_req,
-            st.node_future, cur.excl, phase_reg, work, read, step <= 1,
-        )
-        flags = read.tolist()        # the iteration's one read
-        done = flags[_k12.STEP_FLAGS]
-        if step_out is not None:
-            if last is not None:
-                tally_step(tally, flags[:_k12.STEP_FLAGS])
-                c = next_carry(last, flags[:_k12.STEP_FLAGS])
-            else:
-                placed += flags[0]
-        if done:
-            # K12 applied the advance: an open plan is discarded and
-            # tried / prov / excl are cleared in place; `work` is void
-            line = {"tier": ph.name, "kind": "auction" if auction else "evict",
-                    "steps": step, "ms": (time.perf_counter() - t0) * 1e3}
-            if auction:
-                line["placed"] = placed
-            else:
-                line.update({k: v for k, v in tally.items() if k != "steps"})
-            tiers.append(line)
-            c = EvictCarry(tried=c.tried, prov=c.prov, excl=c.excl,
-                           excl_p=torch.full((), -1, dtype=torch.long, device=dev),
-                           scan=c.scan)
-            step_out, last = None, None
-            tally, placed = new_tally(), 0
-            phase, step = phase + 1, 0
-            t0 = time.perf_counter()
-            continue
-        if auction:
-            accept, perm, s_node = auction_round(
-                snap, st, predicate_mask, ph.score_spec, rank_fn,
-                ph.eligible_fn, eps, ph.use_future, False, ph.score_quantum,
-                dyn_predicate_fn, global_serialize_fn, domain_serialize_fn,
-                serialize_mask, None, work,
+    try:
+        while phase < len(phases):
+            ph = phases[phase]
+            auction = isinstance(ph, AuctionPhase)
+            _k12.tier_control(
+                _k12.AUCTION if auction else _k12.EVICT,
+                auction and ph.gated_on_evictions, step, _max_steps(ph, T, N),
+                step_out, st.task_state, snap.task_state, snap.task_mask,
+                ph.eligible_fn(snap, st),
+                None if auction else ph.starving_fn(snap, st),
+                snap.task_job, c.tried, c.prov, evict_code, snap.task_req,
+                st.node_future, c.excl, phase_reg, work, read, step <= 1,
             )
-            apply_round(snap, st, accept, perm, s_node, ph.use_future)
-            step_out = accept
-        else:
-            last = evict_step(snap, st, c, predicate_mask, ph.victim_fn,
-                              ph.starving_fn, rank_fn, ph.eligible_fn, eps,
-                              dyn_predicate_row_fn, work)
-            st = last.state
-            evict_code = torch.where(last.is_v, ph.evict_code, evict_code)
-            evict_code = torch.where(last.fail & c.prov, 0, evict_code)
-            step_out = last.flags
-        step += 1
+            f = drv.read(read)           # the iteration's one read
+            done = f[_k12.STEP_FLAGS]
+            if step_out is not None:
+                if auction:
+                    placed += f[0]
+                else:
+                    tally_step(tally, f[:_k12.STEP_FLAGS])
+                    c.active = bool(f[1])
+            if done:
+                # K12 applied the advance: an open plan is discarded and
+                # tried / prov / excl are cleared in place; `work` is void
+                line = {"tier": ph.name, "kind": "auction" if auction else "evict",
+                        "steps": step, "ms": (time.perf_counter() - t0) * 1e3}
+                if auction:
+                    line["placed"] = placed
+                else:
+                    line.update({k: v for k, v in tally.items() if k != "steps"})
+                tiers.append(line)
+                c.active = False
+                c.excl_p.fill_(-1)
+                step_out = None
+                tally, placed = new_tally(), 0
+                phase, step = phase + 1, 0
+                t0 = time.perf_counter()
+                continue
+            if auction:
+                drv.run((phase, "auction"), bodies[phase])
+                step_out = accept
+            else:
+                drv.run((phase, "continue" if c.active else "open"), bodies[phase])
+                step_out = flags
+            step += 1
+    finally:
+        drv.close()
     if stats is not None:
         stats["joint_tiers"] = tiers
     return st, evict_code

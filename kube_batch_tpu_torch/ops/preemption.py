@@ -33,14 +33,19 @@ Per step, on the step's device:
 * plain torch glue for the rank (B7), the veto masks and the updates,
   with the segment sums of the vetoes in kernel K7.
 
-The reference runs the steps in a device `lax.while_loop`.  Here the host
-drives them and reads ONE small flag vector per step — (progressed, plan
-still open, preemptor, node, outcome) — because a step is not a fixed
-point once `progressed` is false: with a preemptor and nothing evictable,
-a further step could still open a plan.  `lax.cond(prov_active, ...)`
-becomes a host branch on the flag read at the end of the previous step;
-the direct-fit test is skipped while a plan is open, where it cannot
-change a decision.  Every other decision of a step is a device tensor.
+The reference runs the steps in a device `lax.while_loop`.  Here a step
+is one body of the loop's step graphs (ops/graphs.py): the opening and
+the continuing branch are each captured once on the card and replayed on
+the same static state and carry (`land_step` writes a step's outputs
+back into them inside the graph), and run eagerly on the CPU.  The host
+reads ONE small flag vector per step — (progressed, plan still open,
+node, outcome) — because a step is not a fixed point once `progressed`
+is false: with a preemptor and nothing evictable, a further step could
+still open a plan.  `lax.cond(prov_active, ...)` becomes the host's
+choice of branch, on the flag read at the end of the previous step; the
+direct-fit test is skipped while a plan is open, where it cannot change
+a decision.  Every other decision of a step is a device tensor, and no
+step reads one on the host (a device scalar indexes through `row_at`).
 
 Float rules: the provisional victims' request sum (`prov_req_sum`) and
 K5's prefix are float64, rounded once to float32; FutureIdle updates stay
@@ -55,11 +60,12 @@ from typing import Callable
 
 import torch
 
-from kube_batch_tpu_torch.api.snapshot import SnapshotTensors
+from kube_batch_tpu_torch.api.snapshot import SnapshotTensors, row_at
 from kube_batch_tpu_torch.api.types import TaskStatus
 from kube_batch_tpu_torch.kernels import preempt_scan as _k6
 from kube_batch_tpu_torch.kernels import victim_prefix as _k5
-from kube_batch_tpu_torch.ops.assignment import AllocState
+from kube_batch_tpu_torch.ops import graphs
+from kube_batch_tpu_torch.ops.assignment import AllocState, loop_copy
 
 BIG_K = _k5.BIG_K
 
@@ -100,21 +106,23 @@ def _request_sum(mask: torch.Tensor, req: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class EvictCarry:
-    """The loop carry between steps: `tried` latches served preemptors
-    (or those out of nodes), `prov` the open plan's provisional victims,
-    `excl` the nodes whose plan failed for preemptor `excl_p`; the plan
-    itself (open or not, as the host read it; its preemptor and node as
-    device scalars, which no launch reads on the host); `scan`, the
-    buffer a continuing step's kernel K6 writes (kept for the whole
-    loop)."""
+    """The loop carry between steps, static for the whole loop: `tried`
+    latches served preemptors (or those out of nodes), `prov` the open
+    plan's provisional victims, `excl` the nodes whose plan failed for
+    preemptor `excl_p`; the plan itself (open or not, as the host read
+    it; its preemptor and node as device scalars, which no launch reads
+    on the host); `scan`, the buffer a continuing step's kernel K6
+    writes; the row indices the step compares p, v and n with."""
 
     tried: torch.Tensor       # bool[T]
     prov: torch.Tensor        # bool[T]
     excl: torch.Tensor        # bool[N]
     excl_p: torch.Tensor      # i64[] (-1: none)
+    p: torch.Tensor           # i64[] its preemptor
+    n_t: torch.Tensor         # i64[] its node
+    idx_t: torch.Tensor       # i64[T] arange
+    idx_n: torch.Tensor       # i64[N] arange
     active: bool = False      # a plan is open
-    p: torch.Tensor | None = None     # its preemptor (0-dim device tensor)
-    n_t: torch.Tensor | None = None   # its node (0-dim device tensor)
     scan: _k6.ContinueBuffer | None = None
 
     @classmethod
@@ -125,6 +133,10 @@ class EvictCarry:
             prov=torch.zeros(T, dtype=torch.bool, device=device),
             excl=torch.zeros(N, dtype=torch.bool, device=device),
             excl_p=torch.full((), -1, dtype=torch.long, device=device),
+            p=torch.zeros((), dtype=torch.long, device=device),
+            n_t=torch.zeros((), dtype=torch.long, device=device),
+            idx_t=torch.arange(T, device=device),
+            idx_n=torch.arange(N, device=device),
             scan=_k6.ContinueBuffer(device) if device.type == "cuda" else None,
         )
 
@@ -176,10 +188,9 @@ def evict_step(
     starving[job] & job >= 0 & eligible & ~tried — when the caller has
     them (the joint loop's kernel K12 writes them), in place of calling
     `starving_fn` and `eligible_fn`."""
-    T, N = snap.num_tasks, snap.num_nodes
+    N = snap.num_nodes
     dev = snap.device
-    idx_t = torch.arange(T, device=dev)
-    idx_n = torch.arange(N, device=dev)
+    idx_t, idx_n = c.idx_t, c.idx_n
     node_ok = snap.node_mask & snap.node_ready
     releasing, pipelined = int(TaskStatus.RELEASING), int(TaskStatus.PIPELINED)
     excl = c.excl
@@ -205,7 +216,7 @@ def evict_step(
         excl = excl & (p == c.excl_p)
     victims = (victim_mask_fn(snap, st, p) & snap.task_mask
                & (st.task_node >= 0) & ~c.prov)
-    preq = snap.task_req[p]
+    preq = row_at(snap.task_req, p)
     dyn_row = (dyn_predicate_row_fn(snap, st, p)
                if dyn_predicate_row_fn is not None else None)
     if c.active:
@@ -249,7 +260,7 @@ def evict_step(
     task_node = torch.where(finalize & is_p, n.to(torch.int32), st.task_node)
     prov_req_sum = _request_sum(c.prov, snap.task_req)
     zero = torch.zeros_like(preq)
-    delta = (torch.where(evict, snap.task_req[v], zero)
+    delta = (torch.where(evict, row_at(snap.task_req, v), zero)
              - torch.where(finalize, preq, zero)
              - torch.where(fail, prov_req_sum, zero))
     node_future = st.node_future.index_add(0, n.view(1), delta[None, :])
@@ -269,11 +280,16 @@ def evict_step(
     )
 
 
-def next_carry(out: StepOut, flags: list[int]) -> EvictCarry:
-    """The carry after a step whose flag vector the host has read."""
-    return EvictCarry(tried=out.tried, prov=out.prov, excl=out.excl,
-                      excl_p=out.excl_p, active=bool(flags[1]), p=out.p,
-                      n_t=out.n_t, scan=out.scan)
+def land_step(st: AllocState, c: EvictCarry, out: StepOut, flags: torch.Tensor) -> None:
+    """Write a step's outputs back into the loop's static state, carry and
+    flag vector, which the next step (the next replay) reads."""
+    for dst, src in ((st.task_state, out.state.task_state),
+                     (st.task_node, out.state.task_node),
+                     (st.node_future, out.state.node_future),
+                     (c.tried, out.tried), (c.prov, out.prov), (c.excl, out.excl),
+                     (c.excl_p, out.excl_p), (c.p, out.p), (c.n_t, out.n_t),
+                     (flags, out.flags)):
+        dst.copy_(src)
 
 
 def tally_step(tally: dict, flags: list[int]) -> None:
@@ -312,19 +328,28 @@ def preemption_rounds(
     T, N = snap.num_tasks, snap.num_nodes
     if max_iters is None:
         max_iters = 2 * T + 4 * N + 16
-    st = state
+    st = loop_copy(state, writes_idle=False)
     c = EvictCarry.fresh(T, N, snap.device)
-    tally = new_tally()
-    t0 = time.perf_counter()
-    progressed = True
-    while progressed and tally["steps"] < max_iters:
+    flags = torch.zeros(len(FLAG_KEYS), dtype=torch.int64, device=snap.device)
+
+    def step_body():
         out = evict_step(snap, st, c, predicate_mask, victim_mask_fn,
                          starving_fn, rank_fn, eligible_fn, eps,
                          dyn_predicate_row_fn)
-        flags = out.flags.tolist()                    # the step's one sync
-        tally_step(tally, flags)
-        st, c = out.state, next_carry(out, flags)
-        progressed = bool(flags[0])
+        land_step(st, c, out, flags)
+
+    tally = new_tally()
+    t0 = time.perf_counter()
+    progressed = True
+    drv = graphs.loop_graphs(snap.device)
+    try:
+        while progressed and tally["steps"] < max_iters:
+            drv.run("continue" if c.active else "open", step_body)
+            f = drv.read(flags)                      # the step's one read
+            tally_step(tally, f)
+            c.active, progressed = bool(f[1]), bool(f[0])
+    finally:
+        drv.close()
 
     if c.active:
         # Truncated mid-plan: apply the Discard once, so truncation can

@@ -15,6 +15,7 @@ import torch
 
 from kube_batch_tpu_torch.api.snapshot import (
     allocated_mask,
+    row_at,
     segment_sum,
     status_is,
     sum_req_per_job,
@@ -68,8 +69,8 @@ def preemptable(snap, state, preemptor):
     reference computes it)."""
     alloc = job_allocated(snap, state)                         # f32[J, R]
     total = snap.cluster_total
-    pj = torch.clamp(snap.task_job[preemptor], 0, snap.num_jobs - 1).long()
-    preemptor_share = share_of(alloc[pj], total)
+    pj = torch.clamp(row_at(snap.task_job, preemptor), 0, snap.num_jobs - 1).long()
+    preemptor_share = share_of(row_at(alloc, pj), total)
     tj = torch.clamp(snap.task_job, 0, snap.num_jobs - 1).long()
     victim_share_after = share_of(alloc[tj] - snap.task_req, total)
     return (victim_share_after >= preemptor_share) | (snap.task_job < 0)

@@ -246,8 +246,12 @@ def topo_anti_participants(snap, state):
         return None
     used2 = (snap.task_anti_topo > 0).any(dim=0)                # bool[K2]
     K = snap.task_podlabels.shape[1]
-    anti_union2 = torch.zeros(K, dtype=torch.bool, device=snap.device)
-    anti_union2[snap.topo_term_label.long()[used2]] = True
+    # the labels of the used terms, unused ones sent to a spare column K
+    # (a fill by index: a mask index would read a count on the host, an
+    # assignment would copy its value from the host)
+    anti_union2 = torch.zeros(K + 1, dtype=torch.bool, device=snap.device)
+    anti_union2.index_fill_(0, torch.where(used2, snap.topo_term_label.long(), K), True)
+    anti_union2 = anti_union2[:K]
     return (
         (snap.task_anti_topo > 0).any(dim=1)
         | ((snap.task_podlabels > 0) & anti_union2[None, :]).any(dim=1)

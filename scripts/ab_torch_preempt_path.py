@@ -66,6 +66,13 @@ drives, on the card with that checkout's own kernels (built into its own
     1 from its 100th), traced by this script's own checkout's
     `chip_smoke.AuctionWindows`, which wraps the run checkout's K2
     `propose_best` (called once a round).
+A checkout whose loops replay captured step graphs
+(`kube_batch_tpu_torch/ops/graphs.py`) calls K2 and K6 from Python only
+to warm and capture a body: its preemption steps and auction rounds are
+not traced by wrapping them; its graphs' totals of each path (graphs
+captured, replays, nodes per graph by body kind, host reads, capture
+ms) are reported instead.  The joint windows trace it as any checkout
+(K12 stays a host launch an iteration).
 One JSON line per run gives each cycle's solve ms, binds, evictions and
 each loop's or joint tier's steps and ms per step (the main and
 affinity paths: auction rounds and solve ms per round), the kernel
@@ -168,6 +175,20 @@ spec = importlib.util.spec_from_file_location(
     "ab_launch_counter", os.path.join(sys.argv[2], "chip_smoke.py"))
 counter = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(counter)
+# a checkout whose loops replay captured step graphs launches K2 and K6
+# from Python only when it captures: its rounds and steps are not traced
+# by wrapping them, its graphs' totals are reported instead
+if importlib.util.find_spec("kube_batch_tpu_torch.ops.graphs") is not None:
+    from kube_batch_tpu_torch.ops import graphs
+else:
+    graphs = None
+graph_totals = {}
+
+
+def totals_of(path):
+    if graphs is not None:
+        graph_totals[path] = {k: v for k, v in graphs.totals.items()}
+        graphs.reset_totals()
 
 
 def ready(ssn, job_ready):
@@ -198,14 +219,17 @@ def traced_k6(real, window):
 
 t0 = time.perf_counter()
 paths = {}
-step_window = counter.PreemptWindows()
+step_window = counter.PreemptWindows() if graphs is None else None
 real_k6 = (k6.preempt_open, k6.preempt_continue)
-k6.preempt_open, k6.preempt_continue = (traced_k6(f, step_window) for f in real_k6)
+if step_window is not None:
+    k6.preempt_open, k6.preempt_continue = (traced_k6(f, step_window) for f in real_k6)
+totals_of(None)
 kernels.reset_counts()
 cycles, _rec, _cache, sessions = chip_smoke.preempt_cycles("cuda", record=False)
 preempt_counts = kernels.counts()
+totals_of("sequential")
 k6.preempt_open, k6.preempt_continue = real_k6
-step_ops = step_window.result()
+step_ops = step_window.result() if step_window is not None else None
 steps = sum(loop["steps"] for c in cycles for key in ("preempt_steps", "reclaim_steps")
             for loop in c["rounds"].get(key, []))
 preempt_launches = {"steps": steps, **{
@@ -244,6 +268,7 @@ for cycle in range(3):
         chip_smoke.preempt_wave(sim)
 joint_tier.tier_control = real
 launches = windows.result()
+totals_of("joint")
 paths["joint"] = joint
 del cache, sim, sched, ssn
 
@@ -262,7 +287,8 @@ def auction_cycles(cache, sim, window):
     # two cycles of the default conf with chip_smoke's second wave after
     # the first, K2's pass 1 hooked to `window`
     real_k2 = k2.propose_best
-    k2.propose_best = traced_k2(real_k2, window)
+    if window is not None:
+        k2.propose_best = traced_k2(real_k2, window)
     sched = Scheduler(cache, device="cuda")
     out = []
     for cycle in range(2):
@@ -278,16 +304,19 @@ def auction_cycles(cache, sim, window):
         if cycle == 0:
             chip_smoke.arrivals(cache, sim, chip_smoke.MAIN_WAVE_PODS)
     k2.propose_best = real_k2
-    return out, window.result()
+    return out, None if window is None else window.result()
 
 
 round_ops = {}
 # the main path: config 5 full; the window starts at cycle 2's third round
 cache, sim = config5_full(seed=0)
-paths["main"], round_ops["main"] = auction_cycles(cache, sim, counter.AuctionWindows(skip=6))
+paths["main"], round_ops["main"] = auction_cycles(
+    cache, sim, counter.AuctionWindows(skip=6) if graphs is None else None)
+totals_of("main")
 cache, sim = chip_smoke.config5_affinity()
 paths["affinity"], round_ops["affinity"] = auction_cycles(
-    cache, sim, counter.AuctionWindows(skip=100))
+    cache, sim, counter.AuctionWindows(skip=100) if graphs is None else None)
+totals_of("affinity")
 del cache, sim
 paths_s = time.perf_counter() - t0
 
@@ -400,7 +429,8 @@ print("RESULT " + json.dumps({"paths": paths, "kernels": kern, "s": paths_s,
                               "segment_sum_takes_index": with_index,
                               "joint_launches": launches,
                               "preempt_launches": preempt_launches,
-                              "preempt_step_ops": step_ops, "round_ops": round_ops}))
+                              "preempt_step_ops": step_ops, "round_ops": round_ops,
+                              "graphs": graph_totals}))
 """
 
 
@@ -453,6 +483,7 @@ def main(trees: list[str]) -> int:
                 "preempt_launches": r["preempt_launches"],
                 "preempt_step_ops": r["preempt_step_ops"],
                 "round_ops": r["round_ops"],
+                "graphs": r.get("graphs", {}),
                 **{kind: [{"solve_ms": round(c["solve_ms"], 1), "binds": len(c["binds"]),
                            "evicted": len(c["evicted"]), "ready_jobs": len(c["ready"]),
                            "loops": [{"loop": lp["loop"], "steps": lp["steps"],
