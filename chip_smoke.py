@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with a CUDA card and
 
 1. card and build — the card's name and power limit, torch/CUDA
    versions, and the build of every CUDA kernel from this checkout's
-   sources (one nvcc per source, all at once: K1–K12), timed; the host
+   sources (one nvcc per source, all at once: K1–K13), timed; the host
    link's rate (`host_link_rate`: a 64 MiB pinned copy, on a line with
    the card's name and power limit); K9 on `phase_k9_edge` (rows of 1, 3,
    12 and 16 bytes with padded duplicates, a payload past the slot so
@@ -75,7 +75,10 @@ Run from the root of a checkout on a machine with a CUDA card and
    R = 1 and 8, one request class for all rows and one a row, an
    all-false row, requests below eps on every dim; no dynamic predicate,
    a mask, and K10's words at W = 1, 2 and 8 equal to K4 given K10's
-   mask of the same tables), exactly equal to the plain versions; K10's
+   mask of the same tables), exactly equal to the plain versions;
+   K13's class table (`phase_k13_edge`: C = 17 at the affinity path's
+   shapes, C = T = 65,536 × 8,192, K2 = 0, node terms only, K = 40 and
+   K2 = 72, the zero class; exactly equal to the plain version); K10's
    affinity_task_words and affinity_words, K11's resident_words (both
    resident sets and the future set alone) and K2's words form on
    seeded affinity terms (each = plain, K2 given the words = K2 given
@@ -169,7 +172,10 @@ Run from the root of a checkout on a machine with a CUDA card and
    path (timed on an immediate and a FutureIdle round), K10's mask and
    task words on each of their calls, K10's words with K2's two passes
    every 300th round (K2 given the words against K2 given K10's mask,
-   both timed), and K10's row form on the
+   both timed; K2 given K13's class term against K2 given the same term
+   gathered to [T, N]), K13 on every call of the affinity path (timed on
+   cycle 2's last round beside its library forms over the class rows and
+   over every task's row), and K10's row form on the
    config5_affinity_mid card run under examples/scheduler.conf (K5
    given the row operand on every opening step, against K5's plain
    version fed the plain row, and K6 given it on every continuing step,
@@ -287,6 +293,8 @@ KERNELS = {
                             "kube_batch_tpu/plugins/predicates.py:263"),
     "tier_control": ("cuda", "kube_batch_tpu_torch/kernels/csrc/joint_tier.cu",
                      "kube_batch_tpu/ops/joint.py:200"),
+    "podaff_score": ("cuda", "kube_batch_tpu_torch/kernels/csrc/podaff_score.cu",
+                     "kube_batch_tpu/plugins/nodeorder.py:90"),
 }
 PREEMPT_KERNELS = ("victim_prefix", "preempt_open", "preempt_continue",
                    "segment_sum", "segment_count", "waterfill")
@@ -296,7 +304,8 @@ RANK_KERNELS = ("lex_push_many", "sort_by_segment", "vtime")
 HOST_CYCLE_ONLY = ("row_patch",)
 # launched only on worlds with inter-pod affinity terms (the affinity
 # path, and where such a world preempts) and by the joint solve
-AFFINITY_KERNELS = ("resident_words", "affinity_words", "affinity_task_words")
+AFFINITY_KERNELS = ("resident_words", "affinity_words", "affinity_task_words",
+                    "podaff_score")
 # entries of K10 that no path launches: the row form, which K5 and K6
 # test inside their own launches, and the mask,
 # whose words the failure tallies test inside K4's launch; checked and
@@ -339,6 +348,7 @@ HOST_EVICTED = 20            # pods evicted after the cycle without arrivals
 # and the K2 and K3 calls of every 300th round; the joint path every 10th
 # K12 call, every K6 continuing step and every K4 call
 AFFINITY_EVERY = {"resident_words": 1, "affinity_task_words": 1, "affinity_words": 1,
+                  "podaff_score": 1,
                   "failure_counts": 1, "waterfill": 1, "propose_best": 300,
                   "propose_pick": 300, "resolve": 300, "apply": 300}
 JOINT_EVERY = {"tier_control": 10, "preempt_continue": 1, "failure_counts": 1,
@@ -1779,6 +1789,155 @@ def phase_fill_edge(device) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# K13 · the pod-affinity score's class table
+# ---------------------------------------------------------------------------
+
+K13_CASES = ("affinity_shape", "c_eq_t", "k2_zero", "node_only", "wide")
+
+
+def k13_edge_inputs(device, case: str, seed: int = 0, T: int = 65536, N: int = 8192,
+                    D: int = 256, TK: int = 2):
+    """Seeded K13 arguments (classes, Hb, Hd, node_key_domain, term_key,
+    term_label, w) at the affinity path's widths: `affinity_shape` 16
+    classes of two topology terms (a team's rack and zone preference,
+    weights 1.0 and 0.5) and the zero class over T rows (C = 17, K = K2 =
+    32); `c_eq_t` every one of the T rows its own class (distinct dyadic
+    weights); `k2_zero` no topology-scoped term; `node_only` topology
+    terms present but every topology weight 0; `wide` K = 40 and K2 = 72
+    (two and three words).  Every case but `c_eq_t` holds the zero class."""
+    import numpy as np
+    import torch
+
+    from kube_batch_tpu_torch.kernels import podaff_score as k13
+    from kube_batch_tpu_torch.kernels import resident as k11
+
+    rng = np.random.default_rng(seed)
+    K, K2 = (40, 72) if case == "wide" else (32, 0 if case == "k2_zero" else 32)
+
+    def dyadic(shape, density=0.3):
+        w = rng.integers(1, 8, shape).astype(np.float32) * np.float32(0.25)
+        return np.where(rng.random(shape) < density, w, np.float32(0)).astype(np.float32)
+
+    if case == "affinity_shape":
+        pref = np.zeros((T, K), np.float32)
+        topo = np.zeros((T, K2), np.float32)
+        team = rng.integers(-1, 16, T)           # -1: no preference
+        has = team >= 0
+        topo[has, team[has]] = 1.0
+        topo[has, 16 + team[has]] = 0.5
+    else:
+        pref, topo = dyadic((T, K)), dyadic((T, K2))
+        if case == "node_only":
+            topo[:] = 0
+        if case == "c_eq_t":
+            for d in range(6):
+                pref[:, d] = ((np.arange(T) >> (3 * d)) & 7) * np.float32(0.25)
+        else:
+            pref[::5] = 0
+            topo[::5] = 0
+    t = lambda x: torch.from_numpy(x).to(device)   # noqa: E731
+    classes = k13.pref_classes(t(pref), t(topo), N)
+    Hb = k11.pack(t(rng.random((N, K)) < 0.3))
+    Hd = k11.pack(t(rng.random((D, K)) < 0.3))
+    nkd = t(rng.integers(0, D, (N, TK)).astype(np.int32))
+    term_key = t(rng.integers(0, TK, K2).astype(np.int32))
+    term_label = t(rng.integers(0, K, K2).astype(np.int32))
+    return classes, Hb, Hd if K2 else None, nkd, term_key, term_label, 0.75
+
+
+def podaff_pair(args):
+    """K13 and its plain version on `args`, each into a table of its own."""
+    import dataclasses
+
+    import torch
+
+    from kube_batch_tpu_torch.kernels import podaff_score as k13
+
+    classes, rest = args[0], args[1:]
+    ck = dataclasses.replace(classes, out=torch.empty_like(classes.out))
+    cp = dataclasses.replace(classes, out=torch.empty_like(classes.out))
+    return k13.podaff_score(ck, *rest), k13.podaff_score_plain(cp, *rest)
+
+
+def podaff_bound(args):
+    """K13's least time: the class rows and denominators, K11's node and
+    domain words, node_key_domain and the term arrays read once, the
+    table written once (bytes); a bit test and an add a nonzero weight
+    and node, three operations a cell (operations)."""
+    classes, Hb, Hd, nkd, term_key, term_label = args[:6]
+    C, K = classes.rows.shape
+    K2, N = classes.rows_topo.shape[1], Hb.shape[0]
+    n = C * (K + K2) * 4 + C * 4 + Hb.numel() * 4 + C * N * 4
+    if K2:
+        n += Hd.numel() * 4 + nkd.numel() * 4 + K2 * 8
+    nnz = int((classes.rows != 0).sum()) + int((classes.rows_topo != 0).sum())
+    return bound(n, 2 * nnz * N + 3 * C * N)
+
+
+def podaff_library(args, per_task: bool):
+    """The function in PyTorch calls, the reference's form: K11's words
+    unpacked, two float32 products, the weight totals, the division, × 10
+    and × w; over the class rows ([C, N]) or, `per_task`, over every
+    task's row ([T, N]: the chain each round ran before K13)."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import resident as k11
+
+    classes, Hb, Hd, nkd, term_key, term_label, w = args
+    pref, topo = classes.rows, classes.rows_topo
+    if per_task:
+        idx = classes.cls.long()
+        pref, topo = pref[idx], topo[idx]
+    K = pref.shape[1]
+
+    def run():
+        raw = pref @ k11.unpack(Hb, K).float().T
+        total = pref.sum(dim=1)
+        if topo.shape[1]:
+            present = k10.present_table(nkd, term_key, term_label, k11.unpack(Hd, K))
+            raw = raw + topo @ present.T
+            total = total + topo.sum(dim=1)
+        return raw / torch.clamp(total, min=1e-9)[:, None] * 10.0 * w
+
+    return run
+
+
+def phase_k13_edge(device) -> float:
+    """K13 on `k13_edge_inputs`' cases, exactly equal to the plain version;
+    the C = T case's table also gathered by each task's class (its rows
+    are the task rows); the affinity shape timed."""
+    import torch
+
+    from kube_batch_tpu_torch.kernels import podaff_score as k13
+
+    t0, err = time.perf_counter(), 0.0
+    for case in K13_CASES:
+        args = k13_edge_inputs(device, case)
+        classes = args[0]
+        T, C = classes.cls.shape[0], classes.C
+        if case == "c_eq_t" and C != T:
+            fail(f"podaff_score edge {case}: {C} classes for {T} distinct rows")
+        if case != "c_eq_t" and bool((classes.rows != 0).any(1).all()):
+            fail(f"podaff_score edge {case}: no zero class")
+        got, want = podaff_pair(args)
+        err = max(err, require_equal(f"podaff_score edge {case}", [(got, want)]))
+        line = {"phase": "k13-edge", "case": case, "tasks": T, "classes": C,
+                "nodes": got.shape[1], "K": classes.rows.shape[1],
+                "K2": classes.rows_topo.shape[1], "nonzero_cells": int((got != 0).sum()),
+                "max_abs_err": err}
+        if case in ("affinity_shape", "c_eq_t"):
+            line["ms"] = round(time_ms(lambda: k13.podaff_score(*args)), 4)
+            line["bound_ms"] = round(podaff_bound(args)[0], 6)
+        log(json.dumps(line))
+        del got, want, args, classes
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    log(json.dumps({"phase": "k13-edge-done", "seconds": round(time.perf_counter() - t0, 2)}))
+    return err
+
+
 def k9_edge_inputs(device, T: int, rows_per_field: int, seed: int = 0):
     """(device buffers, host arrays, padded rows) of one K9 call over
     rows of 1, 3, 12, 16 and 4 bytes (bool[T], bool[T, 3], f32[T, 3],
@@ -2101,6 +2260,8 @@ _MUTATED = {
     "affinity_task_words": (),
     # task_state, tried, prov, code, node_future, excl, phase, work, read
     "tier_control": (5, 11, 12, 13, 15, 16, 17, 18, 19),
+    "podaff_score": (),          # writes only the classes' table (check_call
+                                 # gives each version a buffer of its own)
 }
 # Arguments that are a loop's static buffers (ops/graphs.py: the state,
 # the carry and the step's outputs, written in place by every later step),
@@ -2124,7 +2285,12 @@ _SNAPSHOT_ARGS = {
     "victim_prefix": (1, 3, 7),  # task_node, task_req (and its preemptor rows)
     "failure_counts": (2,),      # task_req
     "waterfill": (0, 2, 3),      # queue_weight, cluster_total, queue_mask
+    "podaff_score": (3, 4, 5),   # node_key_domain, term_key, term_label
 }
+# K2's score terms (argument 10): a class term's table is the buffer every
+# K13 call of the cycle rewrites, so it is cloned per recorded call (a
+# [T, N] term is made afresh each cycle and kept as it is).
+_CLASS_TERM_ARG = {"propose_best": 10, "propose_pick": 10}
 # K2's arguments recorded: pass 1's and pass 2's without their shared
 # scratch (84 MB a round at the main path's shapes, reused by the caching
 # allocator once freed); `with_scratch` fills a fresh one for a recorded
@@ -2197,9 +2363,15 @@ class Recorder:
             (lex_rank, "vtime", "vtime"),
             (row_patch, "row_patch", "row_patch"),
         ]
-        from kube_batch_tpu_torch.kernels import affinity, joint_tier, resident
+        from kube_batch_tpu_torch.kernels import (
+            affinity,
+            joint_tier,
+            podaff_score,
+            resident,
+        )
 
         self.sites += [
+            (podaff_score, "podaff_score", "podaff_score"),
             (resident, "resident_words", "resident_words"),
             (affinity, "affinity_mask", "affinity_mask"),
             (affinity, "affinity_row", "affinity_row"),
@@ -2236,8 +2408,10 @@ class Recorder:
 
     def _wrap(self, name, fn):
         from kube_batch_tpu_torch.kernels.affinity import AffinityRow
+        from kube_batch_tpu_torch.kernels.propose import ClassTerm
 
         mutated = _MUTATED[name] + _STATIC_ARGS.get(name, ())
+        terms = _CLASS_TERM_ARG.get(name)
         shared = _SNAPSHOT_ARGS.get(name, ())
         every = self.every.get(name, 1)
         hook = self.hooks.get(name)
@@ -2252,6 +2426,8 @@ class Recorder:
             traced = hook is not None and hook(args)
             if self.seen[name] % every == 0 and not traced:
                 kept = tuple(_keep(a) if i in mutated
+                             else [_keep(e) if isinstance(e, ClassTerm) else e for e in a]
+                             if i == terms
                              else self._cycle_clone(a) if i in shared
                              else self._row_clone(a) if isinstance(a, AffinityRow) else a
                              for i, a in enumerate(args[:arity]))
@@ -2526,6 +2702,11 @@ def check_call(name: str, args):
                      "after_auction_step": int(step_out is not None and not evict),
                      "after_evict_step": int(evict),
                      "discarded_plans": int(bool(done and evict and read[1]))}
+    if name == "podaff_score":
+        got, want = podaff_pair(args)
+        err = require_equal(name, [(got, want)])
+        return err, {"classes": args[0].C, "nonzero_cells": int((got != 0).sum()),
+                     "topology_calls": int(args[0].rows_topo.shape[1] > 0)}
     if name == "failure_counts":
         from kube_batch_tpu_torch.kernels.affinity import AffinityWords
 
@@ -3008,7 +3189,8 @@ def phase_parity(cpu_runs):
                 ("failure_counts", "words_form_calls"),
                 ("victim_prefix", "with_affinity_row"), ("victim_prefix", "row_vetoed_nodes"),
                 ("affinity_words", "rows_with_terms"),
-                ("tier_control", "done"), ("tier_control", "not_done")):
+                ("tier_control", "done"), ("tier_control", "not_done"),
+                ("podaff_score", "nonzero_cells"), ("podaff_score", "topology_calls")):
         if seen.get(key, 0) <= 0:
             fail(f"parity worlds never gave {key[0]} a case with {key[1]} > 0")
     # the row world's opening steps hand K5 the affinity row operand, its
@@ -3758,6 +3940,7 @@ def _work_counts(args, prop, active):
     from kube_batch_tpu_torch.kernels.propose import (
         CHUNK_N,
         PLAIN_ROWS,
+        ClassTerm,
         masked_scores_plain,
         quantum_scale,
     )
@@ -3775,7 +3958,8 @@ def _work_counts(args, prop, active):
              if isinstance(dyn, AffinityWords) else dyn[rows])
         feas, _ = masked_scores_plain(
             pred[rows], d, req[rows], avail,
-            eps, node_mask, eligible[rows], future, cap, spec, [x[rows] for x in extras],
+            eps, node_mask, eligible[rows], future, cap, spec,
+            [x.rows(rows) if isinstance(x, ClassTerm) else x[rows] for x in extras],
             quantum_scale(quantum),
         )
         feas_cells += int(feas.sum())
@@ -3838,7 +4022,9 @@ def propose_best_bound(args, feas_cells: int):
     """K2 pass 1's least time on `args` (with the eligible list and the
     chunk summaries it writes for pass 2): of the eligible rows only, the
     predicate mask, the dynamic mask or the task words with their
-    thresholds, the extra score terms and the requests; each node's
+    thresholds, the extra score terms (a class term: the row's class, and
+    each class row among the eligible rows' classes once) and the
+    requests; each node's
     avail, future, cap and mask (and, in the words form, its words)
     once; the eligible mask, and the three outputs of every row (a row
     that is not eligible needs no read for its fixed answer).  The fit
@@ -3849,15 +4035,24 @@ def propose_best_bound(args, feas_cells: int):
     node mask pass on a row that has one; the extra terms, the quantum
     floor and the max per feasible cell."""
     from kube_batch_tpu_torch.kernels.affinity import AffinityWords
-    from kube_batch_tpu_torch.kernels.propose import CHUNK_N, chunk_ties_bytes, quantum_scale
+    import torch
+
+    from kube_batch_tpu_torch.kernels.propose import (
+        CHUNK_N,
+        ClassTerm,
+        chunk_ties_bytes,
+        quantum_scale,
+    )
 
     pred, dyn, req, _avail, _eps, node_mask, eligible = args[:7]
     spec, extras, quantum = args[9], args[10], args[11]
     T, N = pred.shape
     R = req.shape[1]
     E, M = int(eligible.sum()), int(node_mask.sum())
-    row_bytes = N + len(extras) * 4 * N + R * 4
+    terms = [e for e in extras if isinstance(e, ClassTerm)]
+    row_bytes = N + (len(extras) - len(terms)) * 4 * N + len(terms) * 4 + R * 4
     node_bytes = 3 * N * R * 4 + N
+    node_bytes += sum(int(torch.unique(e.cls[eligible]).numel()) * N * 4 for e in terms)
     test_ops = 0
     if isinstance(dyn, AffinityWords):
         nw = dyn.node_words.shape[1]
@@ -3893,8 +4088,12 @@ def propose_pick_bound(args, scan_cells: int, scan_feas: int):
     T, N = pred.shape
     R = req.shape[1]
     E, A, C = int(eligible.sum()), int(active.sum()), -(-N // CHUNK_N)
+    from kube_batch_tpu_torch.kernels.propose import ClassTerm
+
     cell = 1 + 1 + len(extras) * 4 + 3 * R * 4   # pred, node mask, extras, node rows
-    row = 8 + R * 4 + C * (4 + chunk_ties_bytes())
+    # a row's class for each class term
+    row = 8 + R * 4 + C * (4 + chunk_ties_bytes()) + 4 * sum(
+        isinstance(e, ClassTerm) for e in extras)
     if isinstance(dyn, AffinityWords):
         nw = dyn.node_words.shape[1]
         cell += nw * 4
@@ -4443,6 +4642,7 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     kernels.reset_counts()
     before = kernels.counts()
     sessions = []
+    alloc_rounds = 0
     with rec:
         for cycle in range(2):
             t0 = time.perf_counter()
@@ -4465,6 +4665,7 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
                      f"{now['affinity_mask'] - before['affinity_mask']} times (the "
                      "failure tallies take its words)")
             # one K11 build per auction round, plus the failure tallies'
+            alloc_rounds += sum(sched.last_stats.get("allocate_rounds", []))
             rounds = (sum(sched.last_stats.get("allocate_rounds", []))
                       + sum(sched.last_stats.get("backfill_rounds", [])))
             k11_launches = now["resident_words"] - before["resident_words"]
@@ -4496,6 +4697,11 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     if rec.seen["affinity_words"] != rec.seen["propose_best"] + 2:
         fail(f"affinity path: {rec.seen['affinity_words']} affinity_words calls for "
              f"{rec.seen['propose_best']} auction rounds and 2 cycles")
+    # the pod-affinity score: one K13 table an allocate round (backfill
+    # scores nothing), read by K2 as a class term
+    if rec.seen["podaff_score"] != alloc_rounds:
+        fail(f"affinity path: {rec.seen['podaff_score']} podaff_score calls for "
+             f"{alloc_rounds} allocate rounds")
     tallies = [a for _c, _r, a in rec.calls["failure_counts"]]
     if len(tallies) != 2 or not all(isinstance(a[1], AffinityWords) for a in tallies):
         fail("affinity path: the failure tallies did not take K10's words")
@@ -4863,6 +5069,45 @@ class AuctionWindows:
         return self.out
 
 
+def k2_class_term_check(arec: Recorder, best_ms=None, pick_ms=None) -> float:
+    """K2 given the class term (K13's table read at each task's class)
+    against K2 given the same term gathered to [T, N], on the last
+    recorded round of `arec` whose score holds a class term: best, ties,
+    active and prop_node equal.  Logs both forms' times (`best_ms`,
+    `pick_ms`: the class form's, when already timed) and returns the
+    largest error."""
+    from kube_batch_tpu_torch.kernels import propose as k2
+
+    def dense_args(a):
+        return tuple(a[:10]) + ([e.dense() if isinstance(e, k2.ClassTerm) else e
+                                 for e in a[10]],) + tuple(a[11:])
+
+    rounds = [(c, r, a) for c, r, a in arec.calls["propose_best"]
+              if any(isinstance(e, k2.ClassTerm) for e in a[10])]
+    if not rounds:
+        fail("affinity path: no recorded round scored with a class term")
+    cycle, rnd, bargs = rounds[-1]
+    pargs = next(a for c, r, a in arec.calls["propose_pick"] if (c, r) == (cycle, rnd))
+    dargs = dense_args(bargs)
+    err = require_equal("propose_best class term against the gathered [T, N] term",
+                        list(zip(k2.propose_best(*bargs), k2.propose_best(*dargs))))
+    cpa, dpa = with_scratch(pargs), with_scratch(dense_args(pargs))
+    err = max(err, require_equal("propose_pick class term against the gathered [T, N] term",
+                                 [(k2.propose_pick(*cpa), k2.propose_pick(*dpa))]))
+    term = next(e for e in bargs[10] if isinstance(e, k2.ClassTerm))
+    log(json.dumps({
+        "phase": "k2-class-term", "cycle": cycle, "round": rnd,
+        "tasks": bargs[2].shape[0], "nodes": bargs[3].shape[0], "classes": term.table.shape[0],
+        "active": int(k2.propose_best(*bargs)[2].sum()), "max_abs_err": err,
+        "propose_best_ms": round(best_ms if best_ms is not None
+                                 else time_ms(lambda: k2.propose_best(*bargs)), 4),
+        "propose_best_dense_ms": round(time_ms(lambda: k2.propose_best(*dargs)), 4),
+        "propose_pick_ms": round(pick_ms if pick_ms is not None
+                                 else time_ms(lambda: k2.propose_pick(*cpa)), 4),
+        "propose_pick_dense_ms": round(time_ms(lambda: k2.propose_pick(*dpa)), 4)}))
+    return err
+
+
 def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     """K11 on every call of the affinity path (immediate and FutureIdle
     rounds both met), K10's task words and words on each of their calls
@@ -4887,6 +5132,7 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
     from kube_batch_tpu_torch.kernels import affinity as k10
     from kube_batch_tpu_torch.kernels import failure_counts as k4
     from kube_batch_tpu_torch.kernels import joint_tier as k12
+    from kube_batch_tpu_torch.kernels import podaff_score as k13
     from kube_batch_tpu_torch.kernels import propose as k2
     from kube_batch_tpu_torch.kernels import resident as k11
     from kube_batch_tpu_torch.kernels import resolve as k3
@@ -4919,7 +5165,8 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
 
     def record(name, ms, plain_ms, b, library_ms=None, **note):
         out[name] = dict(max_abs_err=checks[name]["max_abs_err"], ms=ms,
-                         plain_ms=plain_ms, bound=b, library_ms=library_ms)
+                         plain_ms=plain_ms, bound=b, library_ms=library_ms,
+                         **{k: v for k, v in note.items() if k.endswith("_ms")})
         log(json.dumps({"phase": "kernel", "name": name, "ms": round(ms, 4),
                         "plain_ms": round(plain_ms, 4),
                         "library_ms": None if library_ms is None else round(library_ms, 4),
@@ -4953,6 +5200,29 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
            residents=int(k11.resident_mask(args[2], args[1], args[3], True).sum()),
            future_round_ms=round(k11_rounds[False][1], 4),
            future_round_bound_ms=round(k11_rounds[False][3][0], 6))
+
+    # K13: cycle 2's last round (every round's call was checked), timed
+    # beside the function in library calls over the class rows ([C, N],
+    # the yardstick) and over every task's row ([T, N], the chain each
+    # round ran before K13)
+    args = second_cycle(arec, "podaff_score")[-1]
+    classes = args[0]
+    table, _plain = podaff_pair(args)
+    lib_cn, lib_tn = podaff_library(args, False), podaff_library(args, True)
+    lib_equal = [bool(torch.equal(lib_cn(), table)),
+                 bool(torch.equal(lib_tn(), k2.ClassTerm(table, classes.cls).dense()))]
+    del _plain
+    k13_ms = time_ms(lambda: k13.podaff_score(*args))
+    k13_bound = podaff_bound(args)
+    path_time("podaff_score", ("affinity",), k13_ms, k13_bound[0])
+    record("podaff_score", k13_ms, time_ms(lambda: k13.podaff_score_plain(*args)),
+           k13_bound, time_ms(lib_cn),
+           library_tn_ms=time_ms(lib_tn, warmup=1, runs=3),
+           tasks=classes.cls.shape[0], classes=classes.C, nodes=args[1].shape[0],
+           K=classes.rows.shape[1], K2=classes.rows_topo.shape[1],
+           nonzero_cells=int((table != 0).sum()), library_equal_cn_tn=lib_equal,
+           calls_checked=checks["podaff_score"]["calls"])
+    del table
 
     # K10's task words: cycle 2's snapshot (one call a snapshot)
     args = second_cycle(arec, "affinity_task_words")[0]
@@ -5085,6 +5355,8 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
         "propose_best_mask_form_bound_ms": round(best_mask_bound[0], 6),
         "propose_pick_bound_ms": round(pick_bound[0], 6)}))
 
+    class_err = k2_class_term_check(arec)
+
     # K3 on the same round of the affinity path
     rargs = arec.calls["resolve"][-1][2]
     aargs = arec.calls["apply"][-1][2]
@@ -5180,7 +5452,8 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
                     "plan_node": int(discard[4][2]), "read": read, "max_abs_err": err}))
     torch.cuda.synchronize()
     return out, {name: max(checks[name]["max_abs_err"], err) for name, err in
-                 (("propose_best", best_w), ("propose_pick", pick_w))}
+                 (("propose_best", max(best_w, class_err)),
+                  ("propose_pick", max(pick_w, class_err)))}
 
 
 def _resident_read_bytes(resident, now: bool) -> int:
@@ -5351,6 +5624,7 @@ def main() -> int:
         edge_errs["predicate_mask"] = phase_k1_edge(device)
         edge_errs["preempt_continue"] = phase_k6_continue_edge(device)
         edge_errs["failure_counts"] = phase_k4_edge(device)
+        edge_errs["podaff_score"] = phase_k13_edge(device)
         edge_errs["affinity_row"] = 0.0
         for name, err in (list(phase_k10_row_edge(device).items())
                           + list(phase_k3_apply_edge(device).items())):
@@ -5371,8 +5645,17 @@ def main() -> int:
         records.update(phase_row_patch(hrec))
         del hrec
         affinity_counts, arec = phase_affinity_path(device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        at_start = torch.cuda.memory_allocated(device)
         phase_captured("affinity", lambda: affinity_cycles(device, timed=1), arec.records,
                        arec.seconds)
+        peak = torch.cuda.max_memory_allocated(device)
+        log(json.dumps({"phase": "affinity-path-memory", "card": CARD["line"],
+                        "max_memory_allocated": peak, "allocated_at_start": at_start,
+                        "peak_above_start": peak - at_start,
+                        "note": "the captured run's 2 cycles; at start: the recorded "
+                                "run's kept inputs"}))
         preempt_counts, prec, pcycles = phase_preempt_path(cpu_preempt)
         phase_captured("preempt", lambda: evict_cycles(device, False, timed=1), pcycles,
                        sum(c["wall_ms"] for c in pcycles) / 1e3, cpu=prec.cpu_cycles)
@@ -5406,6 +5689,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"library_tn_ms": r["library_tn_ms"]} if "library_tn_ms" in r else {}),
         })
     order, pick = redesign_order(kernels_line)
     log(json.dumps({"phase": "redesign-order", "kernels": order, "next": pick}))

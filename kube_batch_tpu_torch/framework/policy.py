@@ -11,7 +11,9 @@ AND/OR masks combine as in the reference.
 
 Node-order fns carry a `kind`: "least_requested" and "balanced" are
 evaluated inside the propose kernel (K2); every other fn is an additive
-[T, N] term the kernel adds after them (`score_spec`).
+term the kernel adds after them (`score_spec`): a [T, N] term the policy
+weights, or (kind CLASS_TERM) a `kernels/propose.py · ClassTerm` whose
+own kernel applies the weight.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ from kube_batch_tpu_torch.ops.assignment import (
 
 #: node-order kinds the propose kernel computes itself
 KERNEL_SCORE_KINDS = ("least_requested", "balanced")
+#: node-order kind of a fn (snap, state, weight, resident) -> ClassTerm |
+#: None that applies the weight in its kernel (nodeorder's pod-affinity
+#: score, kernel K13)
+CLASS_TERM = "class_term"
 
 
 def virtual_start_times(
@@ -136,9 +142,11 @@ class TensorPolicy:
         kind: str | None = None,
     ) -> None:
         """`kind` names a term the propose kernel computes itself
-        (KERNEL_SCORE_KINDS); any other fn (snap, state, resident)
-        returns its unweighted f32[T, N] term, or None when it is exactly
-        zero."""
+        (KERNEL_SCORE_KINDS) or a class term (CLASS_TERM: the fn takes
+        (snap, state, weight, resident) and returns the weighted
+        ClassTerm); any other fn (snap, state, resident) returns its
+        unweighted f32[T, N] term.  Each returns None when its term is
+        exactly zero."""
         self.node_scores.append((weight, fn, kind))
         if state_dependent and self.score_quantum == 0.0:
             self.score_quantum = 0.5
@@ -305,6 +313,8 @@ class TensorPolicy:
                     w_lr = w
                 else:
                     w_bal = w
+            elif kind == CLASS_TERM:
+                extras.append(_weighted_in_kernel(w, fn))
             else:
                 extras.append(_weighted(w, fn))
         d0, d1 = self.balanced_dims
@@ -408,6 +418,16 @@ class TensorPolicy:
 
     def reclaimable_mask(self, snap, state, preemptor) -> torch.Tensor:
         return self._veto_intersection(self.reclaimable, snap, state, preemptor)
+
+
+def _weighted_in_kernel(w: float, fn):
+    """(snap, state, resident) -> fn(snap, state, w, resident): a class
+    term whose kernel takes the weight as an argument."""
+
+    def term(snap, state, resident=None):
+        return fn(snap, state, w, resident)
+
+    return term
 
 
 def _weighted(w: float, fn):

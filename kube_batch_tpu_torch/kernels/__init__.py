@@ -14,6 +14,7 @@
 | K10 | affinity.affinity_words (tested in K2's and K4's launches), affinity.affinity_task_words, affinity.affinity_mask, affinity.affinity_row | CUDA C++ | plugins/predicates.py · _topo_feasibility, _affinity_candidate_ok, pod_affinity_predicate, pod_affinity_row |
 | K11 | resident.resident_words | CUDA C++ | plugins/predicates.py · resident_podlabels, _resident_mask, resident_domain_labels, bootstrap_mask's Hb.any(0) |
 | K12 | joint_tier.tier_control | CUDA C++ | ops/joint.py · _haswork_fn, advance (the tier_done test), the step's read |
+| K13 | podaff_score.podaff_score (a table of one row per class of preference rows from K11's words, read by K2 at each task's class) | CUDA C++ | plugins/nodeorder.py · pod_affinity_score |
 
 Every wrapper runs its plain PyTorch version for CPU tensors, launches
 its kernel for CUDA tensors (or raises), and counts its launches in a
@@ -25,6 +26,7 @@ from kube_batch_tpu_torch.kernels import (  # noqa: F401
     failure_counts,
     joint_tier,
     lex_rank,
+    podaff_score,
     predicate_mask,
     preempt_scan,
     propose,
@@ -61,6 +63,7 @@ def wrappers() -> dict:
         "affinity_task_words": affinity.affinity_task_words,
         "resident_words": resident.resident_words,
         "tier_control": joint_tier.tier_control,
+        "podaff_score": podaff_score.podaff_score,
     }
 
 

@@ -34,7 +34,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("predicate_mask", "propose", "resolve", "failure_counts", "victim_prefix",
            "preempt_scan", "segment_sum", "lex_rank", "row_patch",
-           "resident_tables", "affinity_mask", "joint_tier")
+           "resident_tables", "affinity_mask", "joint_tier", "podaff_score")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

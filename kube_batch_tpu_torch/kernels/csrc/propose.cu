@@ -19,7 +19,8 @@
 // Bound on this card: pass 1 must read, for the eligible rows only, the
 // bool[T, N] predicate mask (0.54 GB at the flagship shapes when every
 // row is eligible), any dynamic mask or affinity words and any additive
-// [T, N] score term; the per-node inputs ([N, R] floats, 128 KB each)
+// score term ([T, N], or a class term's [C, N] table: 0.56 MB for the
+// pod-affinity score on the affinity path); the per-node inputs ([N, R] floats, 128 KB each)
 // once; and it does two IEEE divisions a resource dim for each feasible
 // cell.  A row that is not eligible has a fixed answer (no feasible node:
 // the floored NEG_INF, no tie, inactive) and needs no read.  Design of
@@ -46,7 +47,9 @@
 //     masks, its words, its extra terms, the quantum floor and the max.
 //   * A lane reads its row's mask 16 cells at a time (one uint4 when the
 //     row is 16-byte aligned), the dynamic mask the same way and each
-//     extra score term as float4s.
+//     extra score term as float4s: a [T, N] term at row t, a class term
+//     (kernel K13's table [C, N], the pod-affinity score) at row cls[t],
+//     as aligned as row t.
 //   * When few rows are eligible, a row group's node range is split
 //     across blocks (up to one tile each) so that every SM has work; the
 //     last block of a group to finish combines the groups' partial
@@ -134,8 +137,10 @@ struct Args {
   const uint8_t* eligible;  // bool[T]
   const float* future;      // f32[N, R]
   const float* cap;         // f32[N, R]
-  const float* extra0;      // f32[T, N] or null (already weighted)
-  const float* extra1;      // f32[T, N] or null
+  const float* extra0;      // f32[T, N], f32[C, N] or null (already weighted)
+  const float* extra1;      // f32[T, N], f32[C, N] or null
+  const int32_t* cls0;      // i32[T]: extra0's row of task t (null: row t)
+  const int32_t* cls1;      // i32[T]: extra1's row of task t (null: row t)
   const uint32_t* tw;       // u32[T, NW] affinity task words or null
   const int32_t* thr;       // i32[T, 2] their thresholds
   const uint32_t* nwd;      // u32[N, NW] affinity node words
@@ -255,6 +260,12 @@ __device__ __forceinline__ float node_score(const Args& a, const RowReq& q, cons
   return s;
 }
 
+// Row of extra term 0 / 1 that task t reads: t, or its class.
+__device__ __forceinline__ const float* extra_row(const float* x, const int32_t* cls, int t,
+                                                  int N) {
+  return x ? x + (size_t)(cls ? cls[t] : t) * N : nullptr;
+}
+
 // The rest of a cell's score: the extra terms e0, e1 (read only where the
 // term exists) added in order, NEG_INF where the cell is not feasible,
 // the quantum floor.
@@ -283,8 +294,8 @@ __device__ __forceinline__ float masked_score(const Args& a, int t, int n,
   float s = 0.f, e0 = 0.f, e1 = 0.f;
   if (feas) {   // the score of a feasible cell only
     s = node_score(a, q, nr.future, nr.cap, 1);
-    if (a.extra0) e0 = a.extra0[(size_t)t * a.N + n];
-    if (a.extra1) e1 = a.extra1[(size_t)t * a.N + n];
+    if (a.extra0) e0 = extra_row(a.extra0, a.cls0, t, a.N)[n];
+    if (a.extra1) e1 = extra_row(a.extra1, a.cls1, t, a.N)[n];
   }
   return finish_score(a, s, e0, e1, feas);
 }
@@ -583,8 +594,8 @@ __global__ void __launch_bounds__(THREADS) propose_best_kernel(
     }
     const uint8_t* prow = a.pred + (size_t)t * a.N;
     const uint8_t* drow = a.dyn ? a.dyn + (size_t)t * a.N : nullptr;
-    const float* x0row = a.extra0 ? a.extra0 + (size_t)t * a.N : nullptr;
-    const float* x1row = a.extra1 ? a.extra1 + (size_t)t * a.N : nullptr;
+    const float* x0row = extra_row(a.extra0, a.cls0, t, a.N);
+    const float* x1row = extra_row(a.extra1, a.cls1, t, a.N);
 
     float m = -INFINITY;
     int c = 0, infeas = 0;
@@ -808,21 +819,22 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 Args make_args(const uint8_t* pred, const uint8_t* dyn, const float* req,
                const float* avail, const float* eps, const uint8_t* node_mask,
                const uint8_t* eligible, const float* future, const float* cap,
-               const float* extra0, const float* extra1, const uint32_t* tw,
-               const int32_t* thr, const uint32_t* nwd, int KW, int K2W, int T, int N,
-               int R, int has_lr, float w_lr, int has_bal, float w_bal, int d0, int d1,
-               float inv_q) {
+               const float* extra0, const float* extra1, const int32_t* cls0,
+               const int32_t* cls1, const uint32_t* tw, const int32_t* thr,
+               const uint32_t* nwd, int KW, int K2W, int T, int N, int R, int has_lr,
+               float w_lr, int has_bal, float w_bal, int d0, int d1, float inv_q) {
   Args a;
   a.tw = tw; a.thr = thr; a.nwd = nwd; a.KW = KW; a.K2W = K2W;
   a.pred = pred; a.dyn = dyn; a.req = req; a.avail = avail; a.eps = eps;
   a.node_mask = node_mask; a.eligible = eligible; a.future = future; a.cap = cap;
-  a.extra0 = extra0; a.extra1 = extra1; a.T = T; a.N = N; a.R = R;
+  a.extra0 = extra0; a.extra1 = extra1; a.cls0 = cls0; a.cls1 = cls1; a.T = T; a.N = N; a.R = R;
   a.has_lr = has_lr; a.w_lr = w_lr; a.has_bal = has_bal; a.w_bal = w_bal;
   a.d0 = d0; a.d1 = d1; a.inv_q = inv_q;
   a.vec_pred = N % 16 == 0 && aligned16(pred);
   a.vec_dyn = N % 16 == 0 && (!dyn || aligned16(dyn));
   // a lane reads a row's extras in groups of 16 cells, so as for the
-  // masks every group must lie inside the row
+  // masks every group must lie inside the row (a class row cls[t]·N is
+  // as aligned as row t·N)
   a.vec_x = N % 16 == 0 && (!extra0 || aligned16(extra0)) && (!extra1 || aligned16(extra1));
   return a;
 }
@@ -860,6 +872,7 @@ extern "C" int kb_propose_best(
     const uint8_t* pred, const uint8_t* dyn, const float* req, const float* avail,
     const float* eps, const uint8_t* node_mask, const uint8_t* eligible,
     const float* future, const float* cap, const float* extra0, const float* extra1,
+    const int32_t* cls0, const int32_t* cls1,
     const uint32_t* tw, const int32_t* thr, const uint32_t* nwd, int KW, int K2W,
     int T, int N, int R, int has_lr, float w_lr, int has_bal, float w_bal, int d0,
     int d1, float inv_q, float* best, int32_t* ties, uint8_t* active, void* scratch,
@@ -867,7 +880,7 @@ extern "C" int kb_propose_best(
   if (R > MAX_R || KW > 8 || K2W > 8) return -1;
   if (T == 0) return 0;
   Args a = make_args(pred, dyn, req, avail, eps, node_mask, eligible, future, cap,
-                     extra0, extra1, tw, thr, nwd, KW, K2W, T, N, R, has_lr, w_lr,
+                     extra0, extra1, cls0, cls1, tw, thr, nwd, KW, K2W, T, N, R, has_lr, w_lr,
                      has_bal, w_bal, d0, d1, inv_q);
   const Scratch sc = scratch_layout(scratch, T, N);
   compact_eligible<<<1, COMPACT_THREADS, 0, stream>>>(eligible, T, aligned16(eligible), sc);
@@ -887,6 +900,7 @@ extern "C" int kb_propose_pick(
     const uint8_t* pred, const uint8_t* dyn, const float* req, const float* avail,
     const float* eps, const uint8_t* node_mask, const uint8_t* eligible,
     const float* future, const float* cap, const float* extra0, const float* extra1,
+    const int32_t* cls0, const int32_t* cls1,
     const uint32_t* tw, const int32_t* thr, const uint32_t* nwd, int KW, int K2W,
     int T, int N, int R, int has_lr, float w_lr, int has_bal, float w_bal, int d0,
     int d1, float inv_q, const float* best, const uint8_t* active, const int32_t* kth,
@@ -894,7 +908,7 @@ extern "C" int kb_propose_pick(
   if (R > MAX_R || KW > 8 || K2W > 8) return -1;
   if (T == 0) return 0;
   Args a = make_args(pred, dyn, req, avail, eps, node_mask, eligible, future, cap,
-                     extra0, extra1, tw, thr, nwd, KW, K2W, T, N, R, has_lr, w_lr,
+                     extra0, extra1, cls0, cls1, tw, thr, nwd, KW, K2W, T, N, R, has_lr, w_lr,
                      has_bal, w_bal, d0, d1, inv_q);
   const Scratch sc = scratch_layout(scratch, T, N);
   // a warp for each row the list can hold: the host does not read its length

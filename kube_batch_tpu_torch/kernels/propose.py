@@ -25,8 +25,10 @@ the kernel tests itself (K10's cell test, in K2's tiles).
 
 The score is `((0 + w_lr·lr) + w_bal·bal) + extra0 + extra1`, where the
 two node-order terms are computed on the fly and the extras are
-precomputed, already weighted [T, N] terms (node affinity, pod-affinity
-score).  The plain versions below repeat the kernel's arithmetic in the
+precomputed, already weighted terms: a f32[T, N] tensor (node affinity,
+computed once a cycle), or a `ClassTerm`, a table f32[C, N] with each
+task's class cls i32[T], read at row cls[t] (the pod-affinity score,
+kernel K13's table, one row per class of preference rows).  The plain versions below repeat the kernel's arithmetic in the
 same order, one resource dim at a time, so both are bit-identical to
 each other and to the reference on CPU.
 
@@ -60,6 +62,25 @@ BEST_ITEMS_TARGET = 1024
 #: nodes of a tie summary pass 1 leaves for pass 2: a warp's share of a
 #: node tile (csrc/propose.cu · CHUNK_N)
 CHUNK_N = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassTerm:
+    """An additive, already weighted score term held once per class of
+    task rows: row t of the term is `table[cls[t]]` (table f32[C, N], cls
+    i32[T]).  The kernel reads the row in place; the plain version
+    gathers the rows it scores."""
+
+    table: torch.Tensor
+    cls: torch.Tensor
+
+    def rows(self, sl) -> torch.Tensor:
+        """f32[rows, N]: the term's rows `sl`."""
+        return self.table[self.cls[sl].long()]
+
+    def dense(self) -> torch.Tensor:
+        """f32[T, N]: the term as a tensor (tests and yardsticks)."""
+        return self.table[self.cls.long()]
 
 
 def chunk_ties_bytes(chunk: int = CHUNK_N) -> int:
@@ -97,8 +118,8 @@ class ScoreSpec:
 
     `w_lr` / `w_bal` weight the least-requested and balanced-allocation
     terms (None = not registered); `extra_fns` are callables
-    `(snap, state, resident=None) -> f32[T, N] | None` returning an
-    already weighted additive term, or None when the term is exactly
+    `(snap, state, resident=None) -> f32[T, N] | ClassTerm | None`
+    returning an already weighted additive term, or None when the term is exactly
     zero for this snapshot (`resident`: the auction round's
     `kernels/resident.py · RoundResident`, or None).  An empty spec is
     the zero score (backfill)."""
@@ -109,7 +130,7 @@ class ScoreSpec:
     d1: int = 1
     extra_fns: tuple = ()
 
-    def extra_terms(self, snap, state, resident=None) -> list[torch.Tensor]:
+    def extra_terms(self, snap, state, resident=None) -> list:
         out = []
         for fn in self.extra_fns:
             term = fn(snap, state, resident)
@@ -185,7 +206,8 @@ def _chunk_args(rows, pred, dyn, req, eligible, extras):
         dyn = dyn.rows(rows)
     elif dyn is not None:
         dyn = dyn[rows]
-    return pred[rows], dyn, req[rows], eligible[rows], [e[rows] for e in extras]
+    return pred[rows], dyn, req[rows], eligible[rows], [
+        e.rows(rows) if isinstance(e, ClassTerm) else e[rows] for e in extras]
 
 
 def propose_best_plain(pred, dyn, req, avail, eps, node_mask, eligible,
@@ -271,11 +293,19 @@ def _launch_args(pred, dyn, req, avail, eps, node_mask, eligible, future,
         )
     if spec.w_bal is not None and req.shape[1] < 2:
         raise NotImplementedError("balanced score needs two resource dims")
-    x = [e.contiguous() for e in extras] + [None, None]
     t = [a.contiguous() for a in (pred, req, avail, eps, node_mask, eligible,
                                   future, cap)]
     T, R = req.shape
     N = avail.shape[0]
+    x, c = [None, None], [None, None]
+    for i, e in enumerate(extras):
+        if isinstance(e, ClassTerm):
+            x[i], c[i] = e.table.contiguous(), e.cls.contiguous()
+            if (x[i].dim() != 2 or x[i].shape[1] != N or c[i].shape != (T,)
+                    or c[i].dtype != torch.int32):
+                raise ValueError("propose: class term of another shape")
+        else:
+            x[i] = e.contiguous()
     if isinstance(dyn, AffinityWords):
         w = [dyn.task_words.contiguous(), dyn.thr.contiguous(),
              dyn.node_words.contiguous()]
@@ -290,16 +320,16 @@ def _launch_args(pred, dyn, req, avail, eps, node_mask, eligible, future,
         build.ptr(t[0]), build.ptr(mask),
         build.ptr(t[1]), build.ptr(t[2]), build.ptr(t[3]), build.ptr(t[4]),
         build.ptr(t[5]), build.ptr(t[6]), build.ptr(t[7]),
-        build.ptr(x[0]), build.ptr(x[1]),
+        build.ptr(x[0]), build.ptr(x[1]), build.ptr(c[0]), build.ptr(c[1]),
         build.ptr(w[0]), build.ptr(w[1]), build.ptr(w[2]), kw, k2w, T, N, R,
         int(spec.w_lr is not None), float(spec.w_lr or 0.0),
         int(spec.w_bal is not None), float(spec.w_bal or 0.0),
         spec.d0, spec.d1, quantum_scale(score_quantum),
-    ], (t, x, w, mask)
+    ], (t, x, c, w, mask)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_COMMON = [_P] * 14 + [_I] * 6 + [_F, _I, _F, _I, _I, _F]
+_COMMON = [_P] * 16 + [_I] * 6 + [_F, _I, _F, _I, _I, _F]
 _SIGNATURES = {
     "kb_propose_best": _COMMON + [_P, _P, _P, _P, _P],
     "kb_propose_pick": _COMMON + [_P, _P, _P, _P, _P, _P],

@@ -15,9 +15,12 @@ kube_batch_tpu/plugins/nodeorder.py.
 
 The first two read the live `node_future` and are computed inside the
 propose kernel (K2); their formulas live in kernels/propose.py and
-kernels/csrc/propose.cu.  The other two are additive [T, N] terms,
-returned as None when they are exactly zero for the snapshot (no task
-states such a preference), so the kernel skips them.
+kernels/csrc/propose.cu.  The other two are additive terms, returned as
+None when they are exactly zero for the snapshot (no task states such a
+preference), so the kernel skips them: node affinity a [T, N] product
+made once a cycle, the pod-affinity score a table of one row per class
+of preference rows (kernel K13, each round), read by K2 at each task's
+class.
 
 Arguments (≙ nodeorder.go's Arguments):
     nodeorder.leastrequested.weight     (default 1)
@@ -34,10 +37,13 @@ from __future__ import annotations
 import torch
 
 from kube_batch_tpu_torch.framework.plugin import Plugin, register_plugin
+from kube_batch_tpu_torch.framework.policy import CLASS_TERM
+from kube_batch_tpu_torch.kernels import podaff_score as _k13
+from kube_batch_tpu_torch.kernels.propose import ClassTerm
 
 MAX_SCORE = 10.0
 NODE_AFFINITY_AUX = "nodeorder/node_affinity"
-PODPREF_AUX = "nodeorder/podpref_active"
+PODPREF_AUX = "nodeorder/podpref_classes"
 
 
 def node_affinity_term(snap):
@@ -57,32 +63,38 @@ def _podpref_present(snap) -> bool:
     )
 
 
-def pod_affinity_score(snap, state, resident=None):
-    """f32[T, N] preferred co-location score (≙ InterPodAffinityPriority),
-    or None when no task states a soft pod-affinity term.  The resident
-    tables come from kernel K11 (`resident`, the auction round's
-    `RoundResident`, or a build of this state), unpacked to float; the
-    weighted [T, K] @ [K, N] products stay torch.matmul in float32 (TF32
-    is off, kube_batch_tpu_torch.device), as the reference leaves them to
-    XLA."""
-    active = state.aux.get(PODPREF_AUX)
-    if active is None:
-        active = state.aux[PODPREF_AUX] = _podpref_present(snap)
-    if not active:
+def podpref_classes(snap):
+    """The snapshot's classes of preference rows [task_podpref |
+    task_podpref_topo] (`kernels/podaff_score.py · PrefClasses`), or None
+    when no task states a soft pod-affinity term: the plugin's cycle
+    setup, outside any round (it reads the number of classes)."""
+    if not _podpref_present(snap):
         return None
-    from kube_batch_tpu_torch.kernels.affinity import present_table
+    return _k13.pref_classes(snap.task_podpref, snap.task_podpref_topo, snap.num_nodes)
+
+
+def pod_affinity_score(snap, state, weight: float = 1.0, resident=None):
+    """Preferred co-location score (≙ InterPodAffinityPriority) times
+    `weight`, as a `ClassTerm`: kernel K13's table f32[C, N] of this
+    state's resident words, one row per class of preference rows, and
+    each task's class; or None when no task states a soft pod-affinity
+    term.  The classes come from the cycle's setup (`podpref_classes`,
+    built here when the state has none); the words from kernel K11
+    (`resident`, the auction round's `RoundResident`, or a build of this
+    state).  The table is the classes' one buffer, rewritten by the next
+    call."""
+    if PODPREF_AUX in state.aux:
+        classes = state.aux[PODPREF_AUX]
+    else:
+        classes = state.aux[PODPREF_AUX] = podpref_classes(snap)
+    if classes is None:
+        return None
     from kube_batch_tpu_torch.plugins.predicates import round_words
 
-    Hb, _, Hd, _ = round_words(snap, state, False, resident).tables()
-    raw = snap.task_podpref @ Hb.float().T
-    total_w = snap.task_podpref.sum(dim=1)
-    if snap.task_podpref_topo.shape[1]:
-        present = present_table(snap.node_key_domain, snap.topo_term_key,
-                                snap.topo_term_label, Hd)
-        raw = raw + snap.task_podpref_topo @ present.T
-        total_w = total_w + snap.task_podpref_topo.sum(dim=1)
-    denom = torch.clamp(total_w, min=1e-9)
-    return raw / denom[:, None] * MAX_SCORE
+    rw = round_words(snap, state, False, resident)
+    table = _k13.podaff_score(classes, rw.Hb, rw.Hd, snap.node_key_domain,
+                         snap.topo_term_key, snap.topo_term_label, weight)
+    return ClassTerm(table, classes.cls)
 
 
 @register_plugin
@@ -114,7 +126,8 @@ class NodeOrderPlugin(Plugin):
 
             policy.add_node_order_fn(w_aff, node_affinity, state_dependent=False)
         if w_podaff:
-            policy.add_node_order_fn(w_podaff, pod_affinity_score)
+            policy.add_cycle_setup_fn(PODPREF_AUX, podpref_classes)
+            policy.add_node_order_fn(w_podaff, pod_affinity_score, kind=CLASS_TERM)
         quantum = self.args.get_float("nodeorder.quantum", 0.0)
         if quantum > 0.0:
             policy.score_quantum = quantum

@@ -18,7 +18,8 @@ with the segment index each sum was given; the widest recorded
 `virtual_start_times` call of each of the two paths (8,192 and 65,536
 rows); K2 `propose_best`'s inputs on the main path's cycle-2 round that
 chip_smoke times (`_pick_round`) and on the affinity path's last recorded
-round (the affinity words, cycle 2), and K2 `propose_pick`'s on those two
+round (the affinity words, cycle 2; a class score term, kernel K13's
+table, as the [T, N] tensor it stands for), and K2 `propose_pick`'s on those two
 rounds and on the preempt path's round with the most eligible rows; the
 inputs of the preempt path's cycle-2 opening step with the most
 candidate victims (K5's node choice: the victims, their nodes and ranks,
@@ -36,7 +37,10 @@ drives, on the card with that checkout's own kernels (built into its own
   * the main path: config 5 full under the default conf, 2 cycles,
     chip_smoke's second wave of MAIN_WAVE_PODS pods after cycle 1; and
     the affinity path: full-size config 5 with inter-pod affinity terms
-    (`chip_smoke.config5_affinity`), the same way;
+    (`chip_smoke.config5_affinity`), the same way, with (a checkout with
+    step graphs) cycle 2's round replays timed by CUDA events (the card's
+    ms inside them, and per replay) and the peak of
+    `torch.cuda.max_memory_allocated` over its two cycles;
   * K7's segment_sum on both recorded sums and K6's preempt_open on the
     recorded step (median of 7 CUDA-event runs after 2 warm-ups; a
     checkout whose segment_sum takes no index is called without one),
@@ -118,6 +122,9 @@ def portable_k2(args):
                "thr": dyn.thr.cpu(), "K": dyn.K, "K2": dyn.K2}
     elif dyn is not None:
         dyn = dyn.cpu()
+    # a class term (kernel K13's table read at each task's class) goes as
+    # the [T, N] tensor it stands for, which every checkout's K2 takes
+    extras = [e.dense() if hasattr(e, "dense") else e for e in extras]
     return {"tensors": cpu([pred, req, avail, eps, node_mask, elig, future, cap]),
             "dyn": dyn, "spec": [spec.w_lr, spec.w_bal, spec.d0, spec.d1],
             "extras": cpu(extras), "quantum": q}
@@ -283,27 +290,45 @@ def traced_k2(real, window):
     return wrapper
 
 
-def auction_cycles(cache, sim, window):
+def auction_cycles(cache, sim, window, timed=False):
     # two cycles of the default conf with chip_smoke's second wave after
-    # the first, K2's pass 1 hooked to `window`
+    # the first, K2's pass 1 hooked to `window`; `timed` (a checkout with
+    # step graphs): cycle 2's replays timed by CUDA events, and the peak
+    # of max_memory_allocated over both cycles
     real_k2 = k2.propose_best
     if window is not None:
         k2.propose_best = traced_k2(real_k2, window)
     sched = Scheduler(cache, device="cuda")
+    timed = timed and graphs is not None
+    if timed:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     out = []
     for cycle in range(2):
+        if timed and cycle == 1:
+            replays, replay_ms = graphs.totals["replays"], graphs.totals["replay_ms"]
+            graphs.TIME_REPLAYS = True
         ssn = sched.run_once()
+        device = {}
+        if timed and cycle == 1:
+            torch.cuda.synchronize()
+            graphs.TIME_REPLAYS = False
+            n = graphs.totals["replays"] - replays
+            device = {"replays": n, "replay_device_ms": graphs.totals["replay_ms"] - replay_ms}
+            device["device_ms_per_replay"] = device["replay_device_ms"] / max(n, 1)
         st = sched.last_stats
         rounds = sum(st.get("allocate_rounds", [])) + sum(st.get("backfill_rounds", []))
         out.append({"solve_ms": sched.last_timings["solve_ms"], "binds": list(ssn.bound),
                     "evicted": [], "ready": ready(ssn, ssn.job_ready),
                     "loops": [{"loop": "auction", "steps": rounds,
                                "ms_per_step": sched.last_timings["solve_ms"]
-                               / max(rounds, 1)}]})
+                               / max(rounds, 1)}], **device})
         sim.tick()
         if cycle == 0:
             chip_smoke.arrivals(cache, sim, chip_smoke.MAIN_WAVE_PODS)
     k2.propose_best = real_k2
+    if timed:
+        out[-1]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return out, None if window is None else window.result()
 
 
@@ -315,7 +340,7 @@ paths["main"], round_ops["main"] = auction_cycles(
 totals_of("main")
 cache, sim = chip_smoke.config5_affinity()
 paths["affinity"], round_ops["affinity"] = auction_cycles(
-    cache, sim, counter.AuctionWindows(skip=100) if graphs is None else None)
+    cache, sim, counter.AuctionWindows(skip=100) if graphs is None else None, timed=True)
 totals_of("affinity")
 del cache, sim
 paths_s = time.perf_counter() - t0
@@ -488,7 +513,10 @@ def main(trees: list[str]) -> int:
                            "evicted": len(c["evicted"]), "ready_jobs": len(c["ready"]),
                            "loops": [{"loop": lp["loop"], "steps": lp["steps"],
                                       "ms_per_step": round(lp["ms_per_step"], 4)}
-                                     for lp in c["loops"]]}
+                                     for lp in c["loops"]],
+                           **{k: c[k] for k in ("replays", "replay_device_ms",
+                                                "device_ms_per_replay",
+                                                "max_memory_allocated") if k in c}}
                           for c in cycles]
                    for kind, cycles in r["paths"].items()},
             }), flush=True)

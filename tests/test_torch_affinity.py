@@ -429,7 +429,7 @@ def test_pod_affinity_score_matches_reference(world):
         if got is None:
             assert not want.any(), label
             continue
-        np.testing.assert_array_equal(got.numpy(), want, err_msg=label)
+        np.testing.assert_array_equal(got.dense().numpy(), want, err_msg=label)
         nonzero += int((want > 0).sum())
     if world != "affinity":
         assert nonzero > 0

@@ -3,7 +3,9 @@
 * every module of `kube_batch_tpu_torch` imports in a fresh interpreter
   with `jax`, `flax` and `kube_batch_tpu` blocked in `sys.modules` (this
   test process has imported jax already, hence the subprocess);
-* no file of the package, nor chip_smoke.py, names them in an import;
+* no file of the package, nor chip_smoke.py, nor a port script
+  (scripts/*torch*.py) names them in an import, but the port scripts
+  that compare both packages on the CPU by design (BOTH_PACKAGES);
 * the entry points raise without a CUDA device unless the caller passes
   device="cpu".
 """
@@ -22,6 +24,9 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "kube_batch_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "kube_batch_tpu"}
+PORT_SCRIPTS = sorted((ROOT / "scripts").glob("*torch*.py"))
+#: port scripts that run both packages on the CPU by design, as the tests do
+BOTH_PACKAGES = {"check_torch_preempt_config4.py"}
 
 _IMPORT_ALL = """
 import sys
@@ -67,6 +72,21 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 )
 def test_no_file_imports_jax_or_reference(path):
     assert not (_imported_roots(path) & FORBIDDEN)
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in PORT_SCRIPTS if p.name not in BOTH_PACKAGES],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_port_script_imports_jax_or_reference(path):
+    assert not (_imported_roots(path) & FORBIDDEN)
+
+
+def test_both_package_scripts_are_the_declared_ones():
+    """A port script that imports the reference is one of BOTH_PACKAGES,
+    and each of those exists and does compare the two packages."""
+    both = {p.name for p in PORT_SCRIPTS if _imported_roots(p) & FORBIDDEN}
+    assert both == BOTH_PACKAGES
 
 
 def test_scheduler_without_device_needs_cuda(monkeypatch):
