@@ -201,6 +201,21 @@ Run from the root of a checkout on a machine with a CUDA card and
    the preempt path's world and no parity world is wider than 8,192
    rows), else at the line's.
 
+The subset-diag phase runs after the affinity path on the final states
+of the main path's cycle 2, the affinity path's cycle 2 and
+config5_affinity_mid's card run (SUBSET_WORLD, default conf, topology
+terms): the active-set diagnosis (`framework/fit_errors.py ·
+failure_counts_subset`, a 2,048-row window of pending rows) in its words
+form, its mask form and, under a policy with an extra dynamic predicate
+that has no subset form, its fallback, with the launch counters set to 0
+before and read after; each valid window row and `nodes` must equal the
+full tallies of the same state (the cycle's own), every other row 0, the
+two forms equal, the fallback equal to that policy's full tallies, and
+every K1, K11, K10 and K4 call of the phase equal to its plain version;
+the subset call, the full tallies and K1 / K4 at the window are timed
+(`subset-diag` line).  The subset form stays off every cycle path: each
+path launches K1 and K4 once a cycle.
+
 The parity worlds (phase 2) also include config5_affinity_mid (500
 nodes, 5,000 pods, a 1,500-pod wave) under both confs, and
 features_preempt and config5_affinity_mid under examples/scheduler.conf
@@ -218,8 +233,8 @@ The line before the `kernels` line gives the script's seconds, and the
 one before it the order a redesign should take the kernels in, those
 already redesigned marked, with each kernel's excess card time by path.
 Each entry of the `kernels` line carries `launches_by_path` (main,
-host_cycle, affinity, preempt, joint and parity: every parity world's
-card run) and `launches`, their sum.
+host_cycle, affinity, preempt, joint, parity: every parity world's card
+run, and subset_diag) and `launches`, their sum.
 The last two lines are the `kernels` JSON object and
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
@@ -356,6 +371,12 @@ JOINT_EVERY = {"tier_control": 10, "preempt_continue": 1, "failure_counts": 1,
 JOINT_CYCLES = 3
 # the parity world whose preemption steps hand K5 K10's row operand
 ROW_WORLD = "config5_affinity_mid_preempt"
+# the parity world (default conf, topology-scoped terms) whose final state
+# the subset-diag phase reads beside the main and affinity paths'
+SUBSET_WORLD = "config5_affinity_mid"
+# the kernels the active-set diagnosis launches (K10's mask: its mask form)
+SUBSET_KERNELS = ("predicate_mask", "resident_words", "affinity_words", "affinity_mask",
+                  "failure_counts")
 
 
 def fail(msg: str) -> None:
@@ -2896,7 +2917,16 @@ def _run(world: str, device: str, record: bool):
         sim.tick()
         if cycle == 0 and wave:
             arrivals(cache, sim, wave)
+    if rec is not None:
+        rec.final = final_state(ssn, sched)
     return cycles, len(binder.refused), rec
+
+
+def final_state(ssn, sched) -> tuple:
+    """(snapshot, final AllocState, failure tallies, policy) of a run's
+    last cycle: valid while no later pack of its scheduler writes the
+    snapshot's buffers."""
+    return ssn.snap, ssn.state, ssn.diag, sched.policy
 
 
 def _same(a, b) -> bool:
@@ -3120,7 +3150,8 @@ def phase_parity(cpu_runs):
     (`cpu_runs[world]`, an async result of `parity_cpu`); returns the
     launch counts of all their card runs together and the Recorder of
     ROW_WORLD's card run (the run whose preemption steps hand K5 the
-    inter-pod affinity row operand)."""
+    inter-pod affinity row operand), and the final state of SUBSET_WORLD's
+    card run (`final_state`)."""
     from kube_batch_tpu_torch import kernels
 
     from kube_batch_tpu_torch.ops import graphs
@@ -3138,6 +3169,8 @@ def phase_parity(cpu_runs):
             parity_counts[name] = parity_counts.get(name, 0) + n
         if world == ROW_WORLD:
             row_counts, row_rec = world_counts, rec
+        if world == SUBSET_WORLD:
+            subset_final = rec.final
         t1 = time.perf_counter()
         cuda_s = t1 - t0
         # the same world with its loops captured, while the CPU twin runs
@@ -3224,7 +3257,7 @@ def phase_parity(cpu_runs):
     if parity_counts["affinity_mask"]:
         fail(f"the parity worlds launched affinity_mask {parity_counts['affinity_mask']} "
              "times")
-    return parity_counts, row_rec
+    return parity_counts, row_rec, subset_final
 
 
 # ---------------------------------------------------------------------------
@@ -3313,6 +3346,7 @@ def phase_main_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
                 log(json.dumps({"phase": "main-path-arrivals", "pods": n,
                                 "submit_ms": round((time.perf_counter() - t0) * 1e3, 3)}))
     rec.seconds = time.perf_counter() - t_start
+    rec.final = final_state(ssn, sched)
     counts = kernels.counts()
     log(json.dumps({"phase": "main-path-launches", **counts}))
     for name, n in counts.items():
@@ -4631,7 +4665,8 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
     through `Scheduler.run_once` with a second wave after cycle 1; K10 and
     K11 launch counters are set to 0 before and read after, and K11 may
     launch at most once an auction round plus once a cycle.  Returns
-    (the counts, the Recorder of the K10 / K11 calls)."""
+    (the counts, the Recorder of the K10 / K11 calls; its `final` is the
+    last cycle's `final_state`)."""
     from kube_batch_tpu_torch import kernels
     from kube_batch_tpu_torch.scheduler import Scheduler
 
@@ -4685,6 +4720,7 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
                 log(json.dumps({"phase": "affinity-path-arrivals",
                                 "pods": arrivals(cache, sim, wave)}))
     rec.seconds = time.perf_counter() - t_start
+    rec.final = final_state(ssn, sched)
     counts = kernels.counts()
     log(json.dumps({"phase": "affinity-path-launches", **counts}))
     for name in AFFINITY_KERNELS:
@@ -4712,6 +4748,224 @@ def phase_affinity_path(device, wave: int = MAIN_WAVE_PODS, **world_kw):
                     "gang": True, "predicate": True, "one_ps_per_node": True,
                     "mpi_team_mate_in_rack": True}))
     return counts, rec
+
+
+# ---------------------------------------------------------------------------
+# the active-set diagnosis on final states of the paths
+# ---------------------------------------------------------------------------
+
+def _veto_node0(snap, state, immediate=False, resident=None):
+    """A dynamic predicate with no subset form: node 0 vetoed for every
+    task (the subset-diag phase's fallback check)."""
+    import torch
+
+    m = torch.ones((snap.num_tasks, snap.num_nodes), dtype=torch.bool, device=snap.device)
+    m[:, 0] = False
+    return m
+
+
+def device_time(fn, calls: int = 5) -> dict:
+    """Device ms and device operations a call of `fn` (torch.profiler's
+    device time over `calls` calls, after one warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return {"device_ms": round(sum(e.device_time_total for e in events) / calls / 1e3, 4),
+            "device_operations": round(sum(e.count for e in events) / calls, 2)}
+
+
+def subset_bound(snap, k4_args) -> float:
+    """The subset tallies' least time in ms: K4's on the window
+    (`failure_counts_bound` on its [P, N] arguments) plus the gathered
+    bytes at the device-memory rate: the pending scan (task_state and
+    task_mask read once), every task-axis field's P rows and the state's
+    task_state and task_node rows read once and written once, and the
+    [T] tallies written once."""
+    from kube_batch_tpu_torch.cache.packer import snapshot_dim_axes
+
+    P, T, R = k4_args[0].shape[0], snap.num_tasks, snap.num_resources
+    row_bytes = 8 + sum(getattr(snap, f)[0].numel() * getattr(snap, f).element_size()
+                        for f, axes in snapshot_dim_axes().items() if "T" in axes.values())
+    nbytes = 5 * T + 2 * P * row_bytes + T * (2 + R) * 4
+    return failure_counts_bound(k4_args)[0] + nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _tallies_equal(name: str, got: dict, want: dict, rows=None) -> None:
+    """Every tally of `got` equal to `want`'s (on `rows` of the per-task
+    ones where given)."""
+    import torch
+
+    for k, v in got.items():
+        w = want[k]
+        if rows is not None and v.dim():
+            v, w = v[rows], w[rows]
+        if not torch.equal(v, w):
+            fail(f"subset-diag: {name}: {k} differs")
+
+
+def phase_subset_diag(finals: dict) -> dict:
+    """The active-set diagnosis (`framework/fit_errors.py ·
+    failure_counts_subset`, the default window of 2,048 rows) on the final
+    states `finals` (label → `final_state`): each path's cycle 2 and a
+    parity world's.  Driven under a Recorder with every counter set to 0
+    before and read after: the words form (K1 on the gathered rows, K11
+    on the full state, K10's words on the rows, K4), the mask form (K10's
+    mask on the rows) and a policy whose extra dynamic predicate has no
+    subset form.  Then, on the card: (a) each valid window row and
+    `nodes` equal the full tallies of the same state (which equal the
+    cycle's own), every other row 0; (b) every recorded K1, K11, K10 and
+    K4 call equal to its plain version; (c) the mask form equal to the
+    words form; (d) the policy without a subset form gives its full
+    tallies on every row.  Times the subset call, the full tallies with
+    their predicate mask and the cycle's part of them (the mask given),
+    by CUDA events and device time, and K1, K4, K10's words and K11 at
+    the window beside their plain versions; logs one
+    `subset-diag` line.  Returns the phase's launch counts."""
+    import copy
+
+    import torch
+
+    from kube_batch_tpu_torch import kernels
+    from kube_batch_tpu_torch.api.types import TaskStatus
+    from kube_batch_tpu_torch.framework import fit_errors as fe
+    from kube_batch_tpu_torch.framework.conf import default_conf
+    from kube_batch_tpu_torch.framework.session import build_policy
+    from kube_batch_tpu_torch.kernels import affinity as k10
+    from kube_batch_tpu_torch.kernels import failure_counts as k4
+    from kube_batch_tpu_torch.kernels import predicate_mask as k1
+    from kube_batch_tpu_torch.kernels import resident as k11
+    from kube_batch_tpu_torch.kernels.affinity import AffinityWords
+
+    t0 = time.perf_counter()
+    veto, _ = build_policy(default_conf())
+    veto.add_dynamic_predicate_fn(_veto_node0, row_fn=lambda snap, state, p: None)
+    masked = {}
+    for label, (_snap, _state, _diag, policy) in finals.items():
+        # the same policy without the words form of its subset predicates:
+        # K4 then takes K10's mask of the window
+        masked[label] = copy.copy(policy)
+        masked[label].dynamic_predicate_subset_words = [None] * len(
+            policy.dynamic_predicate_subsets)
+    rec = Recorder({**{name: 10**9 for name in _MUTATED},
+                    **{name: 1 for name in SUBSET_KERNELS}})
+    out, first = {}, {}
+    kernels.reset_counts()
+    with rec:
+        for label, (snap, state, _diag, policy) in finals.items():
+            # each world's calls start here, its words-form call's first
+            first[label] = {name: len(rec.calls[name]) for name in SUBSET_KERNELS}
+            out[label] = {
+                "words": fe.failure_counts_subset(snap, state, policy),
+                "mask": fe.failure_counts_subset(snap, state, masked[label]),
+                "fallback": fe.failure_counts_subset(snap, state, veto)}
+    counts = kernels.counts()
+    for name in SUBSET_KERNELS:
+        if counts[name] <= 0:
+            fail(f"subset-diag: {name} was not launched")
+    checks = check_all(rec, SUBSET_KERNELS)                              # (b)
+    window = fe.diag_window_rows(fe.MAX_DIAG_EVENTS)
+    worlds, window_args = {}, {}
+    for label, (snap, state, diag, policy) in finals.items():
+        T = snap.num_tasks
+        got = out[label]
+        full = fe.failure_counts(snap, state, policy.predicate_mask(snap),
+                                 policy.auction_dyn_predicate(snap, state, immediate=True))
+        _tallies_equal(f"{label}: the full tallies against the cycle's", full, diag)
+        pending = torch.nonzero((state.task_state == int(TaskStatus.PENDING))
+                                & snap.task_mask).squeeze(1)
+        covered = pending[:min(window, T)]
+        others = torch.ones(T, dtype=torch.bool, device=snap.device)
+        others[covered] = False
+        _tallies_equal(f"{label}: the window rows", got["words"], full, covered)  # (a)
+        for k in ("predicate_failed", "insufficient", "feasible"):
+            if got["words"][k][others].any():
+                fail(f"subset-diag: {label}: {k} is not 0 outside the window")
+        _tallies_equal(f"{label}: the mask form", got["mask"], got["words"])    # (c)
+        vfull = fe.failure_counts(snap, state, veto.predicate_mask(snap),
+                                  veto.auction_dyn_predicate(snap, state, immediate=True))
+        _tallies_equal(f"{label}: the fallback", got["fallback"], vfull)         # (d)
+        if not (vfull["predicate_failed"] > full["predicate_failed"]).any():
+            fail(f"subset-diag: {label}: the fallback's veto counted nowhere")
+        # the words-form call's K1 and K4 inputs, at the window
+        k1_args = rec.calls["predicate_mask"][first[label]["predicate_mask"]][2]
+        k4_args = rec.calls["failure_counts"][first[label]["failure_counts"]][2]
+        if k4_args[0].shape[0] != min(window, T):
+            fail(f"subset-diag: {label}: K4 tallied {k4_args[0].shape[0]} rows")
+        pred = policy.predicate_mask(snap)
+
+        def subset():
+            return fe.failure_counts_subset(snap, state, policy)
+
+        def full_tallies():
+            return fe.failure_counts(snap, state, policy.predicate_mask(snap),
+                                     policy.auction_dyn_predicate(snap, state, immediate=True))
+
+        def cycle_tallies():
+            return fe.failure_counts(snap, state, pred,
+                                     policy.auction_dyn_predicate(snap, state, immediate=True))
+
+        full_bound = failure_counts_bound((
+            pred, policy.auction_dyn_predicate(snap, state, immediate=True), snap.task_req,
+            state.node_idle, snap.eps, snap.node_mask & snap.node_ready))[0]
+        line = {"tasks": T, "nodes": snap.num_nodes, "pending": int(pending.numel()),
+                "window_rows": int(covered.numel()), "window": min(window, T),
+                "dyn_form": type(k4_args[1]).__name__,
+                "rows_predicate_failed": int((got["words"]["predicate_failed"] > 0).sum()),
+                "subset_ms": round(time_ms(subset), 4), "subset": device_time(subset),
+                "full_ms": round(time_ms(full_tallies), 4), "full": device_time(full_tallies),
+                "cycle_tallies_ms": round(time_ms(cycle_tallies), 4),
+                "cycle_tallies": device_time(cycle_tallies),
+                "k4_window_ms": round(time_ms(lambda: k4.failure_counts(*k4_args)), 4),
+                "k4_window": device_time(lambda: k4.failure_counts(*k4_args)),
+                "k4_window_plain_ms": round(time_ms(
+                    lambda: k4.failure_counts_plain(*k4_args)), 4),
+                "k1_window_ms": round(time_ms(lambda: k1.predicate_mask(*k1_args)), 4),
+                "k1_window": device_time(lambda: k1.predicate_mask(*k1_args)),
+                "k1_window_plain_ms": round(time_ms(
+                    lambda: k1.predicate_mask_plain(*k1_args)), 4),
+                "subset_bound_ms": round(subset_bound(snap, k4_args), 6),
+                "full_bound_ms": round(full_bound, 6)}
+        if isinstance(k4_args[1], AffinityWords):
+            # the subset predicate's words form: K11 on the full state, K10's
+            # words for the window's rows
+            wargs = rec.calls["affinity_words"][first[label]["affinity_words"]][2]
+            rargs = rec.calls["resident_words"][first[label]["resident_words"]][2]
+            line.update({
+                "k10_words_window_ms": round(time_ms(lambda: k10.affinity_words(*wargs)), 4),
+                "k10_words_window": device_time(lambda: k10.affinity_words(*wargs)),
+                "k10_words_window_plain_ms": round(time_ms(
+                    lambda: k10.affinity_words_plain(*wargs)), 4),
+                "k10_words_window_bound_ms": round(affinity_words_bound(wargs)[0], 6),
+                "k11_ms": round(time_ms(lambda: k11.resident_words(*rargs)), 4),
+                "k11_plain_ms": round(time_ms(lambda: k11.resident_words_plain(*rargs)), 4),
+                "k11_bound_ms": round(bound(_resident_words_bytes(rargs), 0)[0], 6)})
+        line["subset_beats_full"] = line["subset_ms"] < line["full_ms"]
+        worlds[label] = line
+        window_args[label] = (k1_args, k4_args)
+    # redesign_order charges the phase's launches at the affinity state's window
+    k1_args, k4_args = window_args["affinity"]
+    path_time("failure_counts", ("subset_diag",), worlds["affinity"]["k4_window_ms"],
+              failure_counts_bound(k4_args)[0])
+    path_time("predicate_mask", ("subset_diag",), worlds["affinity"]["k1_window_ms"],
+              predicate_bound(k1_args[0])[0][0])
+    aff = worlds["affinity"]
+    path_time("affinity_words", ("subset_diag",), aff["k10_words_window_ms"],
+              aff["k10_words_window_bound_ms"])
+    path_time("resident_words", ("subset_diag",), aff["k11_ms"], aff["k11_bound_ms"])
+    log(json.dumps({"phase": "subset-diag", "card": CARD.get("line"), "worlds": worlds,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "equal_to_plain": True, "checks": checks,
+                    "window_equal_full": True, "mask_equal_words": True,
+                    "fallback_equal_full": True,
+                    "seconds": round(time.perf_counter() - t0, 3)}))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -5297,16 +5551,10 @@ def phase_affinity_kernels(arec: Recorder, row_rec: Recorder, jrec: Recorder):
                  if (c, r) == (b_cycle, b_round))
     pargs = arec.calls["propose_pick"][-1][2]
     words = bargs[1]
-    tw, term_key, term_label, nkd, resident = wargs
+    resident = wargs[4]
     nw = words.node_words.shape[1]
-    # the kept task words, K11's tables and the term arrays in; node
-    # words and thresholds out
-    words_bytes = (_resident_read_bytes(resident, now=resident.with_now)
-                   + nkd.numel() * 4 + (term_key.numel() + term_label.numel()) * 4
-                   + T * nw * 4 + N * nw * 4 + T * 8)
     record("affinity_words", time_ms(lambda: k10.affinity_words(*wargs)),
-           time_ms(lambda: k10.affinity_words_plain(*wargs)),
-           bound(words_bytes, N * nw * 32 + T * (KW + K2W) * 32),
+           time_ms(lambda: k10.affinity_words_plain(*wargs)), affinity_words_bound(wargs),
            tasks=T, nodes=N, words=nw, with_now=resident.with_now)
     mask = k10.affinity_mask(*mask_fields, resident)
     margs = (bargs[0], mask) + tuple(bargs[2:])
@@ -5465,6 +5713,22 @@ def _resident_read_bytes(resident, now: bool) -> int:
                 if getattr(resident, n) is not None}
     return (sum(x.numel() * 4 for x in distinct.values())
             + resident.term_exists.numel() * 4)
+
+
+def affinity_words_bound(wargs):
+    """K10 affinity_words' least time on `wargs`: the kept task words,
+    K11's tables and the term arrays read once, the node words and the
+    thresholds written once; a bit operation a node-word bit and a
+    task-word bit of the aff groups."""
+    from kube_batch_tpu_torch.kernels.resident import words
+
+    tw, term_key, term_label, nkd, resident = wargs
+    (T, nw), N = tw.shape, resident.Hb.shape[0]
+    KW, K2W = words(resident.K), words(resident.K2)
+    nbytes = (_resident_read_bytes(resident, now=resident.with_now)
+              + nkd.numel() * 4 + (term_key.numel() + term_label.numel()) * 4
+              + T * nw * 4 + N * nw * 4 + T * 8)
+    return bound(nbytes, N * nw * 32 + T * (KW + K2W) * 32)
 
 
 def _resident_words_bytes(args) -> int:
@@ -5631,7 +5895,7 @@ def main() -> int:
             edge_errs[name] = max(edge_errs.get(name, 0.0), err)
         for name, err in phase_k2_edge(device).items():
             edge_errs[name] = max(edge_errs[name], err)
-        parity_counts, row_rec = phase_parity(cpu_parity)
+        parity_counts, row_rec, subset_final = phase_parity(cpu_parity)
         # the full-size paths once the parity workers are done: their
         # host times are not shared with the CPU twins
         ppool.close()
@@ -5656,6 +5920,9 @@ def main() -> int:
                         "peak_above_start": peak - at_start,
                         "note": "the captured run's 2 cycles; at start: the recorded "
                                 "run's kept inputs"}))
+        subset_counts = phase_subset_diag({"main": rec.final, "affinity": arec.final,
+                                           f"parity:{SUBSET_WORLD}": subset_final})
+        del subset_final
         preempt_counts, prec, pcycles = phase_preempt_path(cpu_preempt)
         phase_captured("preempt", lambda: evict_cycles(device, False, timed=1), pcycles,
                        sum(c["wall_ms"] for c in pcycles) / 1e3, cpu=prec.cpu_cycles)
@@ -5677,7 +5944,15 @@ def main() -> int:
     for name, err in list(edge_errs.items()) + list(k2_errs.items()):
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     paths = {"main": counts, "host_cycle": host_counts, "affinity": affinity_counts,
-             "preempt": preempt_counts, "joint": joint_counts, "parity": parity_counts}
+             "preempt": preempt_counts, "joint": joint_counts, "parity": parity_counts,
+             "subset_diag": subset_counts}
+    # the subset form stays off every cycle path, as in the reference: one
+    # predicate mask and one set of tallies a cycle
+    for path, n in (("main", 2), ("host_cycle", HOST_CYCLES), ("affinity", 2),
+                    ("preempt", 3), ("joint", JOINT_CYCLES)):
+        for name in ("predicate_mask", "failure_counts"):
+            if paths[path][name] != n:
+                fail(f"{path}: {paths[path][name]} {name} launches in {n} cycles")
     kernels_line = []
     for name, (route, source, replaces) in KERNELS.items():
         r = records[name]

@@ -28,12 +28,15 @@ Two implementations share this contract bit for bit:
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 
 import numpy as np
 import torch
 
 from kube_batch_tpu_torch.api.resource import ResourceSpec
 from kube_batch_tpu_torch.api.snapshot import (
+    FIELDS,
     NONE_IDX,
     SnapshotTensors,
     bucket,
@@ -1428,3 +1431,62 @@ def pack_snapshot_loop(
         podlabel_vocab=podlabel_vocab,
     )
     return arrays, meta
+
+
+# -- the active-set projection ------------------------------------------
+
+@functools.cache
+def snapshot_dim_axes() -> dict[str, dict[int, str]]:
+    """field → {axis: "T" | "J" | "N"} for the primary dims, derived
+    mechanically (≙ kube_batch_tpu cache/packer.py · snapshot_dim_axes):
+    one tiny world packed twice, the second time with a forced bucket per
+    dim, and the axes that moved read off.  Built once per process; the
+    probe world takes uids from a counter of its own, so building it
+    shifts no later world's uids or creation order."""
+    from kube_batch_tpu_torch.cache import cluster
+    from kube_batch_tpu_torch.models.workloads import config1_gang_small
+
+    saved = cluster._uid_counter
+    cluster._uid_counter = itertools.count()
+    try:
+        cache, _sim = config1_gang_small()
+    finally:
+        cluster._uid_counter = saved
+    host = cache.snapshot()
+    probes = {"T": 1024, "J": 256, "N": 512}  # unique, above any tiny bucket
+    a, _ = pack_snapshot_loop(host)
+    b, _ = pack_snapshot_loop(host, min_buckets=probes)
+    rev = {bucket(v): k for k, v in probes.items()}
+    axes: dict[str, dict[int, str]] = {}
+    for name in FIELDS:
+        for i, (da, db) in enumerate(zip(a[name].shape, b[name].shape)):
+            if da != db:
+                axes.setdefault(name, {})[i] = rev[db]
+    return axes
+
+
+def gather_tasks(snap: SnapshotTensors, idx: torch.Tensor,
+                 valid: torch.Tensor) -> SnapshotTensors:
+    """The snapshot of the task rows `idx` (int64[P] on the snapshot's
+    device): every task-axis field gathered (`index_select`), `task_mask`
+    ANDed with `valid` (bool[P]: the fill rows of a padded index are no
+    task), the job- and node-axis fields shared with `snap` (≙
+    kube_batch_tpu cache/packer.py · gather_tasks).  A fresh snapshot:
+    nothing kept beside `snap` comes with it (its segment indexes are
+    built over T rows), except the rows `idx` of its kept affinity task
+    words, which are computed row by row.  Valid, like `snap`, until the
+    next pack."""
+    axes = snapshot_dim_axes()
+    fields = {}
+    for name in FIELDS:
+        x = getattr(snap, name)
+        for i, dim in axes.get(name, {}).items():
+            if dim == "T":
+                x = x.index_select(i, idx)
+        fields[name] = x
+    fields["task_mask"] = fields["task_mask"] & valid
+    sub = SnapshotTensors(**fields)
+    words = snap.affinity_task_words()
+    if words is not None:
+        sub.keep_affinity_task_words(words.index_select(0, idx))
+    return sub

@@ -81,6 +81,13 @@ class TensorPolicy:
         # Their words forms (snap, state, immediate, resident) ->
         # AffinityWords | None, or None where a predicate has none.
         self.dynamic_predicate_words: list[Callable | None] = []
+        # Their subset forms (snap, state, sub, sub_state, immediate) ->
+        # bool[P, N] | None, and the subset forms' words forms ->
+        # AffinityWords | None: the predicate for the gathered task rows
+        # `sub` (cache/packer.py · gather_tasks) against the residents of
+        # the full (snap, state); None where a predicate has none.
+        self.dynamic_predicate_subsets: list[Callable | None] = []
+        self.dynamic_predicate_subset_words: list[Callable | None] = []
         # (snap, state, resident) -> bool[T] | None
         self.global_serialize: list[Callable] = []
         self.domain_serialize: list[Callable] = []
@@ -123,10 +130,20 @@ class TensorPolicy:
     def add_predicate_fn(self, fn) -> None:
         self.predicates.append(fn)
 
-    def add_dynamic_predicate_fn(self, fn, row_fn, words_fn=None) -> None:
+    def add_dynamic_predicate_fn(self, fn, row_fn, words_fn=None, subset_fn=None,
+                                 subset_words_fn=None) -> None:
+        """`subset_fn` (optional) evaluates the predicate for a gathered
+        task subset while reading the residents from the full snapshot and
+        state (≙ kube_batch_tpu framework/policy.py ·
+        add_dynamic_predicate_fn); `subset_words_fn` is its words form and
+        needs it."""
+        if subset_words_fn is not None and subset_fn is None:
+            raise ValueError("a subset words form needs the subset form")
         self.dynamic_predicates.append(fn)
         self.dynamic_predicate_rows.append(row_fn)
         self.dynamic_predicate_words.append(words_fn)
+        self.dynamic_predicate_subsets.append(subset_fn)
+        self.dynamic_predicate_subset_words.append(subset_words_fn)
 
     def add_global_serialize_fn(self, fn) -> None:
         self.global_serialize.append(fn)
@@ -228,6 +245,42 @@ class TensorPolicy:
         words = self.dyn_predicate_words(snap, state, immediate, resident)
         return words if words is not None else self.dynamic_predicate_fn(
             snap, state, immediate, resident)
+
+    @property
+    def has_subset_dynamic_predicates(self) -> bool:
+        """True when every registered dynamic predicate (if any) has a
+        subset form, so the gathered rows can be evaluated alone."""
+        return all(fn is not None for fn in self.dynamic_predicate_subsets)
+
+    def dynamic_predicate_subset_fn(self, snap, state, sub, sub_state,
+                                    immediate: bool = False):
+        """bool[P, N] AND of the dynamic predicates for the gathered task
+        rows `sub` (state `sub_state`) against the residents of the full
+        (snap, state) (≙ kube_batch_tpu framework/policy.py ·
+        dynamic_predicate_subset_fn); None when none constrains these rows,
+        and when some registered predicate has no subset form (the caller
+        then falls back to the full [T, N] evaluation)."""
+        if not self.has_subset_dynamic_predicates:
+            return None
+        m = None
+        for fn in self.dynamic_predicate_subsets:
+            part = fn(snap, state, sub, sub_state, immediate)
+            if part is not None:
+                m = part if m is None else m & part
+        return m
+
+    def subset_dyn_predicate(self, snap, state, sub, sub_state,
+                             immediate: bool = False):
+        """What the subset tallies hand kernel K4, as `auction_dyn_predicate`
+        is to `dynamic_predicate_fn`: K10's words for the P rows when the
+        only dynamic predicate registered is inter-pod affinity, else the
+        mask of `dynamic_predicate_subset_fn`, or None."""
+        words_fns = self.dynamic_predicate_subset_words
+        if len(words_fns) == 1 and words_fns[0] is not None:
+            words = words_fns[0](snap, state, sub, sub_state, immediate)
+            if words is not None:
+                return words
+        return self.dynamic_predicate_subset_fn(snap, state, sub, sub_state, immediate)
 
     @property
     def dyn_predicate_row(self):

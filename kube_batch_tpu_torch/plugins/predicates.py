@@ -16,10 +16,12 @@ builds the resident label tables per node and per topology domain as
 words, both resident sets in one launch, from kernel K10's task words
 (built once per snapshot and kept, `task_words`); kernel K10
 (kernels/affinity.py) the predicate against them: as words for the
-auction rounds (kernel K2 tests the cells itself; `pod_affinity_words`),
-as the bool[T, N] mask for the cycle's failure tallies, or as the one
-task's row for a preemption step (an operand kernel K5 tests inside
-its own launch, `pod_affinity_row`).  An auction round hands
+auction rounds and the cycle's failure tallies (kernels K2 and K4 test
+the cells themselves; `pod_affinity_words`), as the bool[T, N] mask, or
+as the one task's row for a preemption step (an operand kernel K5 tests
+inside its own launch, `pod_affinity_row`); and, for the active-set
+diagnosis, for gathered pending rows against the full state's tables
+(`pod_affinity_subset` and its words form).  An auction round hands
 `pod_affinity_words`, `bootstrap_mask` and nodeorder's pod-affinity
 score one `RoundResident` (their `resident` argument): the first to
 read the tables builds them (`round_words`), the others take that
@@ -83,7 +85,8 @@ class PredicatesPlugin(Plugin):
             policy.add_cycle_setup_fn(AFFINITY_AUX, _affinity_terms_present)
             policy.add_dynamic_predicate_fn(
                 pod_affinity_predicate, row_fn=pod_affinity_row,
-                words_fn=pod_affinity_words,
+                words_fn=pod_affinity_words, subset_fn=pod_affinity_subset,
+                subset_words_fn=pod_affinity_subset_words,
             )
             policy.add_node_serialize_fn(anti_serialize_mask)
             policy.add_global_serialize_fn(bootstrap_mask)
@@ -185,6 +188,37 @@ def pod_affinity_words(snap, state, immediate: bool = False, resident=None):
     return _k10.affinity_words(task_words(snap), snap.topo_term_key, snap.topo_term_label,
                                snap.node_key_domain,
                                round_words(snap, state, immediate, resident))
+
+
+def pod_affinity_subset(snap, state, sub, sub_state, immediate: bool = False):
+    """pod_affinity_predicate for the gathered task rows `sub`
+    (cache/packer.py · gather_tasks) as bool[P, N], the residents read
+    from the full (snap, state) (≙ kube_batch_tpu plugins/predicates.py ·
+    pod_affinity_subset): exact, since residents are placed tasks and the
+    gathered rows are pending ones; `sub_state` is not read.  Whether any
+    term is active is asked of the full snapshot: the pending rows alone
+    miss the residents' anti terms (and `sub_state` shares the full
+    state's `aux`, where the answer is kept).  Kernel K11's tables of the
+    full state, kernel K10's mask for the P rows.  None when no task
+    carries a term."""
+    del sub_state
+    if not affinity_active(snap, state):
+        return None
+    return _k10.affinity_mask(*_fields(sub), round_words(snap, state, immediate, None))
+
+
+def pod_affinity_subset_words(snap, state, sub, sub_state, immediate: bool = False):
+    """pod_affinity_subset as `kernels/affinity.py · AffinityWords` for
+    kernel K4: the full state's K11 tables (the thresholds' term_exists
+    included, over topo_term_label for the topology terms) and the P rows'
+    task words (the full snapshot's kept rows, gathered with `sub`).  None
+    when no task carries a term."""
+    del sub_state
+    if not affinity_active(snap, state):
+        return None
+    rw = round_words(snap, state, immediate, None)
+    return _k10.affinity_words(task_words(sub), sub.topo_term_key, sub.topo_term_label,
+                               sub.node_key_domain, rw)
 
 
 def pod_affinity_row(snap, state, p):
