@@ -78,7 +78,9 @@ Run from the root of a checkout on a machine with a CUDA card and
    mask of the same tables), exactly equal to the plain versions;
    K13's class table (`phase_k13_edge`: C = 17 at the affinity path's
    shapes, C = T = 65,536 × 8,192, K2 = 0, node terms only, K = 40 and
-   K2 = 72, the zero class; exactly equal to the plain version); K10's
+   K2 = 72, the zero class, Hd past the shared-memory route (D = 65,536
+   at K = 40, D = 8,192 at K = 32) and 96 topology keys, each on the
+   launch route it must take; exactly equal to the plain version); K10's
    affinity_task_words and affinity_words, K11's resident_words (both
    resident sets and the future set alone) and K2's words form on
    seeded affinity terms (each = plain, K2 given the words = K2 given
@@ -1814,7 +1816,19 @@ def phase_fill_edge(device) -> float:
 # K13 · the pod-affinity score's class table
 # ---------------------------------------------------------------------------
 
-K13_CASES = ("affinity_shape", "c_eq_t", "k2_zero", "node_only", "wide")
+K13_CASES = ("affinity_shape", "c_eq_t", "k2_zero", "node_only", "wide", "global_route",
+             "global_one_word", "many_keys")
+# (K, K2, D, TK) of the cases off the affinity path's (32, 32, 256, 2)
+K13_DIMS = {"k2_zero": (32, 0, 256, 2), "wide": (40, 72, 256, 2),
+            "global_route": (40, 32, 65536, 2), "global_one_word": (32, 32, 8192, 2),
+            "many_keys": (32, 32, 256, 96)}
+# the launch each case must take (`kernels/podaff_score.py · plan`): a
+# node's words in registers (one word a vocabulary), Hd in shared memory
+# (D · words(K) words within 16 KB) or read from global memory, and past
+# 48 KB of shared memory (many topology keys' domains)
+K13_ROUTES = {"affinity_shape": (1, 1), "c_eq_t": (1, 1), "k2_zero": (1, 0),
+              "node_only": (1, 1), "wide": (0, 1), "global_route": (0, 0),
+              "global_one_word": (1, 0), "many_keys": (1, 0)}
 
 
 def k13_edge_inputs(device, case: str, seed: int = 0, T: int = 65536, N: int = 8192,
@@ -1826,7 +1840,10 @@ def k13_edge_inputs(device, case: str, seed: int = 0, T: int = 65536, N: int = 8
     32); `c_eq_t` every one of the T rows its own class (distinct dyadic
     weights); `k2_zero` no topology-scoped term; `node_only` topology
     terms present but every topology weight 0; `wide` K = 40 and K2 = 72
-    (two and three words).  Every case but `c_eq_t` holds the zero class."""
+    (two and three words); `global_route` D = 65,536 domains at K = 40
+    (Hd 512 KB) and `global_one_word` D = 8,192 at K = 32 (32 KB), both
+    past the shared-memory route; `many_keys` TK = 96 topology keys.
+    Every case but `c_eq_t` holds the zero class."""
     import numpy as np
     import torch
 
@@ -1834,7 +1851,7 @@ def k13_edge_inputs(device, case: str, seed: int = 0, T: int = 65536, N: int = 8
     from kube_batch_tpu_torch.kernels import resident as k11
 
     rng = np.random.default_rng(seed)
-    K, K2 = (40, 72) if case == "wide" else (32, 0 if case == "k2_zero" else 32)
+    K, K2, D, TK = K13_DIMS.get(case, (32, 32, D, TK))
 
     def dyadic(shape, density=0.3):
         w = rng.integers(1, 8, shape).astype(np.float32) * np.float32(0.25)
@@ -1926,14 +1943,16 @@ def podaff_library(args, per_task: bool):
 
 
 def phase_k13_edge(device) -> float:
-    """K13 on `k13_edge_inputs`' cases, exactly equal to the plain version;
-    the C = T case's table also gathered by each task's class (its rows
-    are the task rows); the affinity shape timed."""
+    """K13 on `k13_edge_inputs`' cases, exactly equal to the plain version,
+    each on its launch route (`K13_ROUTES`; the affinity shape on at
+    least as many blocks as the card has SMs); the affinity shape and
+    C = T timed."""
     import torch
 
     from kube_batch_tpu_torch.kernels import podaff_score as k13
 
     t0, err = time.perf_counter(), 0.0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for case in K13_CASES:
         args = k13_edge_inputs(device, case)
         classes = args[0]
@@ -1942,12 +1961,22 @@ def phase_k13_edge(device) -> float:
             fail(f"podaff_score edge {case}: {C} classes for {T} distinct rows")
         if case != "c_eq_t" and bool((classes.rows != 0).any(1).all()):
             fail(f"podaff_score edge {case}: no zero class")
+        plan = k13.plan(*args[:4])
+        want_route = K13_ROUTES[case]
+        if (plan["words_in_registers"], plan["hd_in_shared"]) != want_route:
+            fail(f"podaff_score edge {case}: launch {plan}, not the route {want_route}")
+        if case == "many_keys" and plan["smem_bytes"] <= 48 * 1024:
+            fail(f"podaff_score edge {case}: {plan['smem_bytes']} bytes of shared memory")
+        if case == "affinity_shape" and plan["grid_x"] * plan["grid_y"] < sms:
+            fail(f"podaff_score edge {case}: {plan} fills fewer blocks than {sms} SMs")
         got, want = podaff_pair(args)
         err = max(err, require_equal(f"podaff_score edge {case}", [(got, want)]))
         line = {"phase": "k13-edge", "case": case, "tasks": T, "classes": C,
                 "nodes": got.shape[1], "K": classes.rows.shape[1],
-                "K2": classes.rows_topo.shape[1], "nonzero_cells": int((got != 0).sum()),
-                "max_abs_err": err}
+                "K2": classes.rows_topo.shape[1],
+                "domains": args[2].shape[0] if args[2] is not None else 0,
+                "topology_keys": args[3].shape[1], "plan": plan,
+                "nonzero_cells": int((got != 0).sum()), "max_abs_err": err}
         if case in ("affinity_shape", "c_eq_t"):
             line["ms"] = round(time_ms(lambda: k13.podaff_score(*args)), 4)
             line["bound_ms"] = round(podaff_bound(args)[0], 6)
@@ -5807,7 +5836,7 @@ REDESIGNED = {"segment_sum": "PR 5", "segment_count": "PR 5", "preempt_open": "P
               "resolve": "PR 10", "predicate_mask": "PR 10",
               "affinity_row": "PR 11", "apply": "PR 11",
               "preempt_continue": "PR 12", "failure_counts": "PR 12",
-              "row_patch": "PR 13", "waterfill": "PR 13"}
+              "row_patch": "PR 13", "waterfill": "PR 13", "podaff_score": "PR 17"}
 
 
 def excess_by_path(k, path_times) -> dict:

@@ -21,6 +21,17 @@ and power limit, the build, one JSON line per edge case, then:
   version's ms; the same function in library calls over the class rows
   and over every task's row (`chip_smoke.podaff_library`); the bound
   (`chip_smoke.podaff_bound`).
+* `k13-phases`: device ms a launch at the affinity shape of this
+  checkout's K13 (and with PARENT, of PARENT's) built whole and cut after
+  each of its phases (`K13_CUTS`): the launch, the loads, the present
+  bits, (PARENT's) the class lists; each built from the tree's source
+  with the package's nvcc flags into `.chip_proof/k13_build/` and run
+  through a fresh copy of the tree's own wrapper.
+* `k13-parent-timing` (with PARENT): PARENT's K13 built so, and this
+  checkout's kernel on the same inputs (`affinity_shape` and `c_eq_t`),
+  their tables equal, each timed in turns parent, this, this, parent:
+  ms (CUDA events), device ms a launch and host µs a call, with this
+  checkout's launch plan (`kernels/podaff_score.py · plan`).
 * `affinity-round-ab` (with PARENT): the affinity path (config 5 with
   affinity terms at full size, 2 cycles, chip_smoke's second wave after
   cycle 1) with its loops captured, in a fresh process run from each of
@@ -75,6 +86,130 @@ def k13_timing(device) -> None:
         "library_tn_ms": round(chip_smoke.time_ms(chip_smoke.podaff_library(args, True),
                                                   warmup=1, runs=3), 4),
         "bound_ms": round(b[0], 6), "bound_by": b[1]}), flush=True)
+
+
+# Where a kernel variant stops (`k13_phases`): per tree, each cut's name,
+# the source line it goes before and what it inserts there, a return and
+# a global store that keeps what the phases before it computed.  A tree
+# whose source lacks an anchor (another version of the kernel) skips
+# its cuts.
+K13_CUTS = {
+    "this": (("launch", "  const Smem s = carve<ONE>(smem, d);", "  if (d.C >= 0) return;\n"),
+             ("loads", "  // 2. this node's present bits", "  if (d.C >= 0) return;\n"),
+             ("present_bits", "  // 3. each chunk of classes",
+              "  if (pr0 == 0x9e3779b9u && hb0 == 7u) out[0] = 0.f;\n"
+              "  if (d.C >= 0) return;\n")),
+    "parent": (("launch", "  uint32_t* s_hb = reinterpret_cast<uint32_t*>(smem);",
+                "  if (a.C >= 0) return;\n"),
+               ("present_bits", "  const int chunks = (a.C + a.CC - 1) / a.CC;",
+                "  if (s_pr[tid] == 0x9e3779b9u) a.out[0] = 0.f;\n  if (a.C >= 0) return;\n"),
+               ("lists", "    if (!live) continue;",
+                "    if (s_nn[0] == 0x7fffffff) a.out[0] = 0.f;\n    if (a.C >= 0) return;\n")),
+}
+
+
+def _k13_wrappers(trees: dict) -> dict:
+    """{(tree, cut): K13 wrapper}: each tree's `kernels/podaff_score.py ·
+    podaff_score` (a fresh copy of the module) with its C entry taken from
+    a library built from the tree's `csrc/podaff_score.cu` (cut = "full")
+    and from each variant of K13_CUTS[tree]; every library
+    built with the package's nvcc flags, all at once, into
+    .chip_proof/k13_build/."""
+    import ctypes
+    import types
+
+    from kube_batch_tpu_torch.kernels import build
+
+    out_dir = os.path.join(ROOT, ".chip_proof", "k13_build")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for tree, root in trees.items():
+        kernels = os.path.join(root, "kube_batch_tpu_torch", "kernels")
+        with open(os.path.join(kernels, "csrc", "podaff_score.cu")) as f:
+            text = f.read()
+        variants = {"full": text}
+        for cut, anchor, insert in K13_CUTS[tree]:
+            if text.count(anchor) == 1:
+                variants[cut] = text.replace(anchor, insert + anchor)
+        for cut, body in variants.items():
+            src = os.path.join(out_dir, f"{tree}_{cut}.cu")
+            with open(src, "w") as f:
+                f.write(body)
+            lib = src[:-3] + ".so"
+            procs[tree, cut] = (os.path.join(kernels, "podaff_score.py"), lib, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    wrappers = {}
+    for (tree, cut), (module_path, lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for K13 {tree} {cut}:\n{log}")
+        spec = importlib.util.spec_from_file_location(f"k13_{tree}_{cut}", module_path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        loaded = ctypes.CDLL(lib)
+
+        def function(name, symbol, argtypes, loaded=loaded):
+            fn = getattr(loaded, symbol)
+            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            return fn
+
+        mod.build = types.SimpleNamespace(function=function, ptr=build.ptr, check=build.check,
+                                          stream_handle=build.stream_handle)
+        wrappers[tree, cut] = mod.podaff_score
+    return wrappers
+
+
+def k13_phases(device, wrappers: dict) -> None:
+    """Device ms a launch of each tree's K13 cut after each phase, at the
+    affinity shape: where a launch's time goes."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+
+    host_device = _k1_k3().host_device
+    args = chip_smoke.k13_edge_inputs(device, "affinity_shape")
+    classes, rest = args[0], args[1:]
+    for tree in sorted({t for t, _ in wrappers}):
+        ms = {}
+        for (t, cut), fn in wrappers.items():
+            if t == tree:
+                mine = dataclasses.replace(classes, out=torch.empty_like(classes.out))
+                ms[cut] = host_device(lambda: fn(mine, *rest))["device_ms"]
+        print(json.dumps({"phase": "k13-phases", "tree": tree,
+                          "card": chip_smoke.CARD.get("line"), "device_ms": ms}), flush=True)
+
+
+def k13_parent_timing(device, parent_call) -> None:
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    from kube_batch_tpu_torch.kernels import podaff_score as k13
+
+    host_device = _k1_k3().host_device
+    for case in ("affinity_shape", "c_eq_t"):
+        args = chip_smoke.k13_edge_inputs(device, case)
+        classes, rest = args[0], args[1:]
+        mine = dataclasses.replace(classes, out=torch.empty_like(classes.out))
+        theirs = dataclasses.replace(classes, out=torch.empty_like(classes.out))
+        calls = {"parent": lambda: parent_call(theirs, *rest),
+                 "this": lambda: k13.podaff_score(mine, *rest)}
+        chip_smoke.require_equal(f"podaff_score {case} parent",
+                                 [(calls["this"](), calls["parent"]())])
+        runs = [(who, host_device(calls[who])) for who in ("parent", "this", "this", "parent")]
+        print(json.dumps({
+            "phase": "k13-parent-timing", "case": case, "card": chip_smoke.CARD.get("line"),
+            "tasks": classes.cls.shape[0], "classes": classes.C, "nodes": rest[0].shape[0],
+            "plan": k13.plan(*args[:4]),
+            "runs": [{"tree": who, **{k: t[k] for k in ("ms", "device_ms",
+                                                         "device_operations", "host_us",
+                                                         "host_us_min")}}
+                     for who, t in runs]}), flush=True)
+        del args, classes, rest, mine, theirs, calls
 
 
 _ROUND = r"""
@@ -180,7 +315,10 @@ def main(argv) -> int:
     print(json.dumps({"phase": "edge", "max_abs_err": errs}), flush=True)
     if not edge_only:
         k13_timing(device)
+        wrappers = _k13_wrappers({"this": ROOT, **({"parent": parent} if parent else {})})
+        k13_phases(device, wrappers)
         if parent:
+            k13_parent_timing(device, wrappers["parent", "full"])
             affinity_round_ab(parent)
     torch.cuda.synchronize()
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}), flush=True)

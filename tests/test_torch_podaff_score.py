@@ -21,6 +21,10 @@ preference rows, against the reference package's, exactly.
 
 from __future__ import annotations
 
+import ctypes
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -171,12 +175,52 @@ def test_classes_match_numpy_unique(case):
     assert classes.out.shape == (len(uniq), snap.num_nodes)
 
 
+@pytest.mark.parametrize("case", sorted(WORLDS) + list(SEEDED))
+def test_class_lists_match_numpy_nonzero(case):
+    """The kernel's lists (built once a cycle with the classes): each part
+    of a class row holds its nonzero weights in ascending k, as
+    `np.nonzero` finds them, then (k, +0) for every zero weight in
+    ascending k; the counts are the nonzero weights of each part."""
+    fields = _fields_of(case)
+    classes = nodeorder.podpref_classes(from_numpy(fields, "cpu"))
+    if classes is None:
+        return
+    K = classes.rows.shape[1]
+    lists, counts = classes.lists.numpy(), classes.counts.numpy()
+    assert lists.dtype == np.int32 and counts.dtype == np.int32
+    assert lists.shape == (classes.C, K + classes.rows_topo.shape[1], 2)
+    for c in range(classes.C):
+        for part, (row, at) in enumerate([(classes.rows[c].numpy(), 0),
+                                          (classes.rows_topo[c].numpy(), K)]):
+            entries = lists[c, at:at + len(row)]
+            (nz,) = np.nonzero(row)
+            assert counts[c, part] == len(nz)
+            np.testing.assert_array_equal(entries[:len(nz), 0], nz)
+            np.testing.assert_array_equal(entries[:len(nz), 1].view(np.float32), row[nz])
+            np.testing.assert_array_equal(entries[len(nz):, 0], np.flatnonzero(row == 0))
+            assert not entries[len(nz):, 1].any()             # +0, not -0
+
+
 @pytest.mark.parametrize("K2", [0, 5, 40])
 def test_plain_is_k_ordered(K2):
     """Arbitrary float32 weights (sums not exact): the plain table equals
     the kernel's walk written out in numpy."""
-    rng = np.random.default_rng(K2)
-    C, N, K, D, TK = 6, 70, 37, 9, 3
+    _check_k_ordered(K2, D=9, TK=3, seed=K2)
+
+
+@pytest.mark.parametrize("case", ["hd_past_shared_memory", "many_topology_keys"])
+def test_plain_is_k_ordered_off_the_shared_route(case):
+    """The same at the operands the kernel takes off its shared-memory
+    route (chip_smoke's `global_route` and `many_keys` cases, cut to a
+    few nodes): Hd of 4,200 domains at K = 37 (33,600 bytes of words,
+    past the 16 KB it stages), and 96 topology keys."""
+    D, TK = (4200, 3) if case == "hd_past_shared_memory" else (9, 96)
+    _check_k_ordered(33, D=D, TK=TK, seed=D + TK)
+
+
+def _check_k_ordered(K2: int, D: int, TK: int, seed: int) -> None:
+    rng = np.random.default_rng(seed)
+    C, N, K = 6, 70, 37
     rows = rng.standard_normal((C, K)).astype(np.float32)
     rows[rng.random((C, K)) < 0.3] = 0
     rows_topo = rng.standard_normal((C, K2)).astype(np.float32)
@@ -186,10 +230,11 @@ def test_plain_is_k_ordered(K2):
     term_key = rng.integers(0, TK, K2).astype(np.int32)
     term_label = rng.integers(0, K, K2).astype(np.int32)
     t = torch.from_numpy
+    lists, counts = k13.class_lists(t(rows), t(rows_topo))
     classes = k13.PrefClasses(
         cls=torch.arange(C, dtype=torch.int32), rows=t(rows), rows_topo=t(rows_topo),
         denom=torch.clamp(k13.ordered_sum(t(np.concatenate([rows, rows_topo], 1))), min=1e-9),
-        out=torch.empty((C, N), dtype=torch.float32))
+        out=torch.empty((C, N), dtype=torch.float32), lists=lists, counts=counts)
     w = 1.3
     got = k13.podaff_score(classes, k11.pack(t(hb)), k11.pack(t(hd)) if K2 else None,
                            t(nkd), t(term_key), t(term_label), w).numpy()
@@ -263,3 +308,48 @@ def test_no_soft_terms_no_term():
     assert st.aux[nodeorder.PODPREF_AUX] is None
     assert nodeorder.pod_affinity_score(snap, st) is None
     assert not any(isinstance(e, k2.ClassTerm) for e in policy.score_spec().extra_terms(snap, st))
+
+
+def _c_parameters(source: str, entry: str) -> list[str]:
+    """The parameter types of `extern "C" int entry(...)` in `source`."""
+    match = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", source)
+    assert match, entry
+    return [re.sub(r"\s*\b\w+$", "", p.strip()) for p in match.group(1).split(",")]
+
+
+def test_kernel_entries_match_their_bindings():
+    """The wrapper's ctypes argument types follow the C entries of
+    csrc/podaff_score.cu one for one: a pointer or stream as a pointer,
+    an int as an int, a float as a float (a binding off by one argument
+    would shift every size the kernel reads)."""
+    with open(os.path.join(os.path.dirname(k13.__file__), "csrc", "podaff_score.cu")) as f:
+        source = f.read()
+
+    def kind(c_type: str):
+        if c_type.endswith("*") or c_type == "cudaStream_t":
+            return ctypes.c_void_p
+        return {"int": ctypes.c_int, "float": ctypes.c_float}[c_type]
+
+    for entry, signature in (("kb_podaff_score", k13._SIGNATURE),
+                             ("kb_podaff_plan", k13._PLAN_SIGNATURE)):
+        assert [kind(t) for t in _c_parameters(source, entry)] == list(signature), entry
+    assert f"const int v[{len(k13.PLAN_FIELDS)}]" in source   # kb_podaff_plan's fields
+
+
+def test_wrapper_refuses_other_devices():
+    """The plain version runs only for CPU tensors: a tensor on any other
+    device than the CPU or a CUDA card is refused, not computed."""
+    meta = torch.device("meta")
+    C, N, K = 3, 8, 32
+    rows, rows_topo = torch.zeros((C, K), device=meta), torch.zeros((C, 0), device=meta)
+    classes = k13.PrefClasses(
+        torch.zeros(4, dtype=torch.int32, device=meta), rows, rows_topo,
+        torch.ones(C, device=meta), torch.empty((C, N), device=meta),
+        *k13.class_lists(rows, rows_topo))
+    i32 = dict(dtype=torch.int32, device=meta)
+    before = k13.podaff_score.launches
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        k13.podaff_score(classes, torch.zeros((N, 1), **i32), None,
+                         torch.zeros((N, 0), **i32), torch.zeros(0, **i32),
+                         torch.zeros(0, **i32), 1.0)
+    assert k13.podaff_score.launches == before
